@@ -1,0 +1,63 @@
+"""Carry pipeline state between the reference's layout and the port's.
+
+The reference's ``PipelineState`` is given as nested dicts of numpy arrays
+keyed by its field names (``{"pre": {"basis": ..., ...}, "clus": ...,
+"route_labels": ..., ...}``); ``state_from_numpy`` builds the port's state
+from that, and ``state_to_numpy`` goes the other way, for leaf-for-leaf
+comparison. The reference's PRNG key is not carried: the port's state
+gets a fresh ``torch.Generator`` seeded with ``seed``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import clustering, heavy_hitter, index as index_lib, prefilter
+from repro_torch.core.pipeline import PipelineState
+from repro_torch.store import docstore
+
+
+def _build(cls, sub: dict, dev, host_ints=()):
+    vals = {}
+    for name in cls._fields:
+        a = np.asarray(sub[name])
+        vals[name] = int(a) if name in host_ints else \
+            torch.from_numpy(np.array(a)).to(dev)
+    return cls(**vals)
+
+
+def state_from_numpy(tree: dict, device="cpu", seed: int = 0) -> PipelineState:
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return PipelineState(
+        pre=_build(prefilter.PrefilterState, tree["pre"], dev,
+                   ("write_ptr", "fill", "since_update")),
+        clus=_build(clustering.ClusterState, tree["clus"], dev),
+        hh=_build(heavy_hitter.HHState, tree["hh"], dev),
+        index=_build(index_lib.FlatIndex, tree["index"], dev, ("version",)),
+        store=_build(docstore.DocStore, tree["store"], dev),
+        route_labels=torch.from_numpy(np.array(tree["route_labels"])).to(dev),
+        rep_ids=torch.from_numpy(np.array(tree["rep_ids"])).to(dev),
+        rep_sims=torch.from_numpy(np.array(tree["rep_sims"])).to(dev),
+        arrivals=int(np.asarray(tree["arrivals"])),
+        since_upsert=int(np.asarray(tree["since_upsert"])),
+        kept=torch.from_numpy(np.array(tree["kept"])).to(dev),
+        upserts=int(np.asarray(tree["upserts"])),
+        gen=gen)
+
+
+def state_to_numpy(state) -> dict:
+    """Nested dicts of numpy arrays by field name; host integers become
+    int32 scalars, the generator is left out."""
+    out = {}
+    for name, v in zip(state._fields, state):
+        if isinstance(v, torch.Generator):
+            continue
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            out[name] = state_to_numpy(v)
+        elif torch.is_tensor(v):
+            out[name] = v.detach().cpu().numpy()
+        else:
+            out[name] = np.asarray(v, np.int32)
+    return out

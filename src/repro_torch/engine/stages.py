@@ -1,0 +1,202 @@
+"""The composable stages of the streaming engine.
+
+Each stage is a function over plain state tuples; ``engine.engine``
+composes them into the single-device step.
+
+Stage map (ingest):
+
+    admit (fused screen + assign + quantize-on-admit: the ``admit`` kernel)
+      ──► count ──► update_representatives
+                      ├──► store_write     (rows pre-quantized by admit)
+                      └──► upsert_snapshot (every T arrivals)
+
+Stage map (two-stage query):
+
+    serve_topk (fused route + gather + dequant-rerank + top-k: the
+      ``serve`` kernel) ──► decode_rerank
+
+The staged ``screen``/``assign_update``/``route``/``rerank`` forms and the
+sharded and hot-set stages wait for their kernels and slices.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import clustering, heavy_hitter, index as index_lib, prefilter
+from repro_torch.kernels.admit.ops import admit as admit_op
+from repro_torch.kernels.common import host_to_device, l2_normalize
+from repro_torch.kernels.serve.ops import serve_topk as serve_topk_op
+from repro_torch.store import docstore
+
+INT32_MIN = -(2**31)
+
+
+# --------------------------------------------------------------------- ingest
+def admit(pre_cfg: prefilter.PrefilterConfig,
+          clus_cfg: clustering.ClusterConfig,
+          store_cfg: docstore.StoreConfig,
+          pre_state, clus_state, x: torch.Tensor,
+          live: np.ndarray | None = None):
+    """(1)+(2)+(3) fused: window ingest, then the ``admit`` kernel (score,
+    keep = threshold & live, label + cosine, the ring-write-ready row),
+    then the centroid update. ``live`` is the host's [B] bool mask of real
+    rows. Returns (pre, r, keep, clus, labels, sims, v, vscale); v/vscale
+    are None when the store is disabled."""
+    pre = prefilter.ingest(pre_cfg, pre_state, x, mask=live)
+    live_t = None if live is None else host_to_device(
+        np.asarray(live, bool), x.device)
+    r, keep, labels, sims, v, vscale = admit_op(
+        x, pre.basis, clus_state.centroids, pre_cfg.alpha, live_t,
+        store_dtype=store_cfg.store_dtype, normalize=store_cfg.normalize,
+        emit_rows=store_cfg.depth > 0)
+    clus = clustering.update(clus_cfg, clus_state, x, labels, keep)
+    return pre, r, keep, clus, labels, sims, v, vscale
+
+
+def count(hh_cfg: heavy_hitter.HHConfig, hh_state, labels: torch.Tensor,
+          keep: torch.Tensor, draws: dict | None = None,
+          gen: torch.Generator | None = None):
+    """(4) heavy-hitter counting over retained labels (per-arrival loop)."""
+    masked = torch.where(keep, labels, -1).to(torch.int32)
+    hh, info = heavy_hitter.update_batch(hh_cfg, hh_state, masked, gen=gen,
+                                         draws=draws)
+    return hh, masked, info
+
+
+def update_representatives(rep_ids, rep_sims, labels, sims, doc_ids, keep,
+                           k: int):
+    """Track the freshest member doc per cluster (recency scatter-max):
+    doc ids are monotone in arrival time, so the max id is the newest."""
+    seg = torch.where(keep, labels, k).to(torch.int64)
+    cand = torch.where(keep, doc_ids, -1).to(torch.int32)
+    newest = torch.full((k + 1,), INT32_MIN, dtype=torch.int32,
+                        device=rep_ids.device).scatter_reduce(
+        0, seg, cand, reduce="amax")[:k]
+    new_ids = torch.maximum(rep_ids, newest)
+    lc = torch.clamp(labels, max=k - 1).to(torch.int64)
+    wins = keep & (doc_ids >= new_ids[lc])
+    # scatter into a padded copy: row k takes the non-winners (dropped)
+    padded = torch.cat([rep_sims, rep_sims.new_zeros(1)])
+    padded[torch.where(wins, labels, k).to(torch.int64)] = \
+        torch.where(wins, sims, 0.0)
+    return new_ids, padded[:k]
+
+
+def store_write(store_cfg: docstore.StoreConfig, store, x, labels, stored,
+                doc_ids, stamps, v=None, vscale=None):
+    """Ring-write docs that passed both filters (pre-filter relevance and a
+    counter-tracked cluster at arrival); v/vscale are admit's rows."""
+    return docstore.add_batch(store_cfg, store, x, labels, stored, doc_ids,
+                              stamps, v=v, vscale=vscale)
+
+
+def upsert_snapshot(index_cfg: index_lib.IndexConfig, index, hh_state,
+                    centroids, rep_ids):
+    """(5) rebuild the prototype index from the live counter slots and
+    snapshot the slot -> label routing table at the same instant.
+    Returns (new_index, route_labels [bmax] i32, -1 for dead slots)."""
+    lbl = hh_state.labels
+    bmax = lbl.shape[0]
+    lc = torch.clamp(lbl, min=0).to(torch.int64)
+    valid = heavy_hitter.active_mask(hh_state)
+    new_index = index_lib.upsert(
+        index_cfg, index, torch.arange(bmax, device=lbl.device),
+        centroids[lc], rep_ids[lc], valid)
+    return new_index, torch.where(valid, lbl, -1)
+
+
+# -------------------------------------------------------------- observability
+PIPELINE_COUNTER_NAMES = (
+    "arrivals", "admitted", "hh_seen", "hh_evictions", "hh_writes",
+    "hh_occupied", "hh_capacity", "hh_max_count", "store_live",
+    "store_slots", "store_min_fill", "store_max_fill", "index_valid",
+    "upserts",
+)
+
+
+def pipeline_counters(cfg, state) -> torch.Tensor:
+    """Reduce a ``PipelineState`` to the ``[len(PIPELINE_COUNTER_NAMES)]``
+    i32 counter vector on the state's device."""
+    hh = state.hh
+    dev = hh.labels.device
+    occ = heavy_hitter.active_mask(hh)
+    k, depth = state.store.ids.shape
+    z = torch.zeros((), dtype=torch.int32, device=dev)
+    if depth > 0:
+        fill = torch.sum((state.store.ids >= 0).to(torch.int32), dim=1)
+        store = (fill.sum(), fill.min(), fill.max())
+    else:
+        store = (z, z, z)
+
+    def host(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    vals = [host(state.arrivals), state.kept, hh.total_seen,
+            hh.total_evictions, hh.total_writes,
+            occ.to(torch.int32).sum(), hh.active_capacity,
+            torch.where(occ, hh.counts, 0).max(), store[0], host(k * depth),
+            store[1], store[2], state.index.valid.to(torch.int32).sum(),
+            host(state.upserts)]
+    return torch.stack([v.to(torch.int32).reshape(()) for v in vals])
+
+
+def decode_pipeline_counters(stacked) -> dict:
+    """Host decode of fetched counter vectors ``[S, N]`` (S = 1 for the
+    single-device engine) plus the derived rates."""
+    arr = np.asarray(stacked, dtype=np.int64)
+    assert arr.ndim == 2 and arr.shape[1] == len(PIPELINE_COUNTER_NAMES), \
+        arr.shape
+    out = {name: int(arr[0, i]) for i, name in
+           enumerate(PIPELINE_COUNTER_NAMES)}
+    out["admit_rate"] = out["admitted"] / max(out["arrivals"], 1)
+    out["store_fill"] = out["store_live"] / max(out["store_slots"], 1)
+    out["hh_occupancy"] = out["hh_occupied"] / max(out["hh_capacity"], 1)
+    return out
+
+
+# ---------------------------------------------------------------------- query
+def slice_rings(embs, live, scales, depth: int | None):
+    """Clip ring buffers to a plan's rerank ``depth`` as views (the serve
+    kernel reads them through their strides; nothing is copied). None or
+    ``depth >= store depth`` passes the arrays through."""
+    if depth is None or depth >= embs.shape[1]:
+        return embs, live, scales
+    return (embs[:, :depth], live[:, :depth],
+            None if scales is None else scales[:, :depth])
+
+
+def serve_topk(index_cfg: index_lib.IndexConfig, index, route_labels, store,
+               q: torch.Tensor, k: int, nprobe: int, depth: int | None = None):
+    """Stages 1+2 fused in the ``serve`` kernel: route each query through
+    the prototype index to ``nprobe`` clusters, gather their rings (first
+    ``depth`` slots; None = full), dequant-rerank, top-``k``. Returns
+    (scores [Q, k] desc, pos [Q, k] = j*depth+slot, routes [Q, nprobe]),
+    -1 for dead entries."""
+    qn = l2_normalize(q)
+    qr = qn if index_cfg.normalize else q.to(torch.float32).contiguous()
+    scales = store.scales if store.embs.dtype == torch.int8 else None
+    embs, live, scales = slice_rings(store.embs, docstore.live_mask(store),
+                                     scales, depth)
+    return serve_topk_op(qr, qn, index.vectors, index.valid, route_labels,
+                         embs, live, k, nprobe, scales=scales)
+
+
+def decode_rerank(store_ids, routes, scores, pos, depth: int, nprobe: int,
+                  store_depth: int | None = None):
+    """Resolve rerank positions into (scores, rows, doc_ids, clusters);
+    rows are flat store positions cluster*store_depth + slot, -1 where
+    dead. ``depth`` is the depth ``pos`` was encoded with."""
+    if store_depth is None:
+        store_depth = depth
+    dead = pos < 0
+    p = pos.to(torch.int64)
+    j = torch.clamp(torch.div(p, depth, rounding_mode="floor"), 0, nprobe - 1)
+    slot = torch.clamp(torch.remainder(p, depth), 0, depth - 1)
+    cluster = torch.gather(routes.to(torch.int64), 1, j)
+    cluster = torch.where(dead, -1, cluster)
+    cc = torch.clamp(cluster, min=0)
+    doc_ids = torch.where(dead, -1, store_ids[cc, slot])
+    rows = torch.where(dead, -1, cc * store_depth + slot)
+    return (scores, rows.to(torch.int32), doc_ids.to(torch.int32),
+            cluster.to(torch.int32))

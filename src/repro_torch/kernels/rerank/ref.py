@@ -1,0 +1,32 @@
+"""Plain PyTorch version of the ``rerank`` kernel's function: exact top-k
+over each query's routed ring buffers. The kernel itself is still to be
+ported; on the query path the fused ``serve`` kernel reranks, and this is
+a piece of its plain version."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.common import NEG_INF, stable_topk
+
+
+def rerank_topk_ref(q: torch.Tensor, embs: torch.Tensor, live: torch.Tensor,
+                    routes: torch.Tensor, k: int,
+                    scales: torch.Tensor | None = None):
+    """q [Q, d] unit queries; embs [C, depth, d] (f32, or int8 with
+    ``scales`` [C, depth]); live [C, depth] bool; routes [Q, P] i32 (-1 =
+    no route). Scores are ``(q · e) * scale`` in fp32. Returns (scores
+    [Q, k] desc with NEG_INF for dead entries, pos [Q, k] i32 =
+    j * depth + slot, -1 where dead); ties to the lowest position."""
+    Q = q.shape[0]
+    C = embs.shape[0]
+    r = torch.clamp(routes, 0, C - 1).to(torch.int64)
+    cand = embs[r]                                        # [Q, P, depth, d]
+    s = torch.einsum("qd,qpsd->qps", q.to(torch.float32),
+                     cand.to(torch.float32))
+    if scales is not None:
+        s = s * scales[r].to(torch.float32)
+    ok = live[r] & (routes >= 0)[..., None]
+    s = torch.where(ok, s, NEG_INF).reshape(Q, -1)        # [Q, P*depth]
+    scores, pos = stable_topk(s, k)
+    pos = torch.where(scores > NEG_INF / 2, pos, -1)
+    return scores, pos.to(torch.int32)

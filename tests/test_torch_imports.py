@@ -1,0 +1,67 @@
+"""Import hygiene of the port: importing every ``repro_torch`` module and
+``chip_smoke.py``'s module-level imports loads no JAX and nothing of the
+JAX package; and the entry points run on the card by default, never
+silently on the CPU."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.path[:0] = [{os.path.join(ROOT, "src")!r}, {ROOT!r}]
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                       "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke  # its module-level imports; main() is not run
+        bad = sorted(n for n in sys.modules
+                     if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+        assert not bad, bad
+        assert len(names) >= 30, names
+        print(len(names))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_run_on_the_card_by_default():
+    """Without ``device=`` the entry points take ``cuda``; where there is
+    no card they raise rather than fall back to the CPU."""
+    from repro_torch.configs.streaming_rag import paper_pipeline_config
+    from repro_torch.core import pipeline
+    from repro_torch.engine.engine import Engine
+    from repro_torch.serve.server import RAGServer, ServerConfig
+
+    cfg = paper_pipeline_config(dim=16, k=8, capacity=8)
+    makers = (lambda: pipeline.init(cfg),
+              lambda: Engine(cfg).state,
+              lambda: RAGServer(cfg, ServerConfig(topk=4), seed=0).state)
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().route_labels.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+    assert Engine(cfg, device="cpu").state.route_labels.device.type == "cpu"
+
+
+def test_unported_server_options_raise():
+    from repro_torch.configs.streaming_rag import paper_pipeline_config
+    from repro_torch.serve.server import RAGServer, ServerConfig
+
+    cfg = paper_pipeline_config(dim=16, k=8, capacity=8, store_depth=4)
+    for opt in ({"adaptive": True}, {"cache_entries": 8}, {"hotset": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+            RAGServer(cfg, ServerConfig(topk=4, two_stage=True, nprobe=2,
+                                        **opt), seed=0, device="cpu")

@@ -1,0 +1,148 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Run where there is one:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py -q
+
+Elsewhere every test skips with its reason (the ``cuda`` fixture decides,
+at run time). Tolerances, as in ``chip_smoke.py``: floats within rtol
+1e-5 / atol 1e-6; decisions equal except at near-ties, where the plain
+version's competing scores differ by under 1e-5 and the kernel's pick
+must score within 1e-5 of the plain pick; int8 rows equal or off by one
+where v/scale lies within 1e-4 of a half-integer; scales within 2 ulp.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.common import NEG_INF, l2_normalize
+from repro_torch.kernels.counts import COUNTS
+
+pytestmark = pytest.mark.gpu
+TIE = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels run only "
+                    "on the card (their plain versions are tested on the CPU)")
+    return torch.device("cuda")
+
+
+def _close(a, b):
+    return bool(((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all())
+
+
+@pytest.mark.parametrize("store_dtype", ["fp32", "int8"])
+@pytest.mark.parametrize("B,K,d", [(256, 4218, 384), (17, 700, 96), (1, 5, 64)])
+def test_admit_kernel_matches_plain(cuda, store_dtype, B, K, d):
+    from repro_torch.kernels.admit.admit import admit_cuda
+    from repro_torch.kernels.admit.ref import admit_ref
+
+    g = torch.Generator(device=cuda).manual_seed(B)
+    x = torch.randn((B, d), generator=g, device=cuda)
+    basis = torch.randn((5, d), generator=g, device=cuda)
+    cent = torch.randn((K, d), generator=g, device=cuda)
+    if K > 3:
+        cent[K - 1] = cent[2]            # exact tie: 2 must win
+    live = torch.rand((B,), generator=g, device=cuda) < 0.8
+    x[~live] = 0.0
+    alpha = 0.01
+    before = COUNTS["admit"].kernel
+    k = admit_cuda(x, basis, cent, alpha, live, store_dtype=store_dtype)
+    p = admit_ref(x, basis, cent, alpha, live, store_dtype=store_dtype)
+    assert COUNTS["admit"].kernel == before + 1
+    assert _close(k[0], p[0]) and _close(k[3], p[3])
+    assert bool(((k[1] == p[1]) | ((p[0] - alpha).abs() < TIE)).all())
+    sims = l2_normalize(x) @ l2_normalize(cent).T
+    pk = sims.gather(1, k[2].long()[:, None])[:, 0]
+    pp = sims.gather(1, p[2].long()[:, None])[:, 0]
+    assert bool(((k[2] == p[2]) | (pk >= pp - TIE)).all())
+    if store_dtype == "int8":
+        ulp = torch.nextafter(p[5], torch.full_like(p[5], np.inf)) - p[5]
+        assert bool(((k[5] - p[5]).abs() <= 2 * ulp).all())
+        z = l2_normalize(x) / p[5][:, None]
+        half = (z - z.floor() - 0.5).abs() < 1e-4
+        diff = k[4].int() - p[4].int()
+        assert bool(((diff == 0) | ((diff.abs() == 1) & half)).all())
+    else:
+        assert _close(k[4], p[4])
+
+
+@pytest.mark.parametrize("Q,N,k", [(64, 4218, 10), (3, 5000, 1000), (1, 7, 7)])
+def test_mips_kernel_matches_plain(cuda, Q, N, k):
+    from repro_torch.kernels.mips.mips import mips_topk_cuda
+    from repro_torch.kernels.mips.ref import mips_topk_ref
+
+    g = torch.Generator(device=cuda).manual_seed(N)
+    d = 384
+    index = l2_normalize(torch.randn((N, d), generator=g, device=cuda))
+    index[N - 1] = index[0]
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
+    q[0] = index[0]                        # row 0 ties row N-1: 0 first
+    valid = torch.rand((N,), generator=g, device=cuda) < 0.9
+    valid[0] = valid[N - 1] = True
+    s_k, i_k = mips_topk_cuda(q, index, valid, k)
+    s_p, i_p = mips_topk_ref(q, index, valid, k)
+    assert _close(s_k, s_p)
+    S = torch.where(valid[None], q @ index.T, NEG_INF)
+    got = S.gather(1, i_k.long())
+    assert bool(((i_k == i_p) | ((got - s_p).abs() < TIE)).all())
+    assert int(i_k[0, 0]) == 0 and (N == 1 or int(i_k[0, 1]) == N - 1)
+
+
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("depth", [None, 5])
+def test_serve_kernel_matches_plain(cuda, quantized, depth):
+    from repro_torch.kernels.serve.ref import serve_topk_ref
+    from repro_torch.kernels.serve.serve import serve_topk_cuda
+    from repro_torch.store import quant
+
+    g = torch.Generator(device=cuda).manual_seed(int(quantized))
+    Q, d, cap, C, D, k, P = 33, 128, 500, 300, 16, 10, 8
+    v = l2_normalize(torch.randn((cap, d), generator=g, device=cuda))
+    valid = torch.rand((cap,), generator=g, device=cuda) < 0.9
+    labels = torch.randint(0, C, (cap,), generator=g, device=cuda).int()
+    labels[torch.rand((cap,), generator=g, device=cuda) < 0.2] = -1
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
+    rows = l2_normalize(torch.randn((C * D, d), generator=g, device=cuda))
+    live = torch.rand((C, D), generator=g, device=cuda) < 0.7
+    if quantized:
+        e, s = quant.quantize_int8(rows, dim=-1)
+        embs, scales = e.view(C, D, d), s.view(C, D)
+    else:
+        embs, scales = rows.view(C, D, d), None
+    if depth is not None:    # a strided view of the full rings, never copied
+        embs, live = embs[:, :depth], live[:, :depth]
+        scales = None if scales is None else scales[:, :depth]
+    out_k = serve_topk_cuda(q, q, v, valid, labels, embs, live, k, P, scales)
+    out_p = serve_topk_ref(q, q, v, valid, labels, embs, live, k, P, scales)
+    (s_k, p_k, r_k), (s_p, p_p, r_p) = out_k, out_p
+    assert bool((r_k == -1).any())
+    same = (r_k == r_p).all(dim=1)
+    assert int(same.sum()) >= Q - 2          # route near-ties are rare
+    assert _close(s_k[same], s_p[same])
+    assert bool(((p_k == p_p) | ((s_k - s_p).abs() < TIE))[same].all())
+
+
+def test_engine_on_card_launches_the_kernels(cuda):
+    from repro_torch.configs.streaming_rag import paper_pipeline_config
+    from repro_torch.engine.engine import Engine
+    from repro_torch.kernels import counts
+
+    cfg = paper_pipeline_config(dim=64, k=32, capacity=32, store_depth=8,
+                                update_interval=64, alpha=0.0,
+                                store_dtype="int8")
+    rng = np.random.default_rng(0)
+    eng = Engine(cfg, 0, rng.normal(size=(64, 64)).astype(np.float32))
+    counts.reset_all()
+    for step in range(3):
+        eng.ingest(rng.normal(size=(32, 64)).astype(np.float32),
+                   np.arange(step * 32, step * 32 + 32, dtype=np.int32))
+    q = rng.normal(size=(4, 64)).astype(np.float32)
+    for two in (True, False):
+        s, rows, ids, cl = eng.query(q, 5, two_stage=two, nprobe=4)
+        assert s.is_cuda and torch.isfinite(s).all()
+    snap = counts.snapshot()
+    assert all(snap[n]["kernel"] > 0 and snap[n]["plain"] == 0
+               for n in ("admit", "serve", "mips")), snap
