@@ -16,19 +16,38 @@
    int8 rows are equal or off by one only where v/scale lies within 1e-4
    of a half-integer; scales agree within 2 ulp. Times are CUDA events over
    warm repeated calls.
+   The staged path's kernels (rerank, prefilter, assign) are held the
+   same way, with their edge cases: a depth-32 strided ring view, fp32
+   rings, dead and duplicate routes, k above the live count; a zero
+   basis row and a batch off the 8-row block; K = 4218 and B = 1.
 3. Main path: a ``RAGServer`` on the full-size int8 config ingests 16
    batches of the NYT-like stream and answers queries two-stage, then a
    prototype-only server answers on the same engine; every ticket must be
    answered, every kernel launched (counts reset just before, read just
    after) and no plain version called. The fp32 config (depth 16) runs a
    few batches too. Answers are checked against the plain versions.
-4. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
+4. Staged path: the same config, seed, warmup and the main path's own 16
+   batches, from a fresh init, through ``engine.staged_ingest_impl``
+   (``screen -> assign_update -> count -> update_representatives ->
+   store_write (store-side quantize) -> upsert_snapshot``), and 8 flushes
+   of 64 queries through ``route -> rerank -> decode_rerank`` on a
+   published snapshot; counts reset just before: prefilter and assign
+   launch once per batch, mips and rerank once per flush, admit and serve
+   never, no plain version runs. The store must fill (at least 128 live
+   ring slots, 8 valid prototypes, 90% of routes and picks live), so the
+   comparison is not empty. Held per batch against the fused
+   ``ingest_impl`` on the same batches and counter draws (keep, labels
+   and ring rows under the near-tie rule; a near-tie that flips a
+   decision is reported and ends the comparison there), and per flush
+   against the fused ``serve_topk`` on the same snapshot (routes, pos).
+5. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -46,13 +65,21 @@ from repro_torch.configs.streaming_rag import paper_pipeline_config  # noqa: E40
 from repro_torch.core import heavy_hitter, pipeline  # noqa: E402
 from repro_torch.data.streams import make_stream  # noqa: E402
 from repro_torch.engine import stages  # noqa: E402
+from repro_torch.engine.engine import (Engine, ingest_impl,  # noqa: E402
+                                       staged_ingest_impl)
 from repro_torch.kernels import build, counts  # noqa: E402
 from repro_torch.kernels.admit.admit import admit_cuda  # noqa: E402
 from repro_torch.kernels.admit.ref import admit_ref  # noqa: E402
+from repro_torch.kernels.assign.assign import assign_cuda  # noqa: E402
+from repro_torch.kernels.assign.ref import assign_ref  # noqa: E402
 from repro_torch.kernels.common import (NEG_INF, l2_normalize,  # noqa: E402
                                         require_full_fp32)
 from repro_torch.kernels.mips.mips import mips_topk_cuda  # noqa: E402
 from repro_torch.kernels.mips.ref import mips_topk_ref  # noqa: E402
+from repro_torch.kernels.prefilter.prefilter import prefilter_scores_cuda  # noqa: E402
+from repro_torch.kernels.prefilter.ref import prefilter_scores_ref  # noqa: E402
+from repro_torch.kernels.rerank.ref import rerank_topk_ref  # noqa: E402
+from repro_torch.kernels.rerank.rerank import rerank_topk_cuda  # noqa: E402
 from repro_torch.kernels.serve.ref import serve_topk_ref  # noqa: E402
 from repro_torch.kernels.serve.serve import serve_topk_cuda  # noqa: E402
 from repro_torch.serve.server import RAGServer, ServerConfig  # noqa: E402
@@ -64,9 +91,16 @@ RTOL, ATOL, TIE = 1e-5, 1e-6, 1e-5
 SPIN_CYCLES = 300_000_000   # about 0.2 s of one spinning kernel at H100 clocks
 SEED = 0
 BATCH, QUERIES, TOPK, NPROBE = 256, 64, 10, 8
+MAIN_BATCHES, STAGED_FLUSHES = 16, 8
+# the staged store must hold at least this much for its comparison to mean
+# anything (the main path's batches fill ~180 slots and ~11 prototypes)
+MIN_LIVE_SLOTS, MIN_PROTOTYPES, MIN_LIVE_SHARE = 128, 8, 0.9
 SOURCES = {"admit": "src/repro/kernels/admit/admit.py:177",
            "serve": "src/repro/kernels/serve/serve.py:230",
-           "mips": "src/repro/kernels/mips/mips.py:79"}
+           "mips": "src/repro/kernels/mips/mips.py:79",
+           "rerank": "src/repro/kernels/rerank/rerank.py:141",
+           "prefilter": "src/repro/kernels/prefilter/prefilter.py:58",
+           "assign": "src/repro/kernels/assign/assign.py:78"}
 
 
 def full_config(store_dtype: str, depth: int) -> pipeline.PipelineConfig:
@@ -135,7 +169,7 @@ class Check:
             self.fail.append(f"{what}: {n_diff - n_ok} mismatches not at near-ties")
 
     def done(self, label):
-        print(f"  check {self.name:5s} {label:28s} "
+        print(f"  check {self.name:9s} {label:28s} "
               f"{'ok' if not self.fail else 'FAIL'}  near-ties {self.ties}  "
               f"max|d| {self.err:.3g}")
         if self.fail:
@@ -207,15 +241,31 @@ def ring_score(qn, embs, live, scales, cluster, slot):
     return torch.where(ok, s, NEG_INF)
 
 
+def entry_scores(qn, embs, live, scales, routes, pos):
+    """Plain score of each picked entry pos = j * depth + slot of the
+    query's route list (NEG_INF where pos is -1)."""
+    depth = embs.shape[1]
+    cl = routes.gather(1, (pos.clamp(min=0) // depth).long())
+    cl = torch.where(pos >= 0, cl, -1)
+    return ring_score(qn, embs, live, scales, cl, pos.clamp(min=0) % depth)
+
+
 def check_serve(qr, qn, vectors, valid, labels, embs, live, scales, k, nprobe,
                 chk: Check):
-    depth = embs.shape[1]
     out_k = serve_topk_cuda(qr, qn, vectors, valid, labels, embs, live, k,
                             nprobe, scales)
     out_p = serve_topk_ref(qr, qn, vectors, valid, labels, embs, live, k,
                            nprobe, scales)
     torch.cuda.synchronize()
-    (s_k, p_k, r_k), (s_p, p_p, r_p) = out_k, out_p
+    hold_answers(qr, qn, vectors, valid, embs, live, scales, out_k, out_p, chk)
+    return out_k
+
+
+def hold_answers(qr, qn, vectors, valid, embs, live, scales, got, want, chk: Check):
+    """Two-stage answers ``got`` = (scores, pos, routes) against ``want``
+    on the same index and rings, under the near-tie rule."""
+    nprobe = got[2].shape[1]
+    (s_k, p_k, r_k), (s_p, p_p, r_p) = got, want
     # routes: a mismatch is allowed only after a near-tie among the plain
     # route scores up to that probe
     rs = torch.sort(plain_route_scores(qr, vectors, valid), dim=1,
@@ -226,15 +276,12 @@ def check_serve(qr, qn, vectors, valid, labels, embs, live, scales, k, nprobe,
     route_diff = (r_k != r_p).any(dim=1)
     chk.decisions("routes", route_diff, tie_q)
     same = ~route_diff
-    # positions: where routes agree, the kernel's pick must score (under the
-    # plain scoring of that ring entry) within TIE of the plain pick
-    cl = r_k.gather(1, (p_k.clamp(min=0) // depth).long())
-    cl = torch.where(p_k >= 0, cl, -1)
-    got = ring_score(qn, embs, live, scales, cl, p_k.clamp(min=0) % depth)
+    # positions: where routes agree, the pick must score (under the plain
+    # scoring of that ring entry) within TIE of the reference's pick
+    entry = entry_scores(qn, embs, live, scales, r_k, p_k)
     chk.floats("scores", s_k[same], s_p[same])
-    chk.floats("scores vs entries", s_k[same], got[same])
-    chk.decisions("pos", (p_k != p_p) & same[:, None], (got - s_p).abs() < TIE)
-    return out_k
+    chk.floats("scores vs entries", s_k[same], entry[same])
+    chk.decisions("pos", (p_k != p_p) & same[:, None], (entry - s_p).abs() < TIE)
 
 
 def serve_bound(Q, d, cap, routes, depth, nprobe, k, itemsize, int8):
@@ -257,6 +304,126 @@ def synthetic_store(C, depth, d, int8, gen, fill=0.6):
     live = torch.rand((C, depth), generator=gen, device=dev) < fill
     live[torch.rand((C,), generator=gen, device=dev) < 0.05] = False  # empty rings
     return embs, live, scales
+
+
+# ------------------------------------------------------------------ rerank
+def check_rerank(q, embs, live, routes, k, scales, chk: Check):
+    s_k, p_k = rerank_topk_cuda(q, embs, live, routes, k, scales)
+    s_p, p_p = rerank_topk_ref(q, embs, live, routes, k, scales)
+    torch.cuda.synchronize()
+    got = entry_scores(q, embs, live, scales, routes, p_k)
+    chk.floats("scores", s_k, s_p)
+    chk.floats("scores vs entries", s_k, got)
+    chk.decisions("pos", p_k != p_p, (got - s_p).abs() < TIE)
+    return s_k, p_k
+
+
+def rerank_bound(Q, d, routes, depth, k, itemsize, int8):
+    """Bytes: queries, routes, each distinct routed ring once, outputs."""
+    distinct = int(torch.unique(routes[routes >= 0]).numel())
+    ring = depth * (d * itemsize + 1 + (4 if int8 else 0))
+    nbytes = Q * d * 4 + routes.numel() * 4 + distinct * ring + Q * k * 8
+    return bound(2.0 * Q * routes.shape[1] * depth * d, nbytes)
+
+
+# --------------------------------------------------------------- prefilter
+def check_prefilter(x, basis, alpha, chk: Check):
+    r_k = prefilter_scores_cuda(x, basis)
+    r_p = prefilter_scores_ref(x, basis)
+    torch.cuda.synchronize()
+    chk.floats("r", r_k, r_p)
+    chk.decisions("keep", (r_k >= alpha) != (r_p >= alpha),
+                  (r_p - alpha).abs() < TIE)
+
+
+def prefilter_bound(B, n, d):
+    return bound(2.0 * B * n * d + 3.0 * B * d, 4 * (B * d + n * d + B))
+
+
+# ------------------------------------------------------------------ assign
+def label_ties(x, cent, lab_k, lab_p):
+    """Where two label vectors differ, whether the plain cosines of the
+    two picks lie within TIE of each other."""
+    sims = l2_normalize(x) @ l2_normalize(cent).T
+    pick_k = sims.gather(1, lab_k.long()[:, None])[:, 0]
+    pick_p = sims.gather(1, lab_p.long()[:, None])[:, 0]
+    return (pick_k - pick_p).abs() < TIE
+
+
+def check_assign(x, cent, chk: Check):
+    i_k, s_k = assign_cuda(x, cent)
+    i_p, s_p = assign_ref(x, cent)
+    torch.cuda.synchronize()
+    chk.floats("sims", s_k, s_p)
+    chk.decisions("labels", i_k != i_p, label_ties(x, cent, i_k, i_p))
+
+
+def assign_bound(B, K, d):
+    return bound(2.0 * B * K * d + 3.0 * (B + K) * d, 4 * (B * d + K * d) + 8 * B)
+
+
+def check_stage_kernels(results, x, st, alpha, q, vectors, valid, labels, gen):
+    """The staged path's kernels against their plain versions at the main
+    path's shapes, plus edge cases; device, host, plain and library times."""
+    K, d = st.clus.centroids.shape
+    # ---- rerank: routes from the index (10% dead labels), 8 queries with
+    # a duplicate route, one query routed nowhere
+    _, slots = mips_topk_ref(q, vectors, valid, NPROBE)
+    routes = labels[slots.long()]
+    routes[:8, 1] = routes[:8, 0]
+    routes[9] = -1
+    chk = Check("rerank")
+    embs, live_r, scales = synthetic_store(K, 64, d, True, gen)
+    check_rerank(q, embs, live_r, routes, TOPK, scales, chk)
+    check_rerank(q, embs[:, :32], live_r[:, :32], routes, TOPK, scales[:, :32], chk)
+    ms, host = cuda_ms(lambda: rerank_topk_cuda(q, embs, live_r, routes, TOPK, scales))
+    plain, _ = cuda_ms(lambda: rerank_topk_ref(q, embs, live_r, routes, TOPK, scales),
+                       iters=5)
+    b_ms, b_by = rerank_bound(QUERIES, d, routes, 64, TOPK, 1, True)
+    del embs, live_r, scales
+    e32, l32, _ = synthetic_store(K, 16, d, False, gen)
+    _, p32 = check_rerank(q, e32, l32, routes, 100, None, chk)
+    short = int((p32 < 0).any(dim=1).sum())
+    assert short > 0, "k = 100 must exceed some query's live candidates"
+    del e32, l32
+    chk.done(f"int8 d64 + view d32 + fp32 d16 k100 ({short} q k>live)")
+    results["rerank"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None, host_ms=host)
+
+    # ---- prefilter: admit's ragged batch, a zero basis row, B off the block
+    basis = st.pre.basis
+    bz = basis.clone()
+    bz[2] = 0.0
+    chk = Check("prefilter")
+    check_prefilter(x, basis, alpha, chk)
+    check_prefilter(x, bz, alpha, chk)
+    check_prefilter(x[:250], basis, alpha, chk)
+    chk.done("zero basis row, B=250, 37 dead rows")
+    ms, host = cuda_ms(lambda: prefilter_scores_cuda(x, basis))
+    plain, _ = cuda_ms(lambda: prefilter_scores_ref(x, basis))
+    F = torch.nn.functional
+    lib, _ = cuda_ms(lambda: torch.mean(torch.mm(F.normalize(x), F.normalize(basis).T), 1))
+    b_ms, b_by = prefilter_bound(BATCH, basis.shape[0], d)
+    results["prefilter"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=lib, host_ms=host)
+    print("  prefilter library_ms is four calls: "
+          "torch.mean(torch.mm(F.normalize(x), F.normalize(basis).T), 1)")
+
+    # ---- assign: the batch against all K centroids, and one row alone
+    cent = st.clus.centroids
+    chk = Check("assign")
+    check_assign(x, cent, chk)
+    check_assign(x[:1], cent, chk)
+    chk.done(f"K={K}, B=256 and B=1")
+    ms, host = cuda_ms(lambda: assign_cuda(x, cent))
+    plain, _ = cuda_ms(lambda: assign_ref(x, cent))
+    xn, cn = l2_normalize(x), l2_normalize(cent)
+    lib, _ = cuda_ms(lambda: torch.max(torch.mm(xn, cn.T), 1))
+    b_ms, b_by = assign_bound(BATCH, K, d)
+    results["assign"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib, host_ms=host)
+    print("  assign library_ms is two calls on unit rows: torch.max(torch.mm(xn, cn.T), 1)")
+    print("  rerank: no single PyTorch call computes the same function (library_ms null)")
 
 
 # -------------------------------------------------------------------- main
@@ -360,6 +527,7 @@ def phase_kernels(results: dict):
                             bound_ms=b_ms, bound_by=b_by, library_ms=None, host_ms=host)
     print("  admit and serve: no single PyTorch call computes the same "
           "function (library_ms null)")
+    check_stage_kernels(results, x, st, alpha, q, vectors, valid, labels, gen)
     return stream, warm
 
 
@@ -392,8 +560,31 @@ def compare_with_plain(engine, q, two_stage):
     return int(((i_k != i_p) & (s_p > NEG_INF / 2)).sum())
 
 
+@contextlib.contextmanager
+def timed_heavy_hitter():
+    """Times each ``heavy_hitter.update_batch`` call (the per-arrival loop's
+    share of ingest) into the yielded list, in ms."""
+    hh_ms = []
+    real_update = heavy_hitter.update_batch
+
+    def timed_update(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_update(*a, **kw)
+        torch.cuda.synchronize()
+        hh_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    heavy_hitter.update_batch = timed_update
+    try:
+        yield hh_ms
+    finally:
+        heavy_hitter.update_batch = real_update
+
+
 def phase_main(stream, warm, results):
-    """``stream`` continues the stream the warmup came from."""
+    """``stream`` continues the stream the warmup came from. Returns the
+    ingested batches."""
     cfg = full_config("int8", 64)
     scfg = ServerConfig(max_batch=QUERIES, topk=TOPK, two_stage=True, nprobe=NPROBE)
     torch.cuda.reset_peak_memory_stats()
@@ -404,23 +595,11 @@ def phase_main(stream, warm, results):
           f"{cfg.store_depth}, state {pipeline.state_memory_bytes(cfg) / 1e6:.1f} MB, "
           f"init {time.perf_counter() - t0:.2f} s")
 
-    hh_ms = []
-    real_update = heavy_hitter.update_batch
-
-    def timed_update(*a, **kw):   # the per-arrival loop's share of ingest
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = real_update(*a, **kw)
-        torch.cuda.synchronize()
-        hh_ms.append((time.perf_counter() - t) * 1e3)
-        return out
-
-    batches = [stream.next_batch(BATCH) for _ in range(16)]
+    batches = [stream.next_batch(BATCH) for _ in range(MAIN_BATCHES)]
     queries = stream.queries(QUERIES * 12)["embedding"]
     counts.reset_all()
-    heavy_hitter.update_batch = timed_update
     ingest_ms, submitted, answers = [], 0, []
-    try:
+    with timed_heavy_hitter() as hh_ms:
         for i, b in enumerate(batches):
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -438,15 +617,13 @@ def phase_main(stream, warm, results):
         for qv in queries[-2 * QUERIES:]:
             proto.submit(qv)
         proto_answers = proto.drain()
-    finally:
-        heavy_hitter.update_batch = real_update
     torch.cuda.synchronize()
     launches = counts.snapshot()
     print(f"  launches on the main path: {launches}")
     for name in ("admit", "serve", "mips"):
         assert launches[name]["kernel"] > 0, f"{name} kernel never launched"
-        assert launches[name]["plain"] == 0, f"{name} plain version ran"
         results[name]["launches"] = launches[name]["kernel"]
+    assert all(c["plain"] == 0 for c in launches.values()), "a plain version ran"
     assert len(answers) == submitted, (len(answers), submitted)
     assert sorted(a["ticket"] for a in answers) == list(range(submitted))
     assert len(proto_answers) == 2 * QUERIES
@@ -510,6 +687,147 @@ def phase_main(stream, warm, results):
     print(f"  fp32 depth-16 config: k={cfg32.clus.num_clusters}, 5 batches, "
           f"{len(got)} answered, upserts {server32.engine.state.upserts}, vs plain: "
           f"{n} near-tie id swaps")
+    return batches
+
+
+def written(store, before_ids):
+    """(index tuple, ids, int8 rows, scales) of the ring slots a batch wrote."""
+    w = torch.nonzero(store.ids != before_ids, as_tuple=True)
+    return w, store.ids[w], store.embs[w], store.scales[w]
+
+
+def phase_staged(stream, warm, batches, results):
+    """The staged decomposition on the main path's config, seed, warmup
+    and batches, held against the fused composition on the same batches."""
+    cfg = full_config("int8", 64)
+    alpha, depth = cfg.pre.alpha, cfg.store_depth
+    n_batches = len(batches)
+    queries = torch.from_numpy(stream.queries(QUERIES * STAGED_FLUSHES)["embedding"]).cuda()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+    draws = [heavy_hitter.draw(cfg.hh, BATCH, gen, "cuda") for _ in batches]
+
+    # the fused composition first, recorded per batch, outside the counts
+    fused = pipeline.init(cfg, SEED, warm, device="cuda")
+    ref = []
+    for b, dr in zip(batches, draws):
+        before = fused.store.ids.clone()
+        fused, info = ingest_impl(cfg, fused, b["embedding"], b["doc_id"], dr)
+        ref.append((info["keep"], info["labels"], written(fused.store, before),
+                    info["stored"]))
+    del fused
+
+    # the staged composition, counted
+    staged = pipeline.init(cfg, SEED, warm, device="cuda")
+    torch.cuda.synchronize()
+    seen, stored, ingest_ms, flush_ms, answers = [], [], [], [], []
+    counts.reset_all()
+    with timed_heavy_hitter() as hh_ms:
+        for b, dr in zip(batches, draws):
+            before, cent = staged.store.ids.clone(), staged.clus.centroids
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            staged, info = staged_ingest_impl(cfg, staged, b["embedding"],
+                                              b["doc_id"], dr)
+            torch.cuda.synchronize()
+            ingest_ms.append((time.perf_counter() - t) * 1e3)
+            seen.append((info["keep"], info["labels"], written(staged.store, before),
+                         cent, staged.pre.basis))
+            stored.append(info["stored"])
+    snap = Engine(cfg, state=staged).publish()
+    for f in range(STAGED_FLUSHES):
+        q = queries[f * QUERIES:(f + 1) * QUERIES]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        routes = stages.route(cfg.index, snap.index, snap.route_labels, q, NPROBE)
+        scores, pos = stages.rerank(snap.store, l2_normalize(q), routes, TOPK)
+        out = stages.decode_rerank(snap.store.ids, routes, scores, pos, depth, NPROBE)
+        host = [o.cpu().numpy() for o in out]
+        flush_ms.append((time.perf_counter() - t) * 1e3)
+        answers.append((q, routes, scores, pos, host))
+    torch.cuda.synchronize()
+    launches = counts.snapshot()
+    print(f"staged path: the main path's {n_batches} batches of {BATCH}, "
+          f"{STAGED_FLUSHES} flushes of {QUERIES}; launches {launches}")
+    want = dict(prefilter=n_batches, assign=n_batches, mips=STAGED_FLUSHES,
+                rerank=STAGED_FLUSHES, admit=0, serve=0)
+    for name, n in want.items():
+        assert launches[name]["kernel"] == n, (name, launches[name], n)
+    assert all(c["plain"] == 0 for c in launches.values()), "a plain version ran"
+    for name in ("rerank", "prefilter", "assign"):
+        results[name]["launches"] = launches[name]["kernel"]
+    n_answered = live_routes = live_picks = 0
+    for _, routes, _, _, (sc, rows, ids, clusters) in answers:
+        live = ids >= 0
+        assert sc.shape == ids.shape == (QUERIES, TOPK) and np.isfinite(sc[live]).all()
+        n_answered += sc.shape[0]
+        live_routes += int((routes >= 0).sum())
+        live_picks += int(live.sum())
+    assert n_answered == STAGED_FLUSHES * QUERIES
+    live_slots, protos = int((staged.store.ids >= 0).sum()), int(staged.index.valid.sum())
+    print(f"  keep per batch {[int(k.sum()) for k, *_ in seen]}; stored per batch "
+          f"{[int(m.sum()) for m in stored]} (fused: "
+          f"{[int(r[3].sum()) for r in ref]})")
+    print(f"  staged store: {live_slots} live ring slots, {protos} valid prototypes, "
+          f"{staged.upserts} upserts; live routes {live_routes}/"
+          f"{n_answered * NPROBE}, live picks {live_picks}/{n_answered * TOPK}")
+    assert live_slots >= MIN_LIVE_SLOTS and protos >= MIN_PROTOTYPES, (live_slots, protos)
+    assert live_routes >= MIN_LIVE_SHARE * n_answered * NPROBE
+    assert live_picks >= MIN_LIVE_SHARE * n_answered * TOPK
+
+    # per batch against the fused composition
+    chk = Check("staged")
+    flip = None
+    for i, (b, (keep_f, lab_f, (w, ids_f, rows_f, sc_f), _),
+            (keep_s, lab_s, (w_s, ids_s, rows_s, sc_s), cent, basis)) in enumerate(
+                zip(batches, ref, seen)):
+        x = torch.from_numpy(b["embedding"]).cuda()
+        r_p = prefilter_scores_ref(x, basis)
+        keep_diff = keep_s != keep_f
+        chk.decisions(f"keep b{i}", keep_diff, (r_p - alpha).abs() < TIE)
+        lab_diff = (lab_s != lab_f) & keep_s & keep_f
+        chk.decisions(f"labels b{i}", lab_diff,
+                      label_ties(x, cent, lab_s.clamp(min=0), lab_f.clamp(min=0)))
+        if bool(keep_diff.any() | lab_diff.any()):
+            flip = i
+            print(f"  a near-tie flipped a decision in batch {i}: keep "
+                  f"{int(keep_diff.sum())}, labels {int(lab_diff.sum())}; "
+                  f"comparing batches 0..{i - 1} only")
+            break
+        same_slots = len(w[0]) == len(w_s[0]) and all(torch.equal(a, c) for a, c in zip(w, w_s))
+        if not same_slots or not torch.equal(ids_s, ids_f):
+            chk.fail.append(f"batch {i}: the staged store wrote other slots or docs")
+            break
+        # int8 rows: +-1 only where v/scale lies within 1e-4 of a half-integer
+        v = l2_normalize(x[(ids_s - int(b["doc_id"][0])).long()])
+        ulp = torch.nextafter(sc_s, torch.full_like(sc_s, np.inf)) - sc_s
+        bad = int(((sc_f - sc_s).abs() > 2 * ulp).sum())
+        if bad:
+            chk.fail.append(f"batch {i}: {bad} scales beyond 2 ulp")
+        z = v / sc_s[:, None]
+        half = (z - z.floor() - 0.5).abs() < 1e-4
+        diff = rows_f.int() - rows_s.int()
+        chk.decisions(f"int8 rows b{i}", diff != 0, (diff.abs() == 1) & half)
+    batches_held = n_batches if flip is None else flip
+    rows_held = sum(len(seen[i][2][1]) for i in range(batches_held))
+
+    # per flush against the fused serve kernel on the same snapshot
+    for q, routes, scores, pos, _ in answers:
+        fused_out = stages.serve_topk(cfg.index, snap.index, snap.route_labels,
+                                      snap.store, q, TOPK, NPROBE)
+        qn = l2_normalize(q)
+        hold_answers(qn, qn, snap.index.vectors, snap.index.valid, snap.store.embs,
+                     snap.store.ids >= 0, snap.store.scales, (scores, pos, routes),
+                     fused_out, chk)
+    chk.done(f"{batches_held} batches ({rows_held} rows), {STAGED_FLUSHES} flushes")
+
+    steady, hh = np.median(ingest_ms[1:]), np.median(hh_ms[1:])
+    print(f"  staged ingest ms/batch: median {steady:.2f} with the heavy-hitter loop, "
+          f"{steady - hh:.2f} without it (loop {hh:.2f} ms; first batch {ingest_ms[0]:.2f})")
+    print(f"  staged flush p50 {np.percentile(flush_ms, 50):.3f} ms p99 "
+          f"{np.percentile(flush_ms, 99):.3f} ms over {len(flush_ms)} flushes; answered "
+          f"{n_answered}/{STAGED_FLUSHES * QUERIES}; upserts {staged.upserts}; index size "
+          f"{int(staged.index.valid.sum())}; store live {int((staged.store.ids >= 0).sum())}")
 
 
 def main() -> int:
@@ -520,20 +838,21 @@ def main() -> int:
     phase_setup()
     results: dict = {}
     stream, warm = phase_kernels(results)
-    phase_main(stream, warm, results)
+    batches = phase_main(stream, warm, results)
+    phase_staged(stream, warm, batches, results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"{name:5s} kernel {r['ms']:.4f} ms device ({r['host_ms']:.4f} ms a call "
+        print(f"{name:9s} kernel {r['ms']:.4f} ms device ({r['host_ms']:.4f} ms a call "
               f"from the host)  plain {r['plain_ms']:.4f} ms  library {lib}  "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
-              f"launches on the main path {r['launches']}")
+              f"launches on its path {r['launches']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     kernels = [dict(name=n, route="cuda", source=f"src/repro_torch/csrc/{n}.cu",
                     replaces=SOURCES[n], launches=results[n]["launches"],
                     max_abs_err=results[n]["max_abs_err"], ms=results[n]["ms"],
                     plain_ms=results[n]["plain_ms"], bound_ms=results[n]["bound_ms"],
                     bound_by=results[n]["bound_by"], library_ms=results[n]["library_ms"])
-               for n in ("admit", "serve", "mips")]
+               for n in SOURCES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 
 Updates follow the paper's per-assignment rate η = 1/(n_j + 1):
 ``sequential`` is the per-item rule, ``batched`` (the default) folds each
-cluster's batch sum in with its count (sklearn MiniBatchKMeans). Labels
-come from the fused ``admit`` kernel on the ingest path.
+cluster's batch sum in with its count (sklearn MiniBatchKMeans). ``assign``
+is the staged assignment (the ``assign`` kernel); the fused ingest path
+takes its labels from the ``admit`` kernel.
 
 The batched fold's per-cluster sums are a one-hot ``[k, B] @ [B, d]``
 product in full fp32 rather than ``index_add_``, whose atomics on the
@@ -16,6 +17,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.assign.ops import assign as assign_op
 from repro_torch.kernels.common import l2_normalize
 
 
@@ -68,6 +70,11 @@ def init_from_buffer(cfg: ClusterConfig, gen: torch.Generator,
         centroids=c,
         counts=torch.zeros((cfg.num_clusters,), dtype=torch.float32,
                            device=buffer.device))
+
+
+def assign(cfg: ClusterConfig, state: ClusterState, x: torch.Tensor):
+    """Nearest centroid (cosine): (labels [B] i32, sims [B] f32)."""
+    return assign_op(x, state.centroids)
 
 
 def _segment_sums(k: int, x: torch.Tensor, labels: torch.Tensor,

@@ -7,8 +7,9 @@ refreshed every T arrivals).
 
 The window's write pointer, fill and arrival count are host integers: the
 host knows which rows of a batch are live before it ships them, so the
-refresh decision needs no device read. Scoring lives in the fused
-``admit`` kernel on the ingest path.
+refresh decision needs no device read. ``score`` is the staged screen's
+scoring (the ``prefilter`` kernel); the fused ingest path scores inside
+the ``admit`` kernel.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import host_to_device, l2_normalize
+from repro_torch.kernels.prefilter.ops import prefilter_scores
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +49,12 @@ def _gram_schmidt(v: torch.Tensor) -> torch.Tensor:
         vi = vi - (basis @ vi) @ basis
         basis[i] = vi / torch.clamp(torch.linalg.norm(vi), min=1e-12)
     return basis
+
+
+def score(cfg: PrefilterConfig, state: PrefilterState, x: torch.Tensor):
+    """(r [B] f32, keep [B] bool): keep iff mean cosine >= alpha."""
+    r = prefilter_scores(x, state.basis)
+    return r, r >= cfg.alpha
 
 
 def _pca_topn(buf: torch.Tensor, fill: int, n: int) -> torch.Tensor:

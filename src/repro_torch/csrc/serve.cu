@@ -13,7 +13,8 @@
 // embs[:, :depth] is read in place, never copied — widen int8 to fp32,
 // score (q . e) * scale, and put NEG_INF on dead slots and dead routes;
 // warp 0 takes the top-k over the nprobe * depth candidates (lowest
-// position on ties); pos = j*depth+slot, -1 where dead.
+// position on ties); pos = j*depth+slot, -1 where dead. The scoring and
+// the top-k are rings.cuh's, shared with the rerank kernel.
 //
 // Bound on this card: bytes. A call must read the queries, the index
 // (6.5 MB at cap 4218) and the distinct routed rings (depth * d bytes
@@ -21,6 +22,7 @@
 // operations, takes less time at 67 TFLOP/s. Design: the index is read
 // from L2 once per 8 queries; the routed rings, the bytes that grow with
 // the store, are read once per query, coalesced along d.
+#include "rings.cuh"
 #include "topk.cuh"
 
 namespace {
@@ -41,7 +43,7 @@ __global__ void serve_rerank_kernel(
   int* pi = (int*)(pv + m);        // [m]
   int* sroutes = pi + m;           // [nprobe]
   const int qi = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5;
   for (int t = threadIdx.x; t < d; t += blockDim.x) sqn[t] = qn[(size_t)qi * d + t];
   for (int c = threadIdx.x; c < m; c += blockDim.x) {
     pv[c] = part_val[(size_t)qi * m + c];
@@ -62,47 +64,14 @@ __global__ void serve_rerank_kernel(
   __syncthreads();
 
   // ---- gather + score the routed rings, warp per ring slot
-  for (int c = warp; c < ncand; c += nw) {
-    const int p = c / depth, s = c - p * depth;
-    const int route = sroutes[p];
-    float val = REPRO_NEG_INF;
-    if (route >= 0) {
-      float acc = 0.f;
-      if (quantized) {
-        const signed char* e = (const signed char*)embs + route * es0 + s * es1;
-        for (int t = lane; t < d; t += 32) acc += sqn[t] * (float)e[t];
-      } else {
-        const float* e = (const float*)embs + route * es0 + s * es1;
-        for (int t = lane; t < d; t += 32) acc += sqn[t] * e[t];
-      }
-      acc = warp_sum(acc);
-      if (quantized) acc = acc * scales[route * ss0 + s * ss1];
-      val = live[route * ls0 + s * ls1] ? acc : REPRO_NEG_INF;
-    }
-    if (lane == 0) cand[c] = val;
-  }
+  score_routed_rings(sqn, d, sroutes, nprobe, depth, embs, es0, es1, live, ls0, ls1,
+                     scales, ss0, ss1, quantized, cand);
   __syncthreads();
 
   // ---- top-k over the candidates
   if (warp != 0) return;
-  for (int t = 0; t < k; ++t) {
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int c = lane; c < ncand; c += 32) {
-      const float v = cand[c];
-      if (better(v, c, bv, bi)) {
-        bv = v;
-        bi = c;
-      }
-    }
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      out_scores[(size_t)qi * k + t] = bv;
-      out_pos[(size_t)qi * k + t] = bv > REPRO_NEG_INF / 2 ? bi : -1;
-      cand[bi] = -INFINITY;
-    }
-    __syncwarp();
-  }
+  candidates_topk_warp(cand, ncand, k, out_scores + (size_t)qi * k,
+                       out_pos + (size_t)qi * k);
 }
 
 size_t rerank_smem(int d, int m, int nprobe, int depth) {

@@ -1,7 +1,9 @@
 """Single-device composition of the engine stages.
 
 ``ingest_impl``/``query_impl`` are the stage compositions behind
-``core.pipeline``'s public entry points. ``Engine`` wraps (cfg, state)
+``core.pipeline``'s public entry points; ``staged_ingest_impl`` is
+``ingest_impl`` with admission staged, which no engine runs: it is the
+decomposition the fused ``admit`` is held against. ``Engine`` wraps (cfg, state)
 behind the serving protocol (``ingest``/``query``/``index_size``) that
 ``serve.server.RAGServer`` is built on.
 
@@ -41,29 +43,28 @@ def _host_ids(doc_ids) -> np.ndarray:
     return np.asarray(doc_ids, dtype=np.int32)
 
 
-def ingest_impl(cfg: "pipeline.PipelineConfig",
-                state: "pipeline.PipelineState", x, doc_ids,
-                draws: dict | None = None):
-    """Process one microbatch of embeddings [B, d] with host doc ids [B].
-
-    Rows with ``doc_ids < 0`` are dead (ragged-batch padding): they never
-    touch the prefilter window, centroids, counters, representatives or
-    the store, and count as no arrival; the counter's per-slot random
-    draws still advance. Returns (new_state, info)."""
+def _device_batch(state: "pipeline.PipelineState", x, doc_ids):
+    """(x [B, d] f32, doc ids [B] i32 on the state's device, host live mask)."""
     dev = state.route_labels.device
     ids_h = _host_ids(doc_ids)
-    live_h = ids_h >= 0
-    n_live = int(live_h.sum())
-    x = host_to_device(x, dev, torch.float32)
-    ids = host_to_device(ids_h, dev)
-    k = cfg.clus.num_clusters
+    return (host_to_device(x, dev, torch.float32), host_to_device(ids_h, dev),
+            ids_h >= 0)
 
-    pre, r, keep, clus, labels, sims, v, vscale = stages.admit(
-        cfg.pre, cfg.clus, cfg.store, state.pre, state.clus, x, live_h)
+
+def _after_admission(cfg: "pipeline.PipelineConfig",
+                     state: "pipeline.PipelineState", x, ids, live_h, draws,
+                     pre, r, keep, clus, labels, sims, v=None, vscale=None):
+    """Ingest past admission: heavy-hitter counting, representatives, the
+    ring write (of the admitted rows ``v``/``vscale``, or quantized by the
+    store itself when None) and the periodic index refresh. Returns
+    (new_state, info)."""
+    dev = state.route_labels.device
+    n_live = int(live_h.sum())
     hh, masked_labels, hh_info = stages.count(cfg.hh, state.hh, labels, keep,
                                               draws, gen=state.gen)
     rep_ids, rep_sims = stages.update_representatives(
-        state.rep_ids, state.rep_sims, labels, sims, ids, keep, k)
+        state.rep_ids, state.rep_sims, labels, sims, ids, keep,
+        cfg.clus.num_clusters)
 
     stored = keep & (hh_info["admitted"] | hh_info["hit"])
     # arrival index among live rows (== arange(B) for an unpadded batch)
@@ -96,6 +97,36 @@ def ingest_impl(cfg: "pipeline.PipelineConfig",
         "host_syncs": int(cfg.store_depth > 0),
     }
     return new_state, info
+
+
+def ingest_impl(cfg: "pipeline.PipelineConfig",
+                state: "pipeline.PipelineState", x, doc_ids,
+                draws: dict | None = None):
+    """Process one microbatch of embeddings [B, d] with host doc ids [B].
+
+    Rows with ``doc_ids < 0`` are dead (ragged-batch padding): they never
+    touch the prefilter window, centroids, counters, representatives or
+    the store, and count as no arrival; the counter's per-slot random
+    draws still advance. Returns (new_state, info)."""
+    x, ids, live_h = _device_batch(state, x, doc_ids)
+    pre, r, keep, clus, labels, sims, v, vscale = stages.admit(
+        cfg.pre, cfg.clus, cfg.store, state.pre, state.clus, x, live_h)
+    return _after_admission(cfg, state, x, ids, live_h, draws, pre, r, keep,
+                            clus, labels, sims, v=v, vscale=vscale)
+
+
+def staged_ingest_impl(cfg: "pipeline.PipelineConfig",
+                       state: "pipeline.PipelineState", x, doc_ids,
+                       draws: dict | None = None):
+    """``ingest_impl`` with admission staged, as the reference's pre-fusion
+    ingest (Table 18) composes it: ``screen`` -> ``assign_update``, and the
+    store quantizes the rows it writes. The oracle of the fused path; same
+    arguments and returns."""
+    x, ids, live_h = _device_batch(state, x, doc_ids)
+    pre, r, keep = stages.screen(cfg.pre, state.pre, x, live_h)
+    clus, labels, sims = stages.assign_update(cfg.clus, state.clus, x, keep)
+    return _after_admission(cfg, state, x, ids, live_h, draws, pre, r, keep,
+                            clus, labels, sims)
 
 
 def snapshot_query_impl(cfg: "pipeline.PipelineConfig", index, route_labels,

@@ -6,17 +6,25 @@ composes them into the single-device step.
 Stage map (ingest):
 
     admit (fused screen + assign + quantize-on-admit: the ``admit`` kernel)
-      ──► count ──► update_representatives
-                      ├──► store_write     (rows pre-quantized by admit)
-                      └──► upsert_snapshot (every T arrivals)
+      │        ──► count ──► update_representatives
+      │                        ├──► store_write     (rows pre-quantized
+      │                        │                     by admit)
+      │                        └──► upsert_snapshot (every T arrivals)
+      └── staged: screen (the ``prefilter`` kernel) ──► assign_update (the
+          ``assign`` kernel), then store_write quantizes store-side —
+          the same keep/labels/rows/scales as ``admit``
 
 Stage map (two-stage query):
 
     serve_topk (fused route + gather + dequant-rerank + top-k: the
-      ``serve`` kernel) ──► decode_rerank
+      │         ``serve`` kernel) ──► decode_rerank
+      └── staged: route (prototype index: the ``mips`` kernel) ──► rerank
+          (ring buffers: the ``rerank`` kernel) — the same routes/pos as
+          ``serve_topk``
 
-The staged ``screen``/``assign_update``/``route``/``rerank`` forms and the
-sharded and hot-set stages wait for their kernels and slices.
+The staged forms are the decomposition the fused kernels are held
+against; an engine composes the fused ones. The sharded and hot-set
+stages wait for their slices.
 """
 from __future__ import annotations
 
@@ -25,7 +33,8 @@ import torch
 
 from repro_torch.core import clustering, heavy_hitter, index as index_lib, prefilter
 from repro_torch.kernels.admit.ops import admit as admit_op
-from repro_torch.kernels.common import host_to_device, l2_normalize
+from repro_torch.kernels.common import NEG_INF, host_to_device, l2_normalize
+from repro_torch.kernels.rerank.ops import rerank_topk
 from repro_torch.kernels.serve.ops import serve_topk as serve_topk_op
 from repro_torch.store import docstore
 
@@ -33,6 +42,34 @@ INT32_MIN = -(2**31)
 
 
 # --------------------------------------------------------------------- ingest
+def _live_on(live: np.ndarray | None, device) -> torch.Tensor | None:
+    return None if live is None else host_to_device(np.asarray(live, bool),
+                                                    device)
+
+
+def screen(pre_cfg: prefilter.PrefilterConfig, pre_state, x: torch.Tensor,
+           live: np.ndarray | None = None):
+    """(1) adaptive-basis window ingest + (2) relevance screening, the
+    staged form of ``admit``'s decision. ``live`` is the host's [B] bool
+    mask of real rows: dead rows stay out of the window and are never
+    kept. Returns (pre, r, keep)."""
+    pre = prefilter.ingest(pre_cfg, pre_state, x, mask=live)
+    r, keep = prefilter.score(pre_cfg, pre, x)
+    live_t = _live_on(live, x.device)
+    if live_t is not None:
+        keep = keep & live_t
+    return pre, r, keep
+
+
+def assign_update(clus_cfg: clustering.ClusterConfig, clus_state,
+                  x: torch.Tensor, keep: torch.Tensor):
+    """(3) cluster assignment + centroid update over the kept rows, the
+    staged form of ``admit``'s labels. Returns (clus, labels, sims)."""
+    labels, sims = clustering.assign(clus_cfg, clus_state, x)
+    clus = clustering.update(clus_cfg, clus_state, x, labels, keep)
+    return clus, labels, sims
+
+
 def admit(pre_cfg: prefilter.PrefilterConfig,
           clus_cfg: clustering.ClusterConfig,
           store_cfg: docstore.StoreConfig,
@@ -44,8 +81,7 @@ def admit(pre_cfg: prefilter.PrefilterConfig,
     rows. Returns (pre, r, keep, clus, labels, sims, v, vscale); v/vscale
     are None when the store is disabled."""
     pre = prefilter.ingest(pre_cfg, pre_state, x, mask=live)
-    live_t = None if live is None else host_to_device(
-        np.asarray(live, bool), x.device)
+    live_t = _live_on(live, x.device)
     r, keep, labels, sims, v, vscale = admit_op(
         x, pre.basis, clus_state.centroids, pre_cfg.alpha, live_t,
         store_dtype=store_cfg.store_dtype, normalize=store_cfg.normalize,
@@ -156,6 +192,16 @@ def decode_pipeline_counters(stacked) -> dict:
 
 
 # ---------------------------------------------------------------------- query
+def route(index_cfg: index_lib.IndexConfig, index, route_labels,
+          q: torch.Tensor, nprobe: int) -> torch.Tensor:
+    """Stage 1: the prototype index routes each query to its top-``nprobe``
+    clusters. Returns routes [Q, nprobe] i32 cluster ids (-1 = no route)."""
+    sc1, slots, _ = index_lib.search(index_cfg, index, q, nprobe)
+    labels = route_labels[slots.to(torch.int64)]
+    return torch.where((sc1 > NEG_INF / 2) & (labels >= 0), labels,
+                       -1).to(torch.int32)
+
+
 def slice_rings(embs, live, scales, depth: int | None):
     """Clip ring buffers to a plan's rerank ``depth`` as views (the serve
     kernel reads them through their strides; nothing is copied). None or
@@ -164,6 +210,18 @@ def slice_rings(embs, live, scales, depth: int | None):
         return embs, live, scales
     return (embs[:, :depth], live[:, :depth],
             None if scales is None else scales[:, :depth])
+
+
+def rerank(store, qn: torch.Tensor, routes: torch.Tensor, k: int,
+           depth: int | None = None):
+    """Stage 2: exact rerank of the routed ring buffers (first ``depth``
+    slots; None = full) of unit queries ``qn``; int8 stores hand the
+    kernel their per-slot scales. Returns (scores [Q, k] desc, pos [Q, k]
+    = j*depth+slot into the route list, -1 for dead entries)."""
+    scales = store.scales if store.embs.dtype == torch.int8 else None
+    embs, live, scales = slice_rings(store.embs, docstore.live_mask(store),
+                                     scales, depth)
+    return rerank_topk(qn, embs, live, routes, k, scales=scales)
 
 
 def serve_topk(index_cfg: index_lib.IndexConfig, index, route_labels, store,

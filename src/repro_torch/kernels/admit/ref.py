@@ -1,16 +1,17 @@
 """Plain PyTorch version of fused ingest admission (Algorithm 1, steps
 1-3): the staged composition of the mean-cosine screen
-(``prefilter_scores_ref``), nearest-centroid assignment (``assign_ref``)
-and quantize-on-admit (``store.quant``), as the reference's
-``kernels/admit/ref.py`` composes them."""
+(``prefilter.ref.mean_cosine``), nearest-centroid assignment
+(``assign.ref.nearest_centroid``) and quantize-on-admit
+(``store.quant``), as the reference's ``kernels/admit/ref.py`` composes
+them."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.assign.ref import assign_ref
+from repro_torch.kernels.assign.ref import nearest_centroid
 from repro_torch.kernels.common import l2_normalize
 from repro_torch.kernels.counts import COUNTS
-from repro_torch.kernels.prefilter.ref import prefilter_scores_ref
+from repro_torch.kernels.prefilter.ref import mean_cosine
 from repro_torch.store import quant
 
 
@@ -25,11 +26,11 @@ def admit_ref(x: torch.Tensor, basis: torch.Tensor, centroids: torch.Tensor,
     i32, sims [B] f32, v [B, d] f32|i8 or None, vscale [B] f32 or None).
     """
     COUNTS["admit"].plain += 1
-    r = prefilter_scores_ref(x, basis)
+    r = mean_cosine(x, basis)
     keep = r >= alpha
     if live is not None:
         keep = keep & live
-    labels, sims = assign_ref(x, centroids)
+    labels, sims = nearest_centroid(x, centroids)
     if not emit_rows:
         return r, keep, labels, sims, None, None
     v = l2_normalize(x) if normalize else x.to(torch.float32)

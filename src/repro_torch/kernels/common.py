@@ -30,6 +30,19 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     return x32 / torch.clamp(n, min=eps)
 
 
+def normalize_basis_rows(v: torch.Tensor) -> torch.Tensor:
+    """fp32 row normalization with all-zero rows kept exactly zero:
+    ``v * (1 / max(norm, 1e-12))``, the reciprocal form the ``prefilter``
+    kernel's contract fixes for its pre-normalized basis (the plain
+    version of that kernel's first launch). Deliberately
+    not ``l2_normalize`` (a direct divide, the oracles' form): the two
+    differ in the last ulp."""
+    v32 = v.to(torch.float32)
+    vnorm = torch.sqrt(torch.sum(v32 * v32, dim=1, keepdim=True))
+    vinv = torch.where(vnorm > 0, 1.0 / torch.clamp(vnorm, min=1e-12), 0.0)
+    return v32 * vinv
+
+
 def stable_topk(s: torch.Tensor, k: int):
     """Top-k along the last axis, ties to the lowest index (as
     ``lax.top_k``). ``torch.topk`` promises no tie order, so this is a

@@ -28,6 +28,9 @@ COUNTS: dict[str, CallCounts] = {
     "admit": CallCounts(),
     "serve": CallCounts(),
     "mips": CallCounts(),
+    "rerank": CallCounts(),
+    "prefilter": CallCounts(),
+    "assign": CallCounts(),
 }
 
 

@@ -1,18 +1,28 @@
-"""Plain PyTorch version of the ``rerank`` kernel's function: exact top-k
-over each query's routed ring buffers. The kernel itself is still to be
-ported; on the query path the fused ``serve`` kernel reranks, and this is
-a piece of its plain version."""
+"""Plain PyTorch version of the ``rerank`` kernel: exact top-k over each
+query's routed ring buffers."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.common import NEG_INF, stable_topk
+from repro_torch.kernels.counts import COUNTS
 
 
 def rerank_topk_ref(q: torch.Tensor, embs: torch.Tensor, live: torch.Tensor,
                     routes: torch.Tensor, k: int,
                     scales: torch.Tensor | None = None):
-    """q [Q, d] unit queries; embs [C, depth, d] (f32, or int8 with
+    """See ``routed_topk``."""
+    COUNTS["rerank"].plain += 1
+    return routed_topk(q, embs, live, routes, k, scales)
+
+
+def routed_topk(q: torch.Tensor, embs: torch.Tensor, live: torch.Tensor,
+                routes: torch.Tensor, k: int,
+                scales: torch.Tensor | None = None):
+    """The uncounted body, shared with the fused ``serve`` plain version
+    (which counts its own calls).
+
+    q [Q, d] unit queries; embs [C, depth, d] (f32, or int8 with
     ``scales`` [C, depth]); live [C, depth] bool; routes [Q, P] i32 (-1 =
     no route). Scores are ``(q · e) * scale`` in fp32. Returns (scores
     [Q, k] desc with NEG_INF for dead entries, pos [Q, k] i32 =

@@ -1,7 +1,7 @@
 """Plain PyTorch version of the fused serve path (the two-stage query in
 one call): ``mips_topk_ref`` over the prototype index, the slot -> cluster
-route-label map, then ``rerank_topk_ref`` over the routed ring buffers, as
-the reference's ``kernels/serve/ref.py`` composes them."""
+route-label map, then ``rerank.ref.routed_topk`` over the routed ring
+buffers, as the reference's ``kernels/serve/ref.py`` composes them."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +9,7 @@ import torch
 from repro_torch.kernels.common import NEG_INF
 from repro_torch.kernels.counts import COUNTS
 from repro_torch.kernels.mips.ref import mips_topk_ref
-from repro_torch.kernels.rerank.ref import rerank_topk_ref
+from repro_torch.kernels.rerank.ref import routed_topk
 
 
 def serve_topk_ref(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
@@ -25,5 +25,5 @@ def serve_topk_ref(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
     sc1, slots = mips_topk_ref(qr, vectors, valid, nprobe)
     labels = route_labels[slots.to(torch.int64)]
     routes = torch.where((sc1 > NEG_INF / 2) & (labels >= 0), labels, -1)
-    scores, pos = rerank_topk_ref(qn, embs, live, routes, k, scales)
+    scores, pos = routed_topk(qn, embs, live, routes, k, scales)
     return scores, pos, routes.to(torch.int32)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card. Run where there is one:
+"""The port's CUDA kernels (admit, serve, mips, rerank, prefilter,
+assign) against their plain PyTorch versions, on the card. Run where
+there is one:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py -q
 
@@ -146,3 +147,132 @@ def test_engine_on_card_launches_the_kernels(cuda):
     snap = counts.snapshot()
     assert all(snap[n]["kernel"] > 0 and snap[n]["plain"] == 0
                for n in ("admit", "serve", "mips")), snap
+
+
+@pytest.mark.parametrize("quantized,D,depth,k", [(True, 64, None, 10),
+                                                 (True, 64, 32, 10),
+                                                 (False, 16, None, 100)])
+def test_rerank_kernel_matches_plain(cuda, quantized, D, depth, k):
+    """int8 rings at the main path's depth, a depth-32 strided view, and
+    fp32 rings with k above the live count; dead and duplicate routes."""
+    from repro_torch.kernels.rerank.ref import rerank_topk_ref
+    from repro_torch.kernels.rerank.rerank import rerank_topk_cuda
+    from repro_torch.store import quant
+
+    g = torch.Generator(device=cuda).manual_seed(D + k)
+    Q, d, C, P = 64, 384, 4218, 8
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
+    rows = l2_normalize(torch.randn((C * D, d), generator=g, device=cuda))
+    live = torch.rand((C, D), generator=g, device=cuda) < 0.6
+    if quantized:
+        e, s = quant.quantize_int8(rows, dim=-1)
+        embs, scales = e.view(C, D, d), s.view(C, D)
+    else:
+        embs, scales = rows.view(C, D, d), None
+    routes = torch.randint(0, C, (Q, P), generator=g, device=cuda).int()
+    routes[torch.rand((Q, P), generator=g, device=cuda) < 0.1] = -1
+    routes[:8, 1] = routes[:8, 0]                 # duplicate routes
+    routes[8] = -1                                # a query routed nowhere
+    if depth is not None:
+        embs, live = embs[:, :depth], live[:, :depth]
+        scales = None if scales is None else scales[:, :depth]
+    before = COUNTS["rerank"].kernel
+    s_k, p_k = rerank_topk_cuda(q, embs, live, routes, k, scales)
+    s_p, p_p = rerank_topk_ref(q, embs, live, routes, k, scales)
+    assert COUNTS["rerank"].kernel == before + 1
+    assert _close(s_k, s_p)
+    assert bool(((p_k == p_p) | ((s_k - s_p).abs() < TIE)).all())
+    assert bool((p_k[8] == -1).all()) and bool((s_k[8] == NEG_INF).all())
+    if k > P * embs.shape[1] * 0.6:
+        assert bool((p_k == -1).any())            # k above the live count
+
+
+@pytest.mark.parametrize("B,n,d", [(256, 5, 384), (37, 5, 384), (513, 1, 96)])
+def test_prefilter_kernel_matches_plain(cuda, B, n, d):
+    """B off the 8-row block; a zero basis row adds 0 over the true n."""
+    from repro_torch.kernels.prefilter.prefilter import prefilter_scores_cuda
+    from repro_torch.kernels.prefilter.ref import prefilter_scores_ref
+
+    g = torch.Generator(device=cuda).manual_seed(B)
+    x = torch.randn((B, d), generator=g, device=cuda)
+    basis = torch.randn((n, d), generator=g, device=cuda)
+    if n > 2:
+        basis[2] = 0.0
+    x[0] = 0.0                                    # a dead padding row
+    before = COUNTS["prefilter"].kernel
+    r_k = prefilter_scores_cuda(x, basis)
+    r_p = prefilter_scores_ref(x, basis)
+    assert COUNTS["prefilter"].kernel == before + 1
+    assert bool(torch.isfinite(r_k).all()) and float(r_k[0]) == 0.0
+    assert bool(((r_k - r_p).abs() <= 1e-6 + 1e-5 * r_p.abs()).all())
+
+
+@pytest.mark.parametrize("B,K,d", [(256, 4218, 384), (1, 4218, 384),
+                                   (1, 700, 64), (17, 5, 256)])
+def test_assign_kernel_matches_plain(cuda, B, K, d):
+    from repro_torch.kernels.assign.assign import assign_cuda
+    from repro_torch.kernels.assign.ref import assign_ref
+
+    g = torch.Generator(device=cuda).manual_seed(K + B)
+    x = torch.randn((B, d), generator=g, device=cuda)
+    cent = torch.randn((K, d), generator=g, device=cuda)
+    if K > 3:
+        cent[K - 1] = cent[2]                     # exact tie: 2 must win
+        x[0] = cent[2]
+    before = COUNTS["assign"].kernel
+    i_k, s_k = assign_cuda(x, cent)
+    i_p, s_p = assign_ref(x, cent)
+    assert COUNTS["assign"].kernel == before + 1
+    assert _close(s_k, s_p)
+    sims = l2_normalize(x) @ l2_normalize(cent).T
+    pk = sims.gather(1, i_k.long()[:, None])[:, 0]
+    pp = sims.gather(1, i_p.long()[:, None])[:, 0]
+    assert bool(((i_k == i_p) | (pk >= pp - TIE)).all())
+    assert int(i_k.max()) < K
+    if K > 3:
+        assert int(i_k[0]) == 2
+
+
+def test_staged_stages_on_card_launch_their_kernels(cuda):
+    """screen -> assign_update and route -> rerank on the card launch the
+    prefilter, assign, mips and rerank kernels and call no plain version;
+    they agree with the fused admit and serve kernels on the same state."""
+    from repro_torch.configs.streaming_rag import paper_pipeline_config
+    from repro_torch.core import pipeline
+    from repro_torch.engine import stages
+    from repro_torch.kernels import counts
+
+    cfg = paper_pipeline_config(dim=64, k=32, capacity=32, store_depth=8,
+                                update_interval=64, alpha=0.0,
+                                store_dtype="int8")
+    rng = np.random.default_rng(0)
+    st = pipeline.init(cfg, 0, rng.normal(size=(64, 64)).astype(np.float32),
+                       device=cuda)
+    for step in range(3):
+        st, _ = pipeline.ingest_batch(
+            cfg, st, rng.normal(size=(32, 64)).astype(np.float32),
+            np.arange(step * 32, step * 32 + 32, dtype=np.int32))
+    x = torch.from_numpy(rng.normal(size=(32, 64)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.normal(size=(4, 64)).astype(np.float32)).to(cuda)
+    counts.reset_all()
+    _, r, keep = stages.screen(cfg.pre, st.pre, x)
+    _, labels, _ = stages.assign_update(cfg.clus, st.clus, x, keep)
+    routes = stages.route(cfg.index, st.index, st.route_labels, q, 4)
+    scores, pos = stages.rerank(st.store, l2_normalize(q), routes, 5)
+    snap = counts.snapshot()
+    assert all(snap[n]["kernel"] == 1 for n in ("prefilter", "assign", "mips",
+                                                "rerank")), snap
+    assert all(c["plain"] == 0 for c in snap.values()), snap
+    assert snap["admit"]["kernel"] == snap["serve"]["kernel"] == 0
+    f_sc, f_pos, f_routes = stages.serve_topk(cfg.index, st.index,
+                                              st.route_labels, st.store, q, 5, 4)
+    # the staged and fused queries share the index scan and ring scoring
+    assert torch.equal(routes, f_routes) and torch.equal(pos, f_pos)
+    assert _close(scores, f_sc)
+    _, _, a_keep, _, a_labels, _, _, _ = stages.admit(
+        cfg.pre, cfg.clus, cfg.store, st.pre, st.clus, x)
+    assert bool(((keep == a_keep) | ((r - cfg.pre.alpha).abs() < TIE)).all())
+    sims = l2_normalize(x) @ l2_normalize(st.clus.centroids).T
+    pick_s = sims.gather(1, labels.long()[:, None])[:, 0]
+    pick_f = sims.gather(1, a_labels.long()[:, None])[:, 0]
+    assert bool(((labels == a_labels) | ((pick_s - pick_f).abs() < TIE)).all())
