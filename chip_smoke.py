@@ -40,7 +40,30 @@
    and ring rows under the near-tie rule; a near-tie that flips a
    decision is reported and ends the comparison there), and per flush
    against the fused ``serve_topk`` on the same snapshot (routes, pos).
-5. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
+5. Recsys kernels: the bag kernel against its plain version at MIND's
+   serve_p99 and serve_bulk shapes (1,000,000 x 64 item table, histories
+   of 50 drawn from a Zipf popularity, p ~ 1/r^1.2, with a valid prefix
+   of uniform length), plus its edge cases (unsorted segments with empty
+   bags, a bf16 table, d = 18, weights=None in sum and mean, a bag of one
+   entry; the d = 18 cases, N(0, 1) rows, against the plain version on
+   the CPU, whose order of summation is the kernel's); device time of the launch alone and of the whole wrapper (its
+   stable sort included), plain, library
+   (``F.embedding_bag`` + divide) and bound. Mips at MIND's retrieval
+   shape (4 x 64 against 1,000,000 x 64, k = 100) likewise.
+6. Recsys path: MIND at full width (``configs/mind.py``, params drawn on
+   the card from a seeded generator) runs serve_p99, serve_bulk and
+   retrieval_cand once each with the counts reset just before: bag
+   launches once per user_vectors call, mips once per retrieve, no plain
+   version runs. Outputs are finite and shaped as the reference's;
+   user_vectors and scores agree with the same steps on the plain bag,
+   retrieved ids with plain mips + stable top-k under the near-tie rule.
+   Per step: device ms, host ms, peak memory. DIEN, BERT4Rec and FM then
+   run serve_p99, retrieval_cand and serve_bulk at full width (BERT4Rec's
+   serve_bulk is skipped: its [262144, 2, 200, 200] fp32 attention
+   scores alone are 84 GB, more than the card holds); each one's retrieved
+   scores and ids are held against plain mips + stable top-k on the
+   queries and table its retrieve hands mips (FM's [1,000,000, 11] table).
+7. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository beside it.
@@ -72,8 +95,11 @@ from repro_torch.kernels.admit.admit import admit_cuda  # noqa: E402
 from repro_torch.kernels.admit.ref import admit_ref  # noqa: E402
 from repro_torch.kernels.assign.assign import assign_cuda  # noqa: E402
 from repro_torch.kernels.assign.ref import assign_ref  # noqa: E402
+from repro_torch.kernels.bag.bag import (embedding_bag_cuda,  # noqa: E402
+                                         embedding_bag_sorted_cuda)
+from repro_torch.kernels.bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.common import (NEG_INF, l2_normalize,  # noqa: E402
-                                        require_full_fp32)
+                                        require_full_fp32, stable_topk)
 from repro_torch.kernels.mips.mips import mips_topk_cuda  # noqa: E402
 from repro_torch.kernels.mips.ref import mips_topk_ref  # noqa: E402
 from repro_torch.kernels.prefilter.prefilter import prefilter_scores_cuda  # noqa: E402
@@ -82,6 +108,9 @@ from repro_torch.kernels.rerank.ref import rerank_topk_ref  # noqa: E402
 from repro_torch.kernels.rerank.rerank import rerank_topk_cuda  # noqa: E402
 from repro_torch.kernels.serve.ref import serve_topk_ref  # noqa: E402
 from repro_torch.kernels.serve.serve import serve_topk_cuda  # noqa: E402
+from repro_torch.models import recsys  # noqa: E402
+from repro_torch.models.api import get_arch  # noqa: E402
+from repro_torch.models.testing import assert_finite, dummy_batch  # noqa: E402
 from repro_torch.serve.server import RAGServer, ServerConfig  # noqa: E402
 from repro_torch.store import quant  # noqa: E402
 
@@ -100,7 +129,14 @@ SOURCES = {"admit": "src/repro/kernels/admit/admit.py:177",
            "mips": "src/repro/kernels/mips/mips.py:79",
            "rerank": "src/repro/kernels/rerank/rerank.py:141",
            "prefilter": "src/repro/kernels/prefilter/prefilter.py:58",
-           "assign": "src/repro/kernels/assign/assign.py:78"}
+           "assign": "src/repro/kernels/assign/assign.py:78",
+           "bag": "src/repro/kernels/bag/bag.py:72"}
+RECSYS_STEPS = ("serve_p99", "serve_bulk", "retrieval_cand")
+# BERT4Rec's serve_bulk attention scores: 262144 x 2 heads x 200 x 200 fp32
+BERT4REC_BULK_SKIP = ("bert4rec serve_bulk skipped on one card: its attention "
+                      "scores [262144, 2, 200, 200] fp32 alone are 84 GB (the "
+                      "reference runs it sharded over a pod); the CPU smoke "
+                      "test covers the cell")
 
 
 def full_config(store_dtype: str, depth: int) -> pipeline.PipelineConfig:
@@ -133,6 +169,23 @@ def cuda_ms(fn, iters: int = 20) -> tuple[float, float]:
     torch.cuda.synchronize()
     host = (time.perf_counter() - t0) * 1e3 / iters
     return ev[1].elapsed_time(ev[2]) / iters, host
+
+
+def device_ms(fn, iters: int = 20) -> tuple[float, str]:
+    """``cuda_ms``'s device time where the call never waits for the card;
+    for a plain or library call that synchronizes inside (a large sort),
+    CUDA events around ``iters`` warm calls, which then hold the host's
+    share too. Returns (ms, how it was taken)."""
+    try:
+        return cuda_ms(fn, iters)[0], "queued"
+    except RuntimeError:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(iters):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / iters, "events around calls: it synchronizes"
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -424,6 +477,289 @@ def check_stage_kernels(results, x, st, alpha, q, vectors, valid, labels, gen):
                              bound_by=b_by, library_ms=lib, host_ms=host)
     print("  assign library_ms is two calls on unit rows: torch.max(torch.mm(xn, cn.T), 1)")
     print("  rerank: no single PyTorch call computes the same function (library_ms null)")
+
+
+# ------------------------------------------------------------------ recsys
+def zipf_ids(rng, n: int, size) -> np.ndarray:
+    """Item ids drawn from a Zipf-like popularity, p ~ 1/r^1.2 (id = rank - 1)."""
+    p = 1.0 / np.arange(1, n + 1) ** 1.2
+    return rng.choice(n, size=size, p=p / p.sum()).astype(np.int32)
+
+
+def recsys_batch(arch, shape: str, rng) -> dict:
+    """A seeded batch for one step: the spec's entries (``dummy_batch``),
+    with every id drawn from the Zipf popularity and, for histories, a
+    valid prefix of length uniform in [1, S] (padding at id 0)."""
+    spec = arch.step(shape).input_specs
+    batch = dummy_batch(spec, seed=SEED)
+    if "fields" in batch:
+        B, nf = spec["fields"].shape
+        batch["fields"] = torch.from_numpy(
+            zipf_ids(rng, arch.cfg.rows_per_field, (B, nf))).cuda()
+        return batch
+    B, S = spec["hist"].shape
+    n = arch.cfg.n_items
+    mask = np.arange(S)[None, :] < rng.integers(1, S + 1, (B, 1))
+    batch["hist"] = torch.from_numpy(np.where(mask, zipf_ids(rng, n, (B, S)), 0)
+                                     .astype(np.int32)).cuda()
+    batch["hist_mask"] = torch.from_numpy(mask).cuda()
+    batch["target"] = torch.from_numpy(zipf_ids(rng, n, (B,))).cuda()
+    return batch
+
+
+def mind_bag_inputs(batch):
+    """The (indices, segments, weights, bags) MIND's user_vectors hands the bag."""
+    hist, mask = batch["hist"], batch["hist_mask"]
+    B, S = hist.shape
+    seg = torch.arange(B, dtype=torch.int32, device="cuda")[:, None].expand(B, S).reshape(-1)
+    return torch.where(mask, hist, 0).reshape(-1), seg, mask.float().reshape(-1), B
+
+
+@contextlib.contextmanager
+def plain_recsys():
+    """The recsys path with its bag and mips dispatch swapped for their
+    plain versions, on the same card. Yields the list of (queries, index)
+    that the plain mips was called on."""
+    seen = []
+
+    def plain_mips(q, index, valid, k):
+        seen.append((q, index))
+        return mips_topk_ref(q, index, valid, k)
+
+    saved = recsys.embedding_bag, recsys.mips_topk
+    recsys.embedding_bag, recsys.mips_topk = embedding_bag_ref, plain_mips
+    try:
+        yield seen
+    finally:
+        recsys.embedding_bag, recsys.mips_topk = saved
+
+
+def check_bag(table, idx, seg, bags, w, mode, chk: Check, plain_on_cpu=False):
+    """Returns the number of empty bags (which must come out zero). The
+    plain version sums with ``index_add_``, whose order on the card changes
+    from run to run; ``plain_on_cpu`` runs it on CPU copies, in the order
+    the kernel sums in, for rows whose size makes that order show."""
+    out_k = embedding_bag_cuda(table, idx, seg, bags, w, mode)
+    if plain_on_cpu:
+        out_p = embedding_bag_ref(table.cpu(), idx.cpu(), seg.cpu(), bags,
+                                  None if w is None else w.cpu(), mode).cuda()
+    else:
+        out_p = embedding_bag_ref(table, idx, seg, bags, w, mode)
+    torch.cuda.synchronize()
+    chk.floats(f"{mode} d{table.shape[1]} {table.dtype}", out_k, out_p)
+    empty = torch.bincount(seg.long(), minlength=bags) == 0
+    if not bool((out_k[empty] == 0).all()):
+        chk.fail.append("an empty bag is not zero")
+    return int(empty.sum())
+
+
+def bag_bound(table, idx, bags):
+    """Bytes: each distinct row once, 12 bytes per entry, the bags out."""
+    d, L = table.shape[1], idx.numel()
+    distinct = int(torch.unique(idx).numel())
+    nbytes = distinct * d * table.element_size() + L * 12 + bags * d * 4
+    return bound(2.0 * L * d, nbytes) + (distinct,)
+
+
+def time_bag(label, table, idx, seg, bags, w, mode):
+    """Device ms of the launch alone and of the whole wrapper, host ms,
+    plain ms, library ms (F.embedding_bag + divide) and the bound."""
+    order = torch.argsort(seg, stable=True)
+    idx_s, seg_s, w_s = idx[order].int(), seg[order].int(), w[order].float()
+    ms, host = cuda_ms(lambda: embedding_bag_sorted_cuda(table, idx_s, seg_s, w_s,
+                                                         bags, mode))
+    wrap, wrap_host = cuda_ms(lambda: embedding_bag_cuda(table, idx, seg, bags, w, mode))
+    plain, _ = device_ms(lambda: embedding_bag_ref(table, idx, seg, bags, w, mode), iters=5)
+    offsets = torch.searchsorted(seg_s, torch.arange(bags, device="cuda", dtype=torch.int32),
+                                 out_int32=True)
+    cnt = torch.diff(offsets, append=torch.tensor([idx.numel()], device="cuda",
+                                                  dtype=torch.int32))
+    denom = torch.clamp(cnt.float(), min=1.0)[:, None]
+    F = torch.nn.functional
+
+    def library():
+        return F.embedding_bag(idx_s, table, offsets, mode="sum",
+                               per_sample_weights=w_s) / denom
+
+    lib_err = max_err(library(), embedding_bag_ref(table, idx, seg, bags, w, mode))
+    lib, _ = cuda_ms(library)
+    b_ms, b_by, distinct = bag_bound(table, idx, bags)
+    print(f"  bag {label}: L={idx.numel()} bags={bags} distinct rows {distinct}; "
+          f"launch alone {ms:.4f} ms device ({host:.4f} ms a call from the host), "
+          f"whole wrapper with its sort {wrap:.4f} ms device ({wrap_host:.4f} ms host), "
+          f"plain {plain:.4f} ms, library {lib:.4f} ms (two calls: F.embedding_bag "
+          f"+ divide; max|d| vs plain {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=ms, host_ms=host, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_recsys_kernels(results):
+    """bag and mips against their plain versions at MIND's shapes. Returns
+    (arch, params, batches) for the recsys path."""
+    arch = get_arch("mind")
+    t0 = time.perf_counter()
+    params = arch.init(SEED)
+    rng = np.random.default_rng(SEED)
+    batches = {shape: recsys_batch(arch, shape, rng) for shape in RECSYS_STEPS}
+    torch.cuda.synchronize()
+    table = params["item_emb"]
+    print(f"recsys kernels at MIND's width: item table {tuple(table.shape)}; params and "
+          f"Zipf batches in {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    chk = Check("bag")
+    for shape in ("serve_p99", "serve_bulk"):
+        idx, seg, w, B = mind_bag_inputs(batches[shape])
+        check_bag(table, idx, seg, B, w, "mean", chk)
+    idx, seg, w, B = mind_bag_inputs(batches["serve_p99"])
+    check_bag(table.to(torch.bfloat16), idx, seg, B, w, "mean", chk)
+    # N(0, 1) rows: held against the plain version on the CPU (check_bag)
+    t18 = torch.randn((1000, 18), generator=gen, device="cuda")
+    for mode in ("sum", "mean"):
+        i40 = torch.randint(0, 1000, (40,), generator=gen, device="cuda", dtype=torch.int32)
+        s40 = torch.randint(0, 5, (40,), generator=gen, device="cuda", dtype=torch.int32)
+        empty = check_bag(t18, i40, s40, 8, None, mode, chk,   # unsorted, bags 5..7 empty
+                          plain_on_cpu=True)
+        check_bag(table, idx, seg, B, None, mode, chk)
+        check_bag(t18, i40[:1], torch.ones((1,), dtype=torch.int32, device="cuda"), 3,
+                  None, mode, chk, plain_on_cpu=True)         # a bag of one entry
+    chk.done(f"p99+bulk+bf16+d18+w=None, {empty} empty")
+    times = {}
+    for shape in ("serve_p99", "serve_bulk"):
+        idx, seg, w, B = mind_bag_inputs(batches[shape])
+        times[shape] = time_bag(shape, table, idx, seg, B, w, "mean")
+    results["bag"] = dict(max_abs_err=chk.err, **times["serve_p99"])
+
+    # mips at the retrieval shape: MIND's 4 interest vectors, k = 100
+    with plain_recsys():
+        u = arch.user_vectors(params, batches["retrieval_cand"])[0].contiguous()
+    valid = torch.ones((table.shape[0],), dtype=torch.bool, device="cuda")
+    chk = Check("mips")
+    check_mips(u, table, valid, 100, chk)
+    chk.done("MIND retrieval, k=100")
+    ms, host = cuda_ms(lambda: mips_topk_cuda(u, table, valid, 100))
+    plain, plain_how = device_ms(lambda: mips_topk_ref(u, table, valid, 100))
+    lib, lib_how = device_ms(lambda: torch.topk(torch.mm(u, table.T), 100))
+    b_ms, b_by = mips_bound(u.shape[0], table.shape[0], table.shape[1], 100)
+    print(f"  mips at MIND's retrieval shape ({u.shape[0]} x {u.shape[1]} vs "
+          f"{table.shape[0]} x {table.shape[1]}, k=100): {ms:.4f} ms device ({host:.4f} ms "
+          f"a call from the host), plain {plain:.4f} ms ({plain_how}), library "
+          f"{lib:.4f} ms (torch.topk(torch.mm(q, X.T), 100), two calls; {lib_how}), "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    return arch, params, batches
+
+
+def hold_retrieve(u, table, got, want, chk: Check):
+    """Retrieved (scores, ids) against the plain composition: scores within
+    tolerance; every score is its id's score under one interest; ids equal
+    except at near-ties of the plain list (neighbours within TIE)."""
+    (s_k, i_k), (s_p, i_p) = got, want
+    chk.floats("retrieve scores", s_k, s_p)
+    per_interest = torch.einsum("bid,bkd->bik", u, table[i_k.long()])
+    own = (per_interest - s_k[:, None]).abs().min(dim=1).values
+    if not bool((own < TIE).all()):
+        chk.fail.append("a retrieved score is no interest's score of its id")
+    gap = (s_p[:, :-1] - s_p[:, 1:]).abs() < TIE
+    near = torch.zeros_like(i_p, dtype=torch.bool)
+    near[:, 1:] |= gap
+    near[:, :-1] |= gap
+    chk.decisions("retrieve ids", i_k != i_p, near)
+
+
+def run_steps(arch, params, batches, shapes):
+    """Each step once; per step (output, host ms, peak MB)."""
+    out = {}
+    for shape in shapes:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        res = arch.step(shape).fn(params, batches[shape])
+        torch.cuda.synchronize()
+        out[shape] = (res, (time.perf_counter() - t) * 1e3,
+                      torch.cuda.max_memory_allocated() / 1e6)
+    return out
+
+
+def expect_shapes(arch, shape, res):
+    """The reference's output shapes: [B] scores, or ([B, 100], [B, 100])."""
+    B = arch.shapes[shape].dim("batch")
+    if arch.shapes[shape].kind == "retrieval":
+        s, i = res
+        assert s.shape == i.shape == (B, 100) and i.dtype == torch.int32, (s.shape, i.shape)
+    else:
+        assert res.shape == (B,) and res.dtype == torch.float32, res.shape
+    assert_finite(res, f"{arch.name}/{shape}")
+
+
+def phase_recsys(arch, params, batches, results):
+    """MIND's three serve steps at full width through the bag and mips
+    kernels, held against the plain composition; then DIEN, BERT4Rec, FM."""
+    counts.reset_all()
+    ran = run_steps(arch, params, batches, RECSYS_STEPS)
+    launches = counts.snapshot()
+    print(f"recsys path: MIND {arch.cfg}; launches {launches}")
+    assert launches["bag"]["kernel"] == len(RECSYS_STEPS), launches   # one per user_vectors
+    assert launches["mips"]["kernel"] == 1, launches                  # one per retrieve
+    assert all(c["plain"] == 0 for c in launches.values()), "a plain version ran"
+    results["bag"]["launches"] = launches["bag"]["kernel"]
+    table = params["item_emb"]
+    chk = Check("mind")
+    for shape in RECSYS_STEPS:
+        res, first_ms, peak = ran[shape]
+        expect_shapes(arch, shape, res)
+        b = batches[shape]
+        uv = arch.user_vectors(params, b)
+        with plain_recsys():
+            uv_p = arch.user_vectors(params, b)
+            res_p = arch.step(shape).fn(params, b)
+        chk.floats(f"user_vectors {shape}", uv, uv_p)
+        if shape == "retrieval_cand":
+            hold_retrieve(uv_p, table, res, res_p, chk)
+        else:
+            chk.floats(f"score {shape}", res, res_p)
+        fn = arch.step(shape).fn
+        dev, host = cuda_ms(lambda: fn(params, b), iters=3 if shape == "serve_bulk" else 10)
+        print(f"  mind {shape:14s} B={b['hist'].shape[0]:6d}: {dev:.4f} ms device, "
+              f"{host:.4f} ms host (first call {first_ms:.2f} ms), peak memory "
+              f"{peak:.1f} MB")
+    chk.done("vs plain bag/mips on the card")
+
+    for name in ("dien", "bert4rec", "fm"):
+        del params, batches
+        torch.cuda.empty_cache()
+        arch = get_arch(name)
+        params = arch.init(SEED)
+        rng = np.random.default_rng(SEED)
+        shapes = [s for s in ("serve_p99", "retrieval_cand", "serve_bulk")
+                  if not (name == "bert4rec" and s == "serve_bulk")]
+        batches = {s: recsys_batch(arch, s, rng) for s in shapes}
+        counts.reset_all()
+        ran = run_steps(arch, params, batches, shapes)
+        launches = counts.snapshot()
+        assert launches["mips"]["kernel"] == 1 and launches["bag"]["kernel"] == 0, launches
+        assert all(c["plain"] == 0 for c in launches.values()), "a plain version ran"
+        # retrieve against plain mips on the queries and index it was given
+        # (FM's concatenated [rows, k + 1] table included)
+        with plain_recsys() as seen:
+            want = arch.step("retrieval_cand").fn(params, batches["retrieval_cand"])
+        (q, index), = seen
+        chk = Check(name)
+        hold_retrieve(q.reshape(want[0].shape[0], -1, q.shape[1]), index,
+                      ran["retrieval_cand"][0], want, chk)
+        chk.done(f"retrieve q {tuple(q.shape)} vs {tuple(index.shape)}")
+        del seen, q, index, want
+        for shape in shapes:
+            res, first_ms, peak = ran[shape]
+            expect_shapes(arch, shape, res)
+            fn = arch.step(shape).fn
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(params, batches[shape])
+            torch.cuda.synchronize()
+            print(f"  {name:8s} {shape:14s} {(time.perf_counter() - t) * 1e3:.2f} ms host "
+                  f"(warm; first {first_ms:.2f} ms), peak memory {peak:.1f} MB, finite")
+        if name == "bert4rec":
+            print(f"  {BERT4REC_BULK_SKIP}")
 
 
 # -------------------------------------------------------------------- main
@@ -840,6 +1176,9 @@ def main() -> int:
     stream, warm = phase_kernels(results)
     batches = phase_main(stream, warm, results)
     phase_staged(stream, warm, batches, results)
+    del stream, warm, batches
+    torch.cuda.empty_cache()
+    phase_recsys(*phase_recsys_kernels(results), results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name:9s} kernel {r['ms']:.4f} ms device ({r['host_ms']:.4f} ms a call "

@@ -6,6 +6,11 @@ keyed by its field names (``{"pre": {"basis": ..., ...}, "clus": ...,
 from that, and ``state_to_numpy`` goes the other way, for leaf-for-leaf
 comparison. The reference's PRNG key is not carried: the port's state
 gets a fresh ``torch.Generator`` seeded with ``seed``.
+
+Model params cross the same way: the reference's params tree as nested
+dicts of numpy arrays (``jax.tree.map(np.asarray, params)``) becomes the
+port's nested dicts of tensors with ``params_from_numpy`` (stacked layer
+blocks keep their leading layer axis), and ``params_to_numpy`` goes back.
 """
 from __future__ import annotations
 
@@ -61,3 +66,18 @@ def state_to_numpy(state) -> dict:
         else:
             out[name] = np.asarray(v, np.int32)
     return out
+
+
+def params_from_numpy(tree, device="cpu"):
+    """Nested dicts of numpy arrays -> the same dicts of tensors on
+    ``device``, dtypes and shapes kept."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(torch.device(device))
+
+
+def params_to_numpy(tree):
+    """Nested dicts of tensors -> the same dicts of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()

@@ -31,6 +31,7 @@ COUNTS: dict[str, CallCounts] = {
     "rerank": CallCounts(),
     "prefilter": CallCounts(),
     "assign": CallCounts(),
+    "bag": CallCounts(),
 }
 
 

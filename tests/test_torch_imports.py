@@ -41,19 +41,22 @@ def test_entry_points_run_on_the_card_by_default():
     from repro_torch.configs.streaming_rag import paper_pipeline_config
     from repro_torch.core import pipeline
     from repro_torch.engine.engine import Engine
+    from repro_torch.models.api import get_arch
     from repro_torch.serve.server import RAGServer, ServerConfig
 
     cfg = paper_pipeline_config(dim=16, k=8, capacity=8)
-    makers = (lambda: pipeline.init(cfg),
-              lambda: Engine(cfg).state,
-              lambda: RAGServer(cfg, ServerConfig(topk=4), seed=0).state)
+    makers = (lambda: pipeline.init(cfg).route_labels,
+              lambda: Engine(cfg).state.route_labels,
+              lambda: RAGServer(cfg, ServerConfig(topk=4), seed=0).state.route_labels,
+              lambda: get_arch("mind", smoke=True).init()["item_emb"])
     for make in makers:
         if torch.cuda.is_available():
-            assert make().route_labels.device.type == "cuda"
+            assert make().device.type == "cuda"
         else:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make()
     assert Engine(cfg, device="cpu").state.route_labels.device.type == "cpu"
+    assert get_arch("mind", smoke=True).init(device="cpu")["item_emb"].device.type == "cpu"
 
 
 def test_unported_server_options_raise():

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (admit, serve, mips, rerank, prefilter,
-assign) against their plain PyTorch versions, on the card. Run where
+assign, bag) against their plain PyTorch versions, on the card. Run where
 there is one:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py -q
@@ -276,3 +276,93 @@ def test_staged_stages_on_card_launch_their_kernels(cuda):
     pick_s = sims.gather(1, labels.long()[:, None])[:, 0]
     pick_f = sims.gather(1, a_labels.long()[:, None])[:, 0]
     assert bool(((labels == a_labels) | ((pick_s - pick_f).abs() < TIE)).all())
+
+
+@pytest.mark.parametrize("V,d,L,bags,case", [
+    (1_000_000, 64, 25_600, 512, "mind"),     # MIND serve_p99: w = mask, mean
+    (50, 16, 64, 10, "sum"),
+    (20, 8, 40, 8, "unsorted"),               # unsorted segments, bags 5..7 empty
+    (300, 18, 97, 13, "bf16"),
+    (300, 18, 97, 13, "none"),                # weights=None
+    (40, 200, 77, 9, "sum"),                  # d above one 128-column pass
+    (10, 32, 1, 3, "one"),                    # a bag of one entry, two empty
+])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_bag_kernel_matches_plain(cuda, V, d, L, bags, case, mode):
+    """Held against the plain version on the CPU copies of the inputs:
+    there it sums each bag in index order, as the kernel does after its
+    stable sort (on the card its ``index_add_`` sums with atomics, in an
+    order that changes from run to run, and N(0, 1) rows cancel enough
+    for that order to show beyond rtol 1e-5)."""
+    from repro_torch.kernels.bag.bag import embedding_bag_cuda
+    from repro_torch.kernels.bag.ref import embedding_bag_ref
+
+    g = torch.Generator(device=cuda).manual_seed(V + L)
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    table = torch.randn((V, d), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(0, V, (L,), generator=g, device=cuda, dtype=torch.int32)
+    seg = torch.sort(torch.randint(0, bags, (L,), generator=g, device=cuda)).values.int()
+    w = torch.rand((L,), generator=g, device=cuda)
+    if case == "mind":
+        S = L // bags
+        mask = torch.arange(S, device=cuda)[None] < torch.randint(
+            1, S + 1, (bags, 1), generator=g, device=cuda)
+        idx = torch.where(mask, idx.view(bags, S), 0).reshape(-1)
+        seg = torch.arange(bags, device=cuda, dtype=torch.int32).repeat_interleave(S)
+        w = mask.float().reshape(-1)
+    elif case == "unsorted":
+        seg = torch.randint(0, 5, (L,), generator=g, device=cuda, dtype=torch.int32)
+    elif case == "one":
+        seg = torch.ones((1,), dtype=torch.int32, device=cuda)
+    if case == "none":
+        w = None
+    before = COUNTS["bag"].kernel
+    out_k = embedding_bag_cuda(table, idx, seg, bags, w, mode)
+    out_p = embedding_bag_ref(table.cpu(), idx.cpu(), seg.cpu(), bags,
+                              None if w is None else w.cpu(), mode).to(cuda)
+    assert COUNTS["bag"].kernel == before + 1
+    assert out_k.dtype == torch.float32 and out_k.shape == (bags, d)
+    assert _close(out_k, out_p)
+    empty = torch.bincount(seg.long(), minlength=bags) == 0
+    assert bool((out_k[empty] == 0).all())
+    if case == "one":
+        assert bool(empty[0] & empty[2]) and not bool(empty[1])
+
+
+def test_mips_kernel_at_the_retrieval_shape(cuda):
+    """MIND's retrieve: 4 interest vectors against a 1,000,000 x 64 item
+    table, k = 100."""
+    from repro_torch.kernels.mips.mips import mips_topk_cuda
+    from repro_torch.kernels.mips.ref import mips_topk_ref
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    index = torch.randn((1_000_000, 64), generator=g, device=cuda) * 0.02
+    q = torch.randn((4, 64), generator=g, device=cuda)
+    valid = torch.ones((1_000_000,), dtype=torch.bool, device=cuda)
+    s_k, i_k = mips_topk_cuda(q, index, valid, 100)
+    s_p, i_p = mips_topk_ref(q, index, valid, 100)
+    assert _close(s_k, s_p)
+    got = (q[:, None] * index[i_k.long()]).sum(-1)
+    assert bool(((i_k == i_p) | ((got - s_p).abs() < TIE)).all())
+
+
+def test_mind_on_card_launches_bag_and_mips(cuda):
+    from repro_torch.kernels import counts
+    from repro_torch.models.api import get_arch
+
+    arch = get_arch("mind", smoke=True)
+    params = arch.init()
+    rng = np.random.default_rng(0)
+    S = arch.hist_len
+    mask = np.arange(S)[None] < rng.integers(1, S + 1, (8, 1))
+    batch = {"hist": torch.from_numpy(np.where(mask, rng.integers(0, 1000, (8, S)), 0)
+                                      .astype(np.int32)).to(cuda),
+             "hist_mask": torch.from_numpy(mask).to(cuda),
+             "target": torch.from_numpy(rng.integers(0, 1000, 8).astype(np.int32)).to(cuda)}
+    counts.reset_all()
+    s = arch.score(params, batch)
+    top, ids = arch.retrieve(params, {k: v[:1] for k, v in batch.items()})
+    snap = counts.snapshot()
+    assert snap["bag"]["kernel"] == 2 and snap["mips"]["kernel"] == 1, snap
+    assert all(c["plain"] == 0 for c in snap.values()), snap
+    assert bool(torch.isfinite(s).all()) and top.shape == ids.shape == (1, 100)
