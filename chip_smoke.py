@@ -19,7 +19,9 @@
    The staged path's kernels (rerank, prefilter, assign) are held the
    same way, with their edge cases: a depth-32 strided ring view, fp32
    rings, dead and duplicate routes, k above the live count; a zero
-   basis row and a batch off the 8-row block; K = 4218 and B = 1.
+   basis row and a batch off the 8-row block; K = 4218 and B = 1. Mips's
+   two launches (score-and-select, merge) are timed apart; assign's and
+   admit's kernels per call are listed as torch.profiler records them.
 3. Main path: a ``RAGServer`` on the full-size int8 config ingests 16
    batches of the NYT-like stream and answers queries two-stage, then a
    prototype-only server answers on the same engine; every ticket must be
@@ -49,7 +51,9 @@
    the CPU, whose order of summation is the kernel's); device time of the launch alone and of the whole wrapper (its
    stable sort included), plain, library
    (``F.embedding_bag`` + divide) and bound. Mips at MIND's retrieval
-   shape (4 x 64 against 1,000,000 x 64, k = 100) likewise.
+   shape (4 x 64 against 1,000,000 x 64, k = 100) likewise, and at DIEN's
+   and FM's (1 x 18 and 1 x 11 against 1,000,000 rows of N(0, 0.02)), each
+   with its two launches timed apart.
 6. Recsys path: MIND at full width (``configs/mind.py``, params drawn on
    the card from a seeded generator) runs serve_p99, serve_bulk and
    retrieval_cand once each with the counts reset just before: bag
@@ -73,6 +77,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -100,7 +105,7 @@ from repro_torch.kernels.bag.bag import (embedding_bag_cuda,  # noqa: E402
 from repro_torch.kernels.bag.ref import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.common import (NEG_INF, l2_normalize,  # noqa: E402
                                         require_full_fp32, stable_topk)
-from repro_torch.kernels.mips.mips import mips_topk_cuda  # noqa: E402
+from repro_torch.kernels.mips.mips import mips_launcher, mips_topk_cuda  # noqa: E402
 from repro_torch.kernels.mips.ref import mips_topk_ref  # noqa: E402
 from repro_torch.kernels.prefilter.prefilter import prefilter_scores_cuda  # noqa: E402
 from repro_torch.kernels.prefilter.ref import prefilter_scores_ref  # noqa: E402
@@ -277,6 +282,40 @@ def check_mips(q, index, valid, k, chk: Check):
 
 def mips_bound(Q, N, d, k):
     return bound(2.0 * Q * N * d, 4 * (Q * d + N * d) + N + 8 * Q * k)
+
+
+def mips_split(q, index, valid, k) -> str:
+    """Device ms of the kernel's two launches apart (score-and-select, then
+    merge) and together, on the path its plan picks at this shape."""
+    plan, _, _, run = mips_launcher(q, index, valid, k)
+    sel, mer, both = (cuda_ms(lambda p=p: run(p))[0] for p in (1, 2, 3))
+    return (f"{plan.path} path: score-and-select {sel:.4f} ms, merge {mer:.4f} ms, "
+            f"both {both:.4f} ms device")
+
+
+def kernels_per_call(fn) -> str:
+    """The CUDA kernels one warm call queues, by name, as torch.profiler
+    records them ("not measured" where it records no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    except Exception as e:  # the profiler is a report here, not a check
+        return f"not measured ({type(e).__name__}: {e})"
+    if not names:
+        return "not measured (the profiler recorded no device activity)"
+    def short(name):  # the kernel's own identifier, without scope or arguments
+        ids = [i for i in re.findall(r"([A-Za-z_]\w*)(?:<[^()]*>)?\(", name)
+               if i != "void"]
+        return ids[0] if ids else name[:40]
+
+    return f"{len(names)}: " + ", ".join(short(n) for n in names)
 
 
 # ------------------------------------------------------------------- serve
@@ -476,6 +515,10 @@ def check_stage_kernels(results, x, st, alpha, q, vectors, valid, labels, gen):
     results["assign"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                              bound_by=b_by, library_ms=lib, host_ms=host)
     print("  assign library_ms is two calls on unit rows: torch.max(torch.mm(xn, cn.T), 1)")
+    print(f"  assign: kernels per call {kernels_per_call(lambda: assign_cuda(x, cent))}")
+    print("  admit: kernels per call "
+          + kernels_per_call(lambda: admit_cuda(x, st.pre.basis, cent, alpha, None,
+                                                store_dtype="int8")))
     print("  rerank: no single PyTorch call computes the same function (library_ms null)")
 
 
@@ -645,7 +688,21 @@ def phase_recsys_kernels(results):
           f"{table.shape[0]} x {table.shape[1]}, k=100): {ms:.4f} ms device ({host:.4f} ms "
           f"a call from the host), plain {plain:.4f} ms ({plain_how}), library "
           f"{lib:.4f} ms (torch.topk(torch.mm(q, X.T), 100), two calls; {lib_how}), "
-          f"bound {b_ms:.4f} ms ({b_by})")
+          f"bound {b_ms:.4f} ms ({b_by}); {mips_split(u, table, valid, 100)}")
+    # DIEN's and FM's retrieve shapes: one query against 10^6 rows of d = 18
+    # and d = 11 (rows not 16-byte aligned), N(0, 0.02) rows
+    chk = Check("mips")
+    for d in (18, 11):
+        t = torch.randn((table.shape[0], d), generator=gen, device="cuda") * 0.02
+        u1 = torch.randn((1, d), generator=gen, device="cuda")
+        check_mips(u1, t, valid, 100, chk)
+        ms, _ = cuda_ms(lambda: mips_topk_cuda(u1, t, valid, 100))
+        lib, _ = device_ms(lambda: torch.topk(torch.mm(u1, t.T), 100))
+        b_ms, b_by = mips_bound(1, t.shape[0], d, 100)
+        print(f"  mips at 1 x {d} vs {t.shape[0]} x {d}, k=100: {ms:.4f} ms device, library "
+              f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {mips_split(u1, t, valid, 100)}")
+        del t
+    chk.done("Q=1, d=18 and d=11, k=100")
     return arch, params, batches
 
 
@@ -833,6 +890,8 @@ def phase_kernels(results: dict):
     results["mips"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain,
                            bound_ms=b_ms, bound_by=b_by, library_ms=lib, host_ms=host)
     print("  mips library_ms is two calls: torch.topk(torch.addmm(bias, q, X.T), k)")
+    print(f"  mips launches apart at Q={QUERIES} vs {K} x {d}, k={TOPK}: "
+          f"{mips_split(q, vectors, valid, TOPK)}")
 
     # ---- serve: int8 depth 64, fp32 depth 16, a depth-32 strided view;
     # 10% of route labels dead so some queries meet dead routes

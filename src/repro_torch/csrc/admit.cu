@@ -12,17 +12,17 @@
 //
 // Bound on this card: the centroid scan is 2*B*K*d fp32 operations against
 // B*d + K*d words read, so at B=256 it is bound by fp32 operations, not
-// bytes (about 0.83 GFLOP, 12 us at 67 TFLOP/s). Design: four launches on
+// bytes (about 0.83 GFLOP, 12 us at 67 TFLOP/s). Design: three launches on
 // the caller's stream. (1) one warp per centroid writes the unit centroid
 // c / max(|c|, 1e-12) — the reference's exact elementwise divide — to a
-// scratch buffer, once per call; (2) one block per row does all row-only
-// work (norm, screen, keep, quantize) and writes the unit row to a scratch
-// buffer; (3) a register-blocked SGEMM-style tile kernel computes the
-// cosines of 64 rows x 64 centroids per block (each staged element feeds 4
-// FMAs from registers, 264 blocks at B=256, K=4218) and keeps each row's
-// (max, lowest index) per tile; (4) a per-row merge over the K/64 tiles
-// keeps the lowest index on ties. (3) and (4) are assign_tiles.cuh's,
-// shared with the assign kernel.
+// scratch buffer, once per call, and zeroes the merge keys; (2) one block
+// per row does all row-only work (norm, screen, keep, quantize) and writes
+// the unit row to a scratch buffer; (3) assign_tiles.cuh's register-blocked
+// tile kernel (shared with the assign kernel) computes the cosines of 64
+// rows x 64 centroids per block (an 8 x 4 block per thread, 264 blocks at
+// B=256, K=4218), folds each row's (max, lowest index) per tile into a
+// 64-bit atomicMax key, and its last block decodes the keys into labels
+// and sims.
 // No tensor cores yet: wgmma in fp32 has no full-precision path, and the
 // keep/label contract is with full-fp32 sums.
 #include "assign_tiles.cuh"
@@ -30,8 +30,11 @@
 namespace {
 
 __global__ void centroid_unit_kernel(const float* __restrict__ c, int K, int d,
-                                     float* __restrict__ cn) {
-  const int j = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+                                     float* __restrict__ cn, int B,
+                                     key64* __restrict__ keys, unsigned* __restrict__ done) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  init_assign_keys(keys, done, B, gid, (long long)gridDim.x * blockDim.x);
+  const int j = (int)(gid >> 5);
   const int lane = threadIdx.x & 31;
   if (j >= K) return;  // warp-uniform
   const float* row = c + (size_t)j * d;
@@ -117,14 +120,16 @@ extern "C" int admit_launch(const float* x, int B, int d, const float* basis, in
                             int quantized, int normalize, float* r,
                             unsigned char* keep, int* label, float* sim, void* row,
                             float* scale, float* xn_scratch, float* cn_scratch,
-                            float* part_val, int* part_idx, void* stream) {
+                            void* keys, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
+  key64* k64 = (key64*)keys;  // B merge keys, then the done counter
+  unsigned* done = (unsigned*)(k64 + B);
 
   const int norm_threads = 256;
   const int norm_blocks = (K * 32 + norm_threads - 1) / norm_threads;
   centroid_unit_kernel<<<norm_blocks, norm_threads, 0, st>>>(centroids, K, d,
-                                                             cn_scratch);
+                                                             cn_scratch, B, k64, done);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const size_t rows_smem = (size_t)(2 * d + REPRO_RED_SLOTS) * sizeof(float);
@@ -134,6 +139,6 @@ extern "C" int admit_launch(const float* x, int B, int d, const float* basis, in
                                                scale, xn_scratch);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  return (int)launch_assign_tiles(xn_scratch, B, d, cn_scratch, K, part_val, part_idx,
-                                  label, sim, st);
+  return (int)launch_assign_tiles(xn_scratch, B, d, cn_scratch, K, k64, done, label,
+                                  sim, st);
 }

@@ -5,10 +5,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import cdiv, l2_normalize
+from repro_torch.kernels.common import l2_normalize
 from repro_torch.kernels.counts import COUNTS
-
-TILE = 64   # centroids per assign tile (kTile): one partial per row each
 
 
 def _fn():
@@ -17,7 +15,7 @@ def _fn():
     if fn.argtypes is None:
         P, I, F = build.P, build.I, build.F
         fn.argtypes = [P, I, I, P, I, P, I, P, F, I, I, I,
-                       P, P, P, P, P, P, P, P, P, P, P]
+                       P, P, P, P, P, P, P, P, P, P]
         fn.restype = I
     return lib, fn
 
@@ -56,18 +54,15 @@ def admit_cuda(x: torch.Tensor, basis: torch.Tensor, centroids: torch.Tensor,
     if B == 0:
         return r, keep, label, sim, row, scale
 
-    splits = cdiv(K, TILE)
     xn = torch.empty((B, d), dtype=torch.float32, device=dev)
     cn = torch.empty((K, d), dtype=torch.float32, device=dev)   # unit centroids
-    part_val = torch.empty((splits, B), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((splits, B), dtype=torch.int32, device=dev)
+    keys = torch.empty((B + 1,), dtype=torch.int64, device=dev)  # + done counter
     lib, fn = _fn()
     err = fn(x32.data_ptr(), B, d, vn.data_ptr(), n, c32.data_ptr(), K,
              live_b.data_ptr(), float(alpha), int(emit_rows), int(quantized),
              int(normalize), r.data_ptr(), keep.data_ptr(), label.data_ptr(),
              sim.data_ptr(), build.ptr(row), build.ptr(scale), xn.data_ptr(),
-             cn.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
-             build.stream_of(dev))
+             cn.data_ptr(), keys.data_ptr(), build.stream_of(dev))
     build.check(lib, err, "admit_launch")
     COUNTS["admit"].kernel += 1
     return r, keep, label, sim, row, scale

@@ -13,10 +13,8 @@ def _fn():
     fn = lib.assign_launch
     if fn.argtypes is None:
         P, I = build.P, build.I
-        fn.argtypes = [P, I, I, P, I, P, P, P, P, P, P, P]
+        fn.argtypes = [P, I, I, P, I, P, P, P, P, P, P]
         fn.restype = I
-        lib.assign_splits.argtypes = [I]
-        lib.assign_splits.restype = I
     return lib, fn
 
 
@@ -36,14 +34,12 @@ def assign_cuda(x: torch.Tensor, centroids: torch.Tensor):
     if B == 0:
         return best_id, best_sim
     lib, fn = _fn()
-    splits = lib.assign_splits(K)
     xn = torch.empty((B, d), dtype=torch.float32, device=dev)
     cn = torch.empty((K, d), dtype=torch.float32, device=dev)
-    part_val = torch.empty((splits, B), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((splits, B), dtype=torch.int32, device=dev)
+    keys = torch.empty((B + 1,), dtype=torch.int64, device=dev)   # + done counter
     err = fn(x32.data_ptr(), B, d, c32.data_ptr(), K, best_id.data_ptr(),
-             best_sim.data_ptr(), xn.data_ptr(), cn.data_ptr(),
-             part_val.data_ptr(), part_idx.data_ptr(), build.stream_of(dev))
+             best_sim.data_ptr(), xn.data_ptr(), cn.data_ptr(), keys.data_ptr(),
+             build.stream_of(dev))
     build.check(lib, err, "assign_launch")
     COUNTS["assign"].kernel += 1
     return best_id, best_sim

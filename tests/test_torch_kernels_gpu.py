@@ -208,8 +208,10 @@ def test_prefilter_kernel_matches_plain(cuda, B, n, d):
 
 
 @pytest.mark.parametrize("B,K,d", [(256, 4218, 384), (1, 4218, 384),
-                                   (1, 700, 64), (17, 5, 256)])
+                                   (1, 700, 64), (17, 5, 256), (70, 300, 18)])
 def test_assign_kernel_matches_plain(cuda, B, K, d):
+    """(70, 300, 18): rows of 18 floats take the tile kernel's 4-byte
+    staging loads."""
     from repro_torch.kernels.assign.assign import assign_cuda
     from repro_torch.kernels.assign.ref import assign_ref
 
@@ -366,3 +368,126 @@ def test_mind_on_card_launches_bag_and_mips(cuda):
     assert snap["bag"]["kernel"] == 2 and snap["mips"]["kernel"] == 1, snap
     assert all(c["plain"] == 0 for c in snap.values()), snap
     assert bool(torch.isfinite(s).all()) and top.shape == ids.shape == (1, 100)
+
+
+def _hold_mips(q, index, valid, k):
+    from repro_torch.kernels.mips.mips import mips_topk_cuda
+    from repro_torch.kernels.mips.ref import mips_topk_ref
+
+    before = COUNTS["mips"].kernel
+    s_k, i_k = mips_topk_cuda(q, index, valid, k)
+    s_p, i_p = mips_topk_ref(q, index, valid, k)
+    assert COUNTS["mips"].kernel == before + 1
+    assert _close(s_k, s_p)
+    S = torch.where(valid[None], q @ index.T, NEG_INF)
+    got = S.gather(1, i_k.long())
+    assert bool(((i_k == i_p) | ((got - s_p).abs() < TIE)).all())
+    return s_k, i_k
+
+
+@pytest.mark.parametrize("d", [11, 18, 64])
+def test_mips_kernel_one_query_over_a_million_rows(cuda, d):
+    """DIEN's, FM's and BERT4Rec's retrieve: Q = 1 against 10^6 rows, k =
+    100; at d = 11 and 18 the rows are not 16-byte aligned."""
+    from repro_torch.kernels.mips.mips import mips_plan
+
+    assert mips_plan(1, 1_000_000, 100).path == "threshold"
+    g = torch.Generator(device=cuda).manual_seed(d)
+    index = torch.randn((1_000_000, d), generator=g, device=cuda) * 0.02
+    q = torch.randn((1, d), generator=g, device=cuda)
+    valid = torch.rand((1_000_000,), generator=g, device=cuda) < 0.95
+    _hold_mips(q, index, valid, 100)
+
+
+def test_mips_kernel_ties_across_selection_blocks(cuda):
+    """Exact ties whose rows lie in different select blocks: one row copied
+    into block 5 (the copy comes second), and 120 copies of another row,
+    one per block, straddling the k = 100 cut (the 100 lowest rows win)."""
+    from repro_torch.kernels.mips.mips import mips_plan
+
+    N, d, k = 1_000_000, 64, 100
+    bn = mips_plan(4, N, k).bn
+    g = torch.Generator(device=cuda).manual_seed(7)
+    index = torch.randn((N, d), generator=g, device=cuda) * 0.02
+    q = torch.randn((4, d), generator=g, device=cuda)
+    index[3] = q[0] * 10.0                       # far above every other row
+    index[5 * bn + 7] = index[3]
+    copies = torch.arange(120, device=cuda) * bn + 11
+    index[copies] = q[1] * 10.0
+    valid = torch.ones((N,), dtype=torch.bool, device=cuda)
+    s_k, i_k = _hold_mips(q, index, valid, k)
+    assert i_k[0, :2].tolist() == [3, 5 * bn + 7]
+    assert torch.equal(i_k[1].long(), copies[:k])
+
+
+@pytest.mark.parametrize("N,n_valid,k", [(1_000_000, 50, 100), (2000, 30, 64),
+                                         (500, 5, 10)])
+def test_mips_kernel_k_above_the_valid_rows(cuda, N, n_valid, k):
+    """Every row past n_valid invalid and k above the valid count: the
+    valid rows come first by score, then invalid rows at NEG_INF in lowest
+    row order; rows past N never surface. Both paths."""
+    g = torch.Generator(device=cuda).manual_seed(N)
+    d = 64
+    index = l2_normalize(torch.randn((N, d), generator=g, device=cuda))
+    q = l2_normalize(torch.randn((3, d), generator=g, device=cuda))
+    valid = torch.arange(N, device=cuda) < n_valid
+    s_k, i_k = _hold_mips(q, index, valid, k)
+    assert bool((i_k[:, :n_valid] < n_valid).all())
+    assert torch.equal(i_k[:, n_valid:].long(),
+                       torch.arange(n_valid, k, device=cuda).expand(3, -1))
+    assert bool((s_k[:, n_valid:] == NEG_INF).all())
+
+
+def test_assign_kernel_ties_across_column_tiles(cuda):
+    """Rows equal to a centroid that has exact copies in other 64-centroid
+    column tiles (and rows in both 128-row tiles): the lowest index wins."""
+    from repro_torch.kernels.assign.assign import assign_cuda
+    from repro_torch.kernels.assign.ref import assign_ref
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, K, d = 256, 4218, 384
+    x = torch.randn((B, d), generator=g, device=cuda)
+    cent = torch.randn((K, d), generator=g, device=cuda)
+    pairs = [(70, 4000), (5, 130), (64, 63 + 64 * 40), (1000, 4217)]
+    for i, (lo, hi) in enumerate(pairs):
+        cent[hi] = cent[lo]
+        x[i] = cent[lo]
+        x[200 + i] = cent[lo] * 3.0               # the second row tile
+    i_k, s_k = assign_cuda(x, cent)
+    i_p, s_p = assign_ref(x, cent)
+    assert _close(s_k, s_p)
+    for i, (lo, _) in enumerate(pairs):
+        assert int(i_k[i]) == lo and int(i_k[200 + i]) == lo
+    sims = l2_normalize(x) @ l2_normalize(cent).T
+    pk = sims.gather(1, i_k.long()[:, None])[:, 0]
+    pp = sims.gather(1, i_p.long()[:, None])[:, 0]
+    assert bool(((i_k == i_p) | (pk >= pp - TIE)).all())
+
+
+def test_mips_kernel_many_queries_spill(cuda):
+    """64 queries against 10^6 rows, k = 100: a query's 196 x 100 block
+    keys exceed what a merge block holds in registers, so the merge counts
+    its survivors in device memory."""
+    from repro_torch.kernels.mips.mips import MERGE_CAP, mips_plan
+
+    plan = mips_plan(64, 1_000_000, 100)
+    assert plan.nblk * 100 > MERGE_CAP
+    g = torch.Generator(device=cuda).manual_seed(64)
+    index = torch.randn((1_000_000, 64), generator=g, device=cuda) * 0.02
+    q = torch.randn((64, 64), generator=g, device=cuda)
+    valid = torch.ones((1_000_000,), dtype=torch.bool, device=cuda)
+    _hold_mips(q, index, valid, 100)
+
+
+@pytest.mark.parametrize("Q", [2, 5])
+def test_mips_kernel_query_groups(cuda, Q):
+    """Two queries (a select block of 2) and five (a block of 8, three of
+    them empty) over 300,000 rows, k = 100."""
+    from repro_torch.kernels.mips.mips import mips_plan
+
+    assert mips_plan(Q, 300_000, 100).qb == (2 if Q == 2 else 8)
+    g = torch.Generator(device=cuda).manual_seed(Q)
+    index = torch.randn((300_000, 64), generator=g, device=cuda) * 0.02
+    q = torch.randn((Q, 64), generator=g, device=cuda)
+    valid = torch.rand((300_000,), generator=g, device=cuda) < 0.8
+    _hold_mips(q, index, valid, 100)
