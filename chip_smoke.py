@@ -20,8 +20,9 @@
    same way, with their edge cases: a depth-32 strided ring view, fp32
    rings, dead and duplicate routes, k above the live count; a zero
    basis row and a batch off the 8-row block; K = 4218 and B = 1. Mips's
-   two launches (score-and-select, merge) are timed apart; assign's and
-   admit's kernels per call are listed as torch.profiler records them.
+   two launches (score-and-select, merge) and serve's (route tiles,
+   routed rerank) are timed apart; assign's and admit's kernels per call
+   are listed as torch.profiler records them.
 3. Main path: a ``RAGServer`` on the full-size int8 config ingests 16
    batches of the NYT-like stream and answers queries two-stage, then a
    prototype-only server answers on the same engine; every ticket must be
@@ -46,10 +47,12 @@
    serve_p99 and serve_bulk shapes (1,000,000 x 64 item table, histories
    of 50 drawn from a Zipf popularity, p ~ 1/r^1.2, with a valid prefix
    of uniform length), plus its edge cases (unsorted segments with empty
-   bags, a bf16 table, d = 18, weights=None in sum and mean, a bag of one
-   entry; the d = 18 cases, N(0, 1) rows, against the plain version on
-   the CPU, whose order of summation is the kernel's); device time of the launch alone and of the whole wrapper (its
-   stable sort included), plain, library
+   bags, a bf16 table, int64 ids, d = 18, weights=None in sum and mean, a
+   bag of one entry; the d = 18 cases, N(0, 1) rows, against the plain
+   version on the CPU, whose order of summation is the kernel's; wherever
+   the segments are sorted, the sorted entry equals the sorting wrapper
+   bit for bit); device time of MIND's path (the sorted entry: one
+   launch) and of the sorting wrapper, plain, library
    (``F.embedding_bag`` + divide) and bound. Mips at MIND's retrieval
    shape (4 x 64 against 1,000,000 x 64, k = 100) likewise, and at DIEN's
    and FM's (1 x 18 and 1 x 11 against 1,000,000 rows of N(0, 0.02)), each
@@ -58,7 +61,10 @@
    the card from a seeded generator) runs serve_p99, serve_bulk and
    retrieval_cand once each with the counts reset just before: bag
    launches once per user_vectors call, mips once per retrieve, no plain
-   version runs. Outputs are finite and shaped as the reference's;
+   version runs; one more user_vectors call makes exactly one bag launch
+   (the counter) and no sort (torch.profiler's kernel list holds one
+   bag kernel and no sort kernel). Outputs are finite and shaped as the
+   reference's;
    user_vectors and scores agree with the same steps on the plain bag,
    retrieved ids with plain mips + stable top-k under the near-tie rule.
    Per step: device ms, host ms, peak memory. DIEN, BERT4Rec and FM then
@@ -102,7 +108,8 @@ from repro_torch.kernels.assign.assign import assign_cuda  # noqa: E402
 from repro_torch.kernels.assign.ref import assign_ref  # noqa: E402
 from repro_torch.kernels.bag.bag import (embedding_bag_cuda,  # noqa: E402
                                          embedding_bag_sorted_cuda)
-from repro_torch.kernels.bag.ref import embedding_bag_ref  # noqa: E402
+from repro_torch.kernels.bag.ref import (embedding_bag_ref,  # noqa: E402
+                                         embedding_bag_sorted_ref)
 from repro_torch.kernels.common import (NEG_INF, l2_normalize,  # noqa: E402
                                         require_full_fp32, stable_topk)
 from repro_torch.kernels.mips.mips import mips_launcher, mips_topk_cuda  # noqa: E402
@@ -112,7 +119,7 @@ from repro_torch.kernels.prefilter.ref import prefilter_scores_ref  # noqa: E402
 from repro_torch.kernels.rerank.ref import rerank_topk_ref  # noqa: E402
 from repro_torch.kernels.rerank.rerank import rerank_topk_cuda  # noqa: E402
 from repro_torch.kernels.serve.ref import serve_topk_ref  # noqa: E402
-from repro_torch.kernels.serve.serve import serve_topk_cuda  # noqa: E402
+from repro_torch.kernels.serve.serve import serve_launcher, serve_topk_cuda  # noqa: E402
 from repro_torch.models import recsys  # noqa: E402
 from repro_torch.models.api import get_arch  # noqa: E402
 from repro_torch.models.testing import assert_finite, dummy_batch  # noqa: E402
@@ -293,29 +300,37 @@ def mips_split(q, index, valid, k) -> str:
             f"both {both:.4f} ms device")
 
 
-def kernels_per_call(fn) -> str:
-    """The CUDA kernels one warm call queues, by name, as torch.profiler
-    records them ("not measured" where it records no device activity)."""
+def profiled_kernels(fn) -> list[str]:
+    """The CUDA kernels one warm call queues, by their own identifiers
+    (without scope or arguments), as torch.profiler records them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    except Exception as e:  # the profiler is a report here, not a check
-        return f"not measured ({type(e).__name__}: {e})"
-    if not names:
-        return "not measured (the profiler recorded no device activity)"
-    def short(name):  # the kernel's own identifier, without scope or arguments
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def short(name):
         ids = [i for i in re.findall(r"([A-Za-z_]\w*)(?:<[^()]*>)?\(", name)
                if i != "void"]
         return ids[0] if ids else name[:40]
 
-    return f"{len(names)}: " + ", ".join(short(n) for n in names)
+    return [short(n) for n in names]
+
+
+def kernels_per_call(fn) -> str:
+    """``profiled_kernels`` as a report ("not measured" where the profiler
+    records no device activity)."""
+    try:
+        names = profiled_kernels(fn)
+    except Exception as e:  # the profiler is a report here, not a check
+        return f"not measured ({type(e).__name__}: {e})"
+    if not names:
+        return "not measured (the profiler recorded no device activity)"
+    return f"{len(names)}: " + ", ".join(names)
 
 
 # ------------------------------------------------------------------- serve
@@ -340,6 +355,17 @@ def entry_scores(qn, embs, live, scales, routes, pos):
     cl = routes.gather(1, (pos.clamp(min=0) // depth).long())
     cl = torch.where(pos >= 0, cl, -1)
     return ring_score(qn, embs, live, scales, cl, pos.clamp(min=0) % depth)
+
+
+def serve_split(qr, qn, vectors, valid, labels, embs, live, scales, k, nprobe) -> str:
+    """Device ms of the kernel's two launches apart (route tiles, then the
+    routed rerank) and together, with the plan that sized them."""
+    plan, _, _, _, run = serve_launcher(qr, qn, vectors, valid, labels, embs, live, k,
+                                        nprobe, scales)
+    t1, t2, both = (cuda_ms(lambda p=p: run(p))[0] for p in (1, 2, 3))
+    return (f"route tiles of {8 * plan.rm} queries x 64 ({plan.ntiles} column tiles, "
+            f"{plan.m} route keys a query) {t1:.4f} ms, rerank in clusters of "
+            f"{plan.cluster} {t2:.4f} ms, both {both:.4f} ms device")
 
 
 def check_serve(qr, qn, vectors, valid, labels, embs, live, scales, k, nprobe,
@@ -569,20 +595,26 @@ def plain_recsys():
         seen.append((q, index))
         return mips_topk_ref(q, index, valid, k)
 
-    saved = recsys.embedding_bag, recsys.mips_topk
-    recsys.embedding_bag, recsys.mips_topk = embedding_bag_ref, plain_mips
+    saved = recsys.embedding_bag_sorted, recsys.mips_topk
+    recsys.embedding_bag_sorted, recsys.mips_topk = embedding_bag_sorted_ref, plain_mips
     try:
         yield seen
     finally:
-        recsys.embedding_bag, recsys.mips_topk = saved
+        recsys.embedding_bag_sorted, recsys.mips_topk = saved
 
 
 def check_bag(table, idx, seg, bags, w, mode, chk: Check, plain_on_cpu=False):
     """Returns the number of empty bags (which must come out zero). The
     plain version sums with ``index_add_``, whose order on the card changes
     from run to run; ``plain_on_cpu`` runs it on CPU copies, in the order
-    the kernel sums in, for rows whose size makes that order show."""
+    the kernel sums in, for rows whose size makes that order show. Where
+    the segments are sorted, the sorted entry (one launch, no sort) must
+    equal the sorting wrapper bit for bit."""
     out_k = embedding_bag_cuda(table, idx, seg, bags, w, mode)
+    if seg.numel() < 2 or bool((seg[1:] >= seg[:-1]).all()):
+        out_s = embedding_bag_sorted_cuda(table, idx, seg, bags, w, mode)
+        if not torch.equal(out_s, out_k):
+            chk.fail.append(f"sorted entry != sorting wrapper ({mode} d{table.shape[1]})")
     if plain_on_cpu:
         out_p = embedding_bag_ref(table.cpu(), idx.cpu(), seg.cpu(), bags,
                                   None if w is None else w.cpu(), mode).cuda()
@@ -605,13 +637,14 @@ def bag_bound(table, idx, bags):
 
 
 def time_bag(label, table, idx, seg, bags, w, mode):
-    """Device ms of the launch alone and of the whole wrapper, host ms,
-    plain ms, library ms (F.embedding_bag + divide) and the bound."""
+    """Device ms of MIND's path (the sorted entry: one launch on MIND's own
+    tensors) and of the sorting wrapper, host ms, plain ms, library ms
+    (F.embedding_bag + divide) and the bound."""
+    ms, host = cuda_ms(lambda: embedding_bag_sorted_cuda(table, idx, seg, bags, w, mode))
+    wrap, wrap_host = cuda_ms(lambda: embedding_bag_cuda(table, idx, seg, bags, w, mode))
+    sort_ms, _ = cuda_ms(lambda: torch.argsort(seg, stable=True))
     order = torch.argsort(seg, stable=True)
     idx_s, seg_s, w_s = idx[order].int(), seg[order].int(), w[order].float()
-    ms, host = cuda_ms(lambda: embedding_bag_sorted_cuda(table, idx_s, seg_s, w_s,
-                                                         bags, mode))
-    wrap, wrap_host = cuda_ms(lambda: embedding_bag_cuda(table, idx, seg, bags, w, mode))
     plain, _ = device_ms(lambda: embedding_bag_ref(table, idx, seg, bags, w, mode), iters=5)
     offsets = torch.searchsorted(seg_s, torch.arange(bags, device="cuda", dtype=torch.int32),
                                  out_int32=True)
@@ -628,8 +661,9 @@ def time_bag(label, table, idx, seg, bags, w, mode):
     lib, _ = cuda_ms(library)
     b_ms, b_by, distinct = bag_bound(table, idx, bags)
     print(f"  bag {label}: L={idx.numel()} bags={bags} distinct rows {distinct}; "
-          f"launch alone {ms:.4f} ms device ({host:.4f} ms a call from the host), "
-          f"whole wrapper with its sort {wrap:.4f} ms device ({wrap_host:.4f} ms host), "
+          f"MIND's path (sorted entry, one launch) {ms:.4f} ms device ({host:.4f} ms a "
+          f"call from the host), sorting wrapper {wrap:.4f} ms device ({wrap_host:.4f} ms "
+          f"host; its stable argsort alone {sort_ms:.4f} ms), "
           f"plain {plain:.4f} ms, library {lib:.4f} ms (two calls: F.embedding_bag "
           f"+ divide; max|d| vs plain {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
     return dict(ms=ms, host_ms=host, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
@@ -656,6 +690,7 @@ def phase_recsys_kernels(results):
         check_bag(table, idx, seg, B, w, "mean", chk)
     idx, seg, w, B = mind_bag_inputs(batches["serve_p99"])
     check_bag(table.to(torch.bfloat16), idx, seg, B, w, "mean", chk)
+    check_bag(table, idx.long(), seg.long(), B, w, "mean", chk)   # int64 ids as they are
     # N(0, 1) rows: held against the plain version on the CPU (check_bag)
     t18 = torch.randn((1000, 18), generator=gen, device="cuda")
     for mode in ("sum", "mean"):
@@ -666,7 +701,7 @@ def phase_recsys_kernels(results):
         check_bag(table, idx, seg, B, None, mode, chk)
         check_bag(t18, i40[:1], torch.ones((1,), dtype=torch.int32, device="cuda"), 3,
                   None, mode, chk, plain_on_cpu=True)         # a bag of one entry
-    chk.done(f"p99+bulk+bf16+d18+w=None, {empty} empty")
+    chk.done(f"p99+bulk+bf16+i64+d18+w=None, {empty} empty")
     times = {}
     for shape in ("serve_p99", "serve_bulk"):
         idx, seg, w, B = mind_bag_inputs(batches[shape])
@@ -759,6 +794,19 @@ def phase_recsys(arch, params, batches, results):
     assert launches["mips"]["kernel"] == 1, launches                  # one per retrieve
     assert all(c["plain"] == 0 for c in launches.values()), "a plain version ran"
     results["bag"]["launches"] = launches["bag"]["kernel"]
+    # MIND's user_vectors: exactly one bag launch and no sort, by the
+    # launch counter and by the kernels torch.profiler lists for one call
+    b = batches["serve_p99"]
+    counts.reset_all()
+    arch.user_vectors(params, b)
+    uv_launches = counts.snapshot()["bag"]
+    assert uv_launches == {"kernel": 1, "plain": 0}, uv_launches
+    names = profiled_kernels(lambda: arch.user_vectors(params, b))
+    bag_k = [n for n in names if n in ("bag_few_kernel", "bag_many_kernel")]
+    sorts = [n for n in names if "sort" in n.lower()]
+    assert len(bag_k) == 1 and not sorts, names
+    print(f"  mind user_vectors: 1 bag launch, no sort ({len(names)} kernels a call: "
+          f"{', '.join(names)})")
     table = params["item_emb"]
     chk = Check("mind")
     for shape in RECSYS_STEPS:
@@ -909,6 +957,8 @@ def phase_kernels(results: dict):
     plain, _ = cuda_ms(lambda: serve_topk_ref(q, q, vectors, valid, labels, embs,
                                               live_r, TOPK, NPROBE, scales), iters=5)
     b_ms, b_by = serve_bound(QUERIES, d, K, out[2], 64, NPROBE, TOPK, 1, True)
+    print(f"  serve launches apart at Q={QUERIES} vs {K} x {d}, int8 depth 64: "
+          f"{serve_split(q, q, vectors, valid, labels, embs, live_r, scales, TOPK, NPROBE)}")
     del embs, live_r, scales
     cfg32 = full_config("fp32", 16)
     K32 = cfg32.clus.num_clusters

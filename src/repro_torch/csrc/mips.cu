@@ -9,7 +9,7 @@
 // Blocked path — small index, small k (the streaming-RAG flush: Q = 64
 // queries against 4218 x 384 prototypes, k = 10). Bound there: about 0.2
 // GFLOP of fp32 (3 us at 67 TFLOP/s) against 6.5 MB read (2 us).
-// rows_topk_kernel (topk.cuh, shared with serve) scores blocks of 8
+// rows_topk_kernel (topk.cuh) scores blocks of 8
 // queries against bn rows (warp per row, each row read once per 8
 // queries) and keeps each query's top-k per block by k warp-wide passes;
 // mips_merge_kernel (one warp per query) merges the survivors in k passes.

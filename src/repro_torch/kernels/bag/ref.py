@@ -32,3 +32,14 @@ def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,
                               0, seg, torch.ones_like(rows[:, 0]))
         out = out / torch.clamp(cnt, min=1.0)[:, None]
     return out
+
+
+def embedding_bag_sorted_ref(table: torch.Tensor, indices: torch.Tensor,
+                             segment_ids: torch.Tensor, num_bags: int,
+                             weights: torch.Tensor | None = None, mode: str = "sum"):
+    """``embedding_bag_ref`` for segment ids the caller states are
+    non-decreasing (the kernel's sorted entry, which skips the sort);
+    raises if they are not."""
+    if segment_ids.numel() > 1 and bool((segment_ids[1:] < segment_ids[:-1]).any()):
+        raise ValueError("embedding_bag_sorted: segment_ids must be non-decreasing")
+    return embedding_bag_ref(table, indices, segment_ids, num_bags, weights, mode)

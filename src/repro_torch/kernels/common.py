@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 NEG_INF = float(-1e30)
+SMS = 132   # streaming multiprocessors of an H100 SXM (the kernels size grids by it)
 
 
 def cdiv(a: int, b: int) -> int:

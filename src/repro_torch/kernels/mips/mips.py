@@ -13,7 +13,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import cdiv, round_up
+from repro_torch.kernels.common import SMS, cdiv, round_up
 from repro_torch.kernels.counts import COUNTS
 
 # The blocked path's warp passes cost k passes per block and per merge:
@@ -27,7 +27,6 @@ SELECT_SLOTS = 8           # keys a select thread holds: bn <= 8192
 MERGE_CAP = 16_384         # keys a merge block holds in registers (more: spill)
 RANK_CAP = 2048            # candidates a block ranks (keys.cuh's kRankCap)
 THRESHOLD_MAX_K = 8192
-SMS = 132                  # streaming multiprocessors of an H100 SXM
 SELECT_SMEM = 160 * 1024   # score bytes a select block may hold
 
 

@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.bag.ops import embedding_bag
+from repro_torch.kernels.bag.ops import embedding_bag_sorted
 from repro_torch.kernels.common import resolve_device, stable_topk
 from repro_torch.kernels.mips.ops import mips_topk
 from repro_torch.models import layers as L
@@ -176,13 +176,14 @@ class MIND(RecSysArch):
         caps = self._interests(params, hist_emb, mask)
         # ragged profile feature via EmbeddingBag: every one of the B*S
         # entries goes in (masked ones at row 0 with weight 0), so the mean
-        # divides by S, not by the number of valid entries
+        # divides by S, not by the number of valid entries; the segment ids
+        # are non-decreasing by construction, so the bag needs no sort
         B, S = hist.shape
         seg = torch.arange(B, dtype=torch.int32, device=hist.device)[:, None] \
-            .expand(B, S).reshape(-1)
+            .expand(B, S).contiguous().view(-1)
         idx = torch.where(mask, hist, 0).reshape(-1)
         w = mask.to(torch.float32).reshape(-1)
-        prof = embedding_bag(params["item_emb"], idx, seg, B, w, "mean")
+        prof = embedding_bag_sorted(params["item_emb"], idx, seg, B, w, "mean")
         prof = (prof @ params["profile_proj"])[:, None]     # [B,1,d]
         return caps + 0.1 * prof                            # broadcast add
 

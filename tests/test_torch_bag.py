@@ -107,3 +107,43 @@ def test_dispatch_runs_plain_on_cpu_and_raises_elsewhere():
         bag_ops.embedding_bag(t.to("meta"), i.to("meta"), s.to("meta"), 2)
     with pytest.raises(ValueError, match="mode"):
         bag_ops.embedding_bag(t, i, s, 2, mode="max")
+
+
+@pytest.mark.parametrize("V,d,L,bags", [(50, 16, 64, 10), (300, 18, 97, 13),
+                                        (40, 200, 77, 9)])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("ids", ["i32", "i64"])
+def test_sorted_entry_equals_embedding_bag_on_sorted_input(V, d, L, bags, mode, ids):
+    """``embedding_bag_sorted`` (the entry for segment ids that are
+    non-decreasing by construction) equals ``embedding_bag`` on the same
+    sorted input, int32 or int64 ids, empty bags included, and the JAX
+    reference kernel."""
+    rng = np.random.default_rng(L + d)
+    tj, tt = _tables(rng, V, d, False)
+    dt = np.int32 if ids == "i32" else np.int64
+    idx = rng.integers(0, V, L).astype(dt)
+    seg = np.sort(rng.integers(1, bags - 1, L)).astype(dt)    # bags 0 and bags-1 empty
+    w = rng.random(L).astype(np.float32)
+    args = (tt, torch.from_numpy(idx), torch.from_numpy(seg), bags, torch.from_numpy(w), mode)
+    before = COUNTS["bag"].plain
+    got = bag_ops.embedding_bag_sorted(*args)
+    assert COUNTS["bag"].plain == before + 1
+    assert torch.equal(got, bag_ops.embedding_bag(*args))
+    assert bool((got[0] == 0).all()) and bool((got[-1] == 0).all())
+    want = np.asarray(embedding_bag_pallas(tj, jnp.asarray(idx.astype(np.int32)),
+                                           jnp.asarray(seg.astype(np.int32)), bags,
+                                           jnp.asarray(w), mode))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+def test_sorted_plain_version_raises_on_unsorted_segments():
+    t = torch.randn(10, 4)
+    i = torch.tensor([0, 3, 5], dtype=torch.int32)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        bag_ops.embedding_bag_sorted(t, i, torch.tensor([0, 2, 1], dtype=torch.int32), 3)
+    out = bag_ops.embedding_bag_sorted(t, i, torch.tensor([1, 1, 2], dtype=torch.int32), 3)
+    np.testing.assert_allclose(out[1].numpy(), (t[0] + t[3]).numpy(), **TOL)
+    with pytest.raises(ValueError, match="device meta"):
+        bag_ops.embedding_bag_sorted(t.to("meta"), i.to("meta"), i.to("meta"), 2)
+    with pytest.raises(ValueError, match="mode"):
+        bag_ops.embedding_bag_sorted(t, i, i, 6, mode="max")

@@ -491,3 +491,226 @@ def test_mips_kernel_query_groups(cuda, Q):
     q = torch.randn((Q, 64), generator=g, device=cuda)
     valid = torch.rand((300_000,), generator=g, device=cuda) < 0.8
     _hold_mips(q, index, valid, 100)
+
+
+# ---- serve and rerank on rings.cuh: both paths, every cluster size, edge cases
+def _ring_store(g, C, D, d, quantized, fill=0.6):
+    from repro_torch.store import quant
+
+    rows = l2_normalize(torch.randn((C * D, d), generator=g, device="cuda"))
+    live = torch.rand((C, D), generator=g, device="cuda") < fill
+    if quantized:
+        e, s = quant.quantize_int8(rows, dim=-1)
+        return e.view(C, D, d), live, s.view(C, D)
+    return rows.view(C, D, d), live, None
+
+
+def _hold_rerank(q, embs, live, routes, k, scales, cluster=None):
+    from repro_torch.kernels.rerank.ref import rerank_topk_ref
+    from repro_torch.kernels.rerank.rerank import rerank_topk_cuda
+
+    s_k, p_k = rerank_topk_cuda(q, embs, live, routes, k, scales, cluster=cluster)
+    s_p, p_p = rerank_topk_ref(q, embs, live, routes, k, scales)
+    assert _close(s_k, s_p)
+    assert bool(((p_k == p_p) | ((s_k - s_p).abs() < TIE)).all())
+    return s_k, p_k
+
+
+def _hold_serve(q, v, valid, labels, embs, live, k, P, scales, plan=None):
+    """The kernel's (scores, pos, routes) against the plain version: routes
+    equal except after a near-tie of the plain route scores, and where
+    they agree, scores close and picks equal or scoring within TIE."""
+    from repro_torch.kernels.serve.ref import serve_topk_ref
+    from repro_torch.kernels.serve.serve import serve_launcher
+
+    plan, s_k, p_k, r_k, run = serve_launcher(q, q, v, valid, labels, embs, live, k, P,
+                                              scales, plan)
+    run()
+    s_p, p_p, r_p = serve_topk_ref(q, q, v, valid, labels, embs, live, k, P, scales)
+    rs = torch.sort(torch.where(valid[None], q @ v.T, NEG_INF), dim=1,
+                    descending=True).values[:, :P + 1]
+    tie = ((rs[:, :-1] - rs[:, 1:]) < TIE).any(dim=1)
+    same = (r_k == r_p).all(dim=1)
+    assert bool((same | tie).all())
+    assert _close(s_k[same], s_p[same])
+    assert bool(((p_k == p_p) | ((s_k - s_p).abs() < TIE))[same].all())
+    return s_k, p_k, r_k
+
+
+@pytest.mark.parametrize("case", ["scalar_int8", "scalar_fp32", "dup_routes", "all_dead",
+                                  "k_above_live", "view"])
+def test_serve_kernel_edge_cases(cuda, case):
+    """d % 16 != 0 int8 and d % 4 != 0 fp32 rows (the scalar path),
+    duplicate routes (slots labelled with few clusters), every route dead,
+    k above the live slots, and a depth-clipped strided view."""
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    d = {"scalar_int8": 100, "scalar_fp32": 102}.get(case, 384)
+    quantized = case != "scalar_fp32"
+    Q, cap, C, D, P = 40, 700, 300, 16, 8
+    k = P * D if case == "k_above_live" else 10
+    v = l2_normalize(torch.randn((cap, d), generator=g, device=cuda))
+    valid = torch.rand((cap,), generator=g, device=cuda) < 0.9
+    labels = torch.randint(0, C, (cap,), generator=g, device=cuda).int()
+    if case == "dup_routes":
+        labels = torch.randint(0, 3, (cap,), generator=g, device=cuda).int()
+    if case == "all_dead":
+        labels[:] = -1
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
+    embs, live, scales = _ring_store(g, C, 32 if case == "view" else D, d, quantized,
+                                     0.05 if case == "k_above_live" else 0.6)
+    if case == "view":
+        embs, live, scales = embs[:, :D], live[:, :D], scales[:, :D]
+        assert not embs.is_contiguous()
+    s_k, p_k, r_k = _hold_serve(q, v, valid, labels, embs, live, k, P, scales)
+    if case == "dup_routes":
+        assert bool((r_k[:, :, None] == r_k[:, None, :]).sum((1, 2)).gt(P).all())
+    if case == "all_dead":
+        assert bool((r_k == -1).all() & (p_k == -1).all() & (s_k == NEG_INF).all())
+    if case == "k_above_live":
+        assert bool((p_k == -1).any(dim=1).all())
+
+
+@pytest.mark.parametrize("rm", [8, 4, 2])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_serve_kernel_plans_agree(cuda, rm, cluster):
+    """At the main path's shape, every route tile height and cluster size
+    gives the default plan's answer bit for bit (each dot is one in-order
+    sum whatever the tiling), and that answer holds against plain."""
+    import dataclasses
+
+    from repro_torch.kernels.serve.serve import serve_plan
+
+    g = torch.Generator(device=cuda).manual_seed(15)
+    Q, d, cap, D, P, k = 64, 384, 4218, 64, 8, 10
+    v = l2_normalize(torch.randn((cap, d), generator=g, device=cuda))
+    valid = torch.rand((cap,), generator=g, device=cuda) < 0.9
+    labels = torch.randperm(cap, generator=g, device=cuda).int()
+    labels[torch.rand((cap,), generator=g, device=cuda) < 0.1] = -1
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
+    embs, live, scales = _ring_store(g, cap, D, d, True)
+    base = serve_plan(Q, cap, P, D)
+    assert (base.rm, base.ntiles, base.m) == (4, 66, 528)
+    want = _hold_serve(q, v, valid, labels, embs, live, k, P, scales)
+    got = _hold_serve(q, v, valid, labels, embs, live, k, P, scales,
+                      dataclasses.replace(base, rm=rm, cluster=cluster))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_serve_kernel_phases_apart(cuda):
+    """run(1) then run(2) gives run(3)'s answer bit for bit, also where the
+    kernel just before run(2) writes the rerank's queries (the rerank is a
+    dependent launch and must read them only after its wait)."""
+    from repro_torch.kernels.serve.serve import serve_launcher
+
+    g = torch.Generator(device=cuda).manual_seed(16)
+    Q, d, cap, D, P, k = 64, 384, 4218, 64, 8, 10
+    v = l2_normalize(torch.randn((cap, d), generator=g, device=cuda))
+    valid = torch.rand((cap,), generator=g, device=cuda) < 0.9
+    labels = torch.randperm(cap, generator=g, device=cuda).int()
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
+    embs, live, scales = _ring_store(g, cap, D, d, True)
+    qn = q.clone()
+    _, s, p, r, run = serve_launcher(q, qn, v, valid, labels, embs, live, k, P, scales)
+    run(3)
+    want = [t.clone() for t in (s, p, r)]
+    for _ in range(5):
+        for t in (s, p, r, qn):
+            t.zero_()
+        run(1)
+        qn.copy_(q)
+        run(2)
+        for a, b in zip((s, p, r), want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("P", [8, 2])
+def test_serve_route_ties_across_column_tiles(cuda, P):
+    """Prototype 10 copied to slots 70 and 200 (other 64-column route
+    tiles): a query equal to it routes to 10, 70, 200 in that order, and
+    at nprobe 2 the cut keeps 10 and 70."""
+    g = torch.Generator(device=cuda).manual_seed(P)
+    Q, d, cap, C, D = 64, 384, 1000, 1000, 16
+    v = l2_normalize(torch.randn((cap, d), generator=g, device=cuda))
+    v[70] = v[10]
+    v[200] = v[10]
+    valid = torch.ones((cap,), dtype=torch.bool, device=cuda)
+    labels = torch.arange(cap, device=cuda, dtype=torch.int32)
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
+    q[3] = v[10]
+    q[60] = v[10]
+    embs, live, scales = _ring_store(g, C, D, d, True)
+    _, _, r_k = _hold_serve(q, v, valid, labels, embs, live, 10, P, scales)
+    want = torch.tensor([10, 70, 200][:min(P, 3)], device=cuda, dtype=torch.int32)
+    for i in (3, 60):
+        assert torch.equal(r_k[i, :len(want)], want)
+
+
+@pytest.mark.parametrize("case", ["scalar_int8", "scalar_fp32", "all_dead", "k_above_live"])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_rerank_kernel_edge_cases(cuda, case, cluster):
+    """The scalar path (d % 16 != 0 int8, d % 4 != 0 fp32), every route
+    dead, and k above the live slots, at every cluster size."""
+    g = torch.Generator(device=cuda).manual_seed(cluster)
+    d = {"scalar_int8": 100, "scalar_fp32": 102}.get(case, 384)
+    Q, C, D, P = 17, 500, 32, 8
+    k = P * D if case == "k_above_live" else 10
+    embs, live, scales = _ring_store(g, C, D, d, case != "scalar_fp32",
+                                     0.03 if case == "k_above_live" else 0.6)
+    routes = torch.randint(0, C, (Q, P), generator=g, device=cuda).int()
+    routes[:4, 2] = routes[:4, 5]                 # duplicate routes
+    if case == "all_dead":
+        routes[:] = -1
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
+    s_k, p_k = _hold_rerank(q, embs, live, routes, k, scales, cluster)
+    if case == "all_dead":
+        assert bool((p_k == -1).all() & (s_k == NEG_INF).all())
+    if case == "k_above_live":
+        assert bool((p_k == -1).any(dim=1).all())
+    s_1, p_1 = _hold_rerank(q, embs, live, routes, k, scales, 1)
+    assert torch.equal(s_k, s_1) and torch.equal(p_k, p_1)
+
+
+# ---- bag's sorted entry: one launch on the caller's tensors
+@pytest.mark.parametrize("case,d", [("empty", 64), ("int64", 64), ("bf16", 64),
+                                    ("mind", 18), ("mind", 200), ("mind", 64),
+                                    ("many", 64)])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_bag_sorted_entry_matches_plain_and_sorting_path(cuda, case, d, mode):
+    """Sorted segments with empty bags (leading, inner, trailing), int64
+    indices and segments, a bf16 table, d = 18 and 200 (one and two column
+    passes), and 9,000 bags (the kernel's many-bags regime: a binary search
+    and 2 rows in flight): held against the plain version on CPU copies,
+    and bit-equal to the sorting wrapper (a stable sort of sorted ids is
+    the identity)."""
+    from repro_torch.kernels.bag.bag import embedding_bag_cuda, embedding_bag_sorted_cuda
+    from repro_torch.kernels.bag.ref import embedding_bag_ref
+
+    g = torch.Generator(device=cuda).manual_seed(d)
+    V, bags, S = (5000, 9000, 4) if case == "many" else (5000, 300, 20)
+    table = torch.randn((V, d), generator=g, device=cuda)
+    if case == "bf16":
+        table = table.to(torch.bfloat16)
+    mask = torch.arange(S, device=cuda)[None] < torch.randint(
+        1, S + 1, (bags, 1), generator=g, device=cuda)
+    idx = torch.where(mask, torch.randint(0, V, (bags, S), generator=g, device=cuda), 0)
+    seg = torch.arange(bags, device=cuda)[:, None].expand(bags, S)
+    w = mask.float()
+    if case == "empty":   # drop bags 0, 1, 150 and the last 10
+        keep = torch.ones((bags, S), dtype=torch.bool, device=cuda)
+        keep[[0, 1, 150]] = False
+        keep[-10:] = False
+        idx, seg, w = idx[keep], seg[keep], w[keep]
+    idx, seg, w = idx.reshape(-1), seg.reshape(-1), w.reshape(-1)
+    if case != "int64":
+        idx, seg = idx.int(), seg.int()
+    before = COUNTS["bag"].kernel
+    out_k = embedding_bag_sorted_cuda(table, idx, seg, bags, w, mode)
+    assert COUNTS["bag"].kernel == before + 1
+    out_p = embedding_bag_ref(table.cpu(), idx.cpu(), seg.cpu(), bags, w.cpu(), mode).to(cuda)
+    assert _close(out_k, out_p)
+    assert torch.equal(out_k, embedding_bag_cuda(table, idx, seg, bags, w, mode))
+    empty = torch.bincount(seg.long(), minlength=bags) == 0
+    assert bool((out_k[empty] == 0).all())
+    if case == "empty":
+        assert int(empty.sum()) == 13

@@ -120,6 +120,29 @@ def test_mind_profile_goes_through_the_bag_dispatch():
     assert COUNTS["bag"].plain == before + 1
 
 
+def test_mind_profile_takes_the_sorted_bag_entry(monkeypatch):
+    """MIND's profile bag goes through ``embedding_bag_sorted`` (its segment
+    ids are arange(B) repeated S times: non-decreasing by construction, so
+    the card skips the sort), with exactly those segments."""
+    from repro_torch.models import recsys
+
+    _, _, ta, tp = _pair("mind")
+    _, tb = _both(_batch(ta, 4))
+    seen = []
+    real = recsys.embedding_bag_sorted
+
+    def spy(table, idx, seg, num_bags, w, mode):
+        seen.append((seg.clone(), num_bags, mode))
+        return real(table, idx, seg, num_bags, w, mode)
+
+    monkeypatch.setattr(recsys, "embedding_bag_sorted", spy)
+    ta.user_vectors(tp, tb)
+    (seg, B, mode), = seen
+    S = tb["hist"].shape[1]
+    assert mode == "mean" and B == 4
+    assert torch.equal(seg, torch.arange(B, dtype=seg.dtype).repeat_interleave(S))
+
+
 CELLS = [(n, s) for n in ARCHS for s in ("serve_p99", "serve_bulk", "retrieval_cand")]
 
 
