@@ -19,10 +19,13 @@
    The staged path's kernels (rerank, prefilter, assign) are held the
    same way, with their edge cases: a depth-32 strided ring view, fp32
    rings, dead and duplicate routes, k above the live count; a zero
-   basis row and a batch off the 8-row block; K = 4218 and B = 1. Mips's
-   two launches (score-and-select, merge) and serve's (route tiles,
-   routed rerank) are timed apart; assign's and admit's kernels per call
-   are listed as torch.profiler records them.
+   basis row and a batch off the rows a block takes; K = 4218 and B = 1.
+   Admit is also held with live=None (every row live). Admit's two
+   launches (prologue, tile kernel), mips's (score-and-select, merge) and
+   serve's (route tiles, routed rerank) are timed apart; assign's, admit's and prefilter's kernels per
+   call are listed as torch.profiler records them, and the launch floor
+   (one empty kernel from ``csrc/launch_floor.cu``) is timed as the
+   kernels are.
 3. Main path: a ``RAGServer`` on the full-size int8 config ingests 16
    batches of the NYT-like stream and answers queries two-stage, then a
    prototype-only server answers on the same engine; every ticket must be
@@ -102,7 +105,7 @@ from repro_torch.engine import stages  # noqa: E402
 from repro_torch.engine.engine import (Engine, ingest_impl,  # noqa: E402
                                        staged_ingest_impl)
 from repro_torch.kernels import build, counts  # noqa: E402
-from repro_torch.kernels.admit.admit import admit_cuda  # noqa: E402
+from repro_torch.kernels.admit.admit import admit_cuda, admit_launcher  # noqa: E402
 from repro_torch.kernels.admit.ref import admit_ref  # noqa: E402
 from repro_torch.kernels.assign.assign import assign_cuda  # noqa: E402
 from repro_torch.kernels.assign.ref import assign_ref  # noqa: E402
@@ -200,6 +203,16 @@ def device_ms(fn, iters: int = 20) -> tuple[float, str]:
         return ev[0].elapsed_time(ev[1]) / iters, "events around calls: it synchronizes"
 
 
+def launch_floor_ms() -> float:
+    """Device ms of one empty kernel on the current stream, by ``cuda_ms``:
+    what one launch costs, read beside a bound far below it."""
+    lib = build.load("launch_floor")
+    lib.empty_launch.argtypes = [build.P]
+    lib.empty_launch.restype = build.I
+    stream = build.stream_of(torch.device("cuda"))
+    return cuda_ms(lambda: build.check(lib, lib.empty_launch(stream), "empty_launch"))[0]
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -267,6 +280,27 @@ def check_admit(x, basis, cent, alpha, live, store_dtype, chk: Check):
     else:
         chk.floats("rows", v_k, v_p)
     return out_k
+
+
+def admit_split(x, basis, cent, alpha, live, iters: int = 20) -> str:
+    """Device ms of the kernel's two launches apart (the prologue, then the
+    tile kernel) and together, int8 rows. Each timed tile kernel follows an
+    untimed prologue, which zeroes the merge keys and the done counter, so
+    its last block decodes the labels and sims as in a call."""
+    _, run = admit_launcher(x, basis, cent, alpha, live, store_dtype="int8")
+    pro, both = (cuda_ms(lambda p=p: run(p))[0] for p in (1, 3))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * iters)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    for i in range(iters):
+        run(1)
+        ev[2 * i].record()
+        run(2)
+        ev[2 * i + 1].record()
+    torch.cuda.synchronize()
+    tiles = sum(ev[2 * i].elapsed_time(ev[2 * i + 1]) for i in range(iters)) / iters
+    return (f"prologue {pro:.4f} ms, tile kernel {tiles:.4f} ms (after its prologue, "
+            f"decode included), both {both:.4f} ms device")
 
 
 def admit_bound(B, d, K, n, int8):
@@ -526,6 +560,7 @@ def check_stage_kernels(results, x, st, alpha, q, vectors, valid, labels, gen):
                                 bound_by=b_by, library_ms=lib, host_ms=host)
     print("  prefilter library_ms is four calls: "
           "torch.mean(torch.mm(F.normalize(x), F.normalize(basis).T), 1)")
+    print(f"  prefilter: kernels per call {kernels_per_call(lambda: prefilter_scores_cuda(x, basis))}")
 
     # ---- assign: the batch against all K centroids, and one row alone
     cent = st.clus.centroids
@@ -906,6 +941,8 @@ def phase_kernels(results: dict):
     basis, cent = st.pre.basis, st.clus.centroids
     alpha = cfg.pre.alpha
     print(f"kernel checks at K={K} d={d} B={BATCH} Q={QUERIES} k={TOPK} nprobe={NPROBE}")
+    print(f"  launch floor: {launch_floor_ms():.4f} ms device (one empty kernel, "
+          "csrc/launch_floor.cu, timed as the kernels are)")
 
     # ---- admit: a ragged batch (the tail rows dead and zero), fp32 + int8
     x = torch.from_numpy(stream.next_batch(BATCH)["embedding"]).cuda()
@@ -915,8 +952,13 @@ def phase_kernels(results: dict):
     chk = Check("admit")
     for dt in ("fp32", "int8"):
         check_admit(x, basis, cent, alpha, live, dt, chk)
-    chk.done("fp32+int8, 37 dead rows")
+        check_admit(x, basis, cent, alpha, None, dt, chk)
+    chk.done("fp32+int8, 37 dead rows, live=None")
     ms, host = cuda_ms(lambda: admit_cuda(x, basis, cent, alpha, live, store_dtype="int8"))
+    ms_none, _ = cuda_ms(lambda: admit_cuda(x, basis, cent, alpha, None, store_dtype="int8"))
+    print(f"  admit with live=None: {ms_none:.4f} ms device")
+    print(f"  admit launches apart at B={BATCH} vs {K} x {d}: "
+          f"{admit_split(x, basis, cent, alpha, live)}")
     plain, _ = cuda_ms(lambda: admit_ref(x, basis, cent, alpha, live, store_dtype="int8"))
     b_ms, b_by = admit_bound(BATCH, d, K, basis.shape[0], True)
     results["admit"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain,

@@ -23,6 +23,11 @@
 // tiles finish in; the last block to finish (a counter after a fence)
 // decodes the keys into (label, exact fp32 max). The keys and the counter
 // are zeroed by the unit-row launch before this one (init_assign_keys).
+// With PDL (admit's instantiation) the tile kernel is a programmatic
+// dependent launch: its blocks may start while that unit-row launch still
+// runs, and they wait for it (griddepcontrol.wait) before their first read
+// of the unit rows and before any write; PDL = false (assign's) compiles to
+// the kernel without the wait.
 // Ties go to the lowest centroid index everywhere: a thread keeps its first
 // strict maximum over its columns in ascending order, the shuffle compares
 // (value, index) with `better`, and the key orders equal scores by index.
@@ -55,7 +60,7 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool 
                "r"(full ? 16 : 0));
 }
 
-template <bool VEC>
+template <bool VEC, bool PDL>
 __global__ void __launch_bounds__(kTileThreads)
     assign_tile_kernel(const float* __restrict__ xn, int B, int d,
                        const float* __restrict__ cn, int K, key64* __restrict__ keys,
@@ -111,6 +116,8 @@ __global__ void __launch_bounds__(kTileThreads)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
+  // the unit rows and the zeroed keys are the previous launch's writes
+  if constexpr (PDL) asm volatile("griddepcontrol.wait;\n" ::: "memory");
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     issue(s, s);
@@ -186,23 +193,28 @@ __global__ void __launch_bounds__(kTileThreads)
 
 // Launches the tile kernel on unit rows xn [B, d] and unit centroids
 // cn [K, d]; keys [B] and done must have been zeroed (init_assign_keys)
-// earlier on the same stream.
+// earlier on the same stream. PDL: as a programmatic dependent launch of
+// the kernel just before it on the stream (the unit-row launch).
+template <bool PDL = false>
 static cudaError_t launch_assign_tiles(const float* xn, int B, int d, const float* cn,
                                        int K, key64* keys, unsigned* done, int* label,
                                        float* sim, cudaStream_t st) {
-  const dim3 grid((K + kTileCols - 1) / kTileCols, (B + kTileRows - 1) / kTileRows);
   const bool vec = d % 4 == 0 && (uintptr_t)xn % 16 == 0 && (uintptr_t)cn % 16 == 0;
-  cudaError_t err;
-  if (vec) {
-    if ((err = allow_smem(assign_tile_kernel<true>, kTileSmem)) != cudaSuccess) return err;
-    assign_tile_kernel<true><<<grid, kTileThreads, kTileSmem, st>>>(xn, B, d, cn, K, keys,
-                                                                     done, label, sim);
-  } else {
-    if ((err = allow_smem(assign_tile_kernel<false>, kTileSmem)) != cudaSuccess) return err;
-    assign_tile_kernel<false><<<grid, kTileThreads, kTileSmem, st>>>(xn, B, d, cn, K, keys,
-                                                                      done, label, sim);
-  }
-  return cudaGetLastError();
+  auto kernel = vec ? assign_tile_kernel<true, PDL> : assign_tile_kernel<false, PDL>;
+  cudaError_t err = allow_smem(kernel, kTileSmem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((K + kTileCols - 1) / kTileCols, (B + kTileRows - 1) / kTileRows);
+  cfg.blockDim = dim3(kTileThreads);
+  cfg.dynamicSmemBytes = kTileSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = PDL ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, xn, B, d, cn, K, keys, done, label, sim);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace

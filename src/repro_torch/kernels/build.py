@@ -21,7 +21,9 @@ import subprocess
 import time
 from pathlib import Path
 
-SOURCES = ("admit", "serve", "mips", "rerank", "prefilter", "assign", "bag")
+# the kernels, and an empty kernel that chip_smoke.py times as the launch floor
+SOURCES = ("admit", "serve", "mips", "rerank", "prefilter", "assign", "bag",
+           "launch_floor")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SMEM_PER_BLOCK = 232_448   # bytes of shared memory one block can use on Hopper

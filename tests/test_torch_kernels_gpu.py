@@ -714,3 +714,194 @@ def test_bag_sorted_entry_matches_plain_and_sorting_path(cuda, case, d, mode):
     assert bool((out_k[empty] == 0).all())
     if case == "empty":
         assert int(empty.sum()) == 13
+
+
+def _hold_admit(x, basis, cent, alpha, live, store_dtype, normalize=True,
+                live_plain="same"):
+    """admit_cuda against admit_ref on the same inputs, by the near-tie
+    rule; ``live_plain`` is the plain version's live where it differs
+    (``live=None`` held against every row live). Returns the kernel's
+    outputs."""
+    from repro_torch.kernels.admit.admit import admit_cuda
+    from repro_torch.kernels.admit.ref import admit_ref
+
+    kw = dict(store_dtype=store_dtype, normalize=normalize)
+    before = COUNTS["admit"].kernel
+    k = admit_cuda(x, basis, cent, alpha, live, **kw)
+    assert COUNTS["admit"].kernel == before + 1
+    p = admit_ref(x, basis, cent, alpha, live if live_plain == "same" else live_plain, **kw)
+    assert _close(k[0], p[0]) and _close(k[3], p[3])
+    assert bool(((k[1] == p[1]) | ((p[0] - alpha).abs() < TIE)).all())
+    sims = l2_normalize(x) @ l2_normalize(cent).T
+    pk = sims.gather(1, k[2].long()[:, None])[:, 0]
+    pp = sims.gather(1, p[2].long()[:, None])[:, 0]
+    assert bool(((k[2] == p[2]) | (pk >= pp - TIE)).all())
+    if store_dtype == "int8":
+        ulp = torch.nextafter(p[5], torch.full_like(p[5], np.inf)) - p[5]
+        assert bool(((k[5] - p[5]).abs() <= 2 * ulp).all())
+        v = l2_normalize(x) if normalize else x
+        z = v / p[5][:, None]
+        half = (z - z.floor() - 0.5).abs() < 1e-4
+        diff = k[4].int() - p[4].int()
+        assert bool(((diff == 0) | ((diff.abs() == 1) & half)).all())
+    else:
+        assert _close(k[4], p[4])
+        assert bool((k[5] == 1.0).all())
+    return k
+
+
+@pytest.mark.parametrize("store_dtype", ["fp32", "int8"])
+def test_admit_kernel_live_none(cuda, store_dtype):
+    """live=None (a null pointer to the kernel) is every row live: the
+    plain version with all live, and the kernel with an all-true live bit
+    for bit."""
+    from repro_torch.kernels.admit.admit import admit_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    B, K, d = 256, 4218, 384
+    x = torch.randn((B, d), generator=g, device=cuda)
+    basis = torch.randn((5, d), generator=g, device=cuda)
+    cent = torch.randn((K, d), generator=g, device=cuda)
+    ones = torch.ones((B,), dtype=torch.bool, device=cuda)
+    got = _hold_admit(x, basis, cent, 0.0, None, store_dtype, live_plain=ones)
+    want = admit_cuda(x, basis, cent, 0.0, ones, store_dtype=store_dtype)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert bool(got[1].any())
+
+
+@pytest.mark.parametrize("store_dtype", ["fp32", "int8"])
+@pytest.mark.parametrize("case,B,K,d", [
+    ("zero_basis_row", 256, 4218, 384),
+    ("ragged_B", 250, 4218, 384),     # B off the prologue's 8 rows a block
+    ("ragged_B", 13, 70, 64),
+    ("scalar_d", 61, 500, 383),       # d % 4 != 0: the 4-byte path
+    ("scalar_d", 9, 33, 18),
+    ("two_chunks", 70, 300, 200),     # 129..256 floats: 2 chunks a lane
+    ("two_chunks", 70, 300, 201),     # ... on the 4-byte path
+    ("four_chunks", 40, 300, 500),    # 385..512 floats: 4 chunks a lane
+    ("four_chunks", 40, 300, 501),    # ... on the 4-byte path
+    ("long_rows", 40, 300, 700),      # past the 512 floats a warp holds
+    ("long_rows", 17, 300, 701),      # ... on the 4-byte path
+    ("unaligned", 40, 300, 384),      # x a view off 16-byte alignment
+    ("raw_rows", 64, 1000, 384),      # normalize=False
+])
+def test_admit_kernel_edge_cases(cuda, store_dtype, case, B, K, d):
+    g = torch.Generator(device=cuda).manual_seed(B + d)
+    x = torch.randn((B, d), generator=g, device=cuda)
+    if case == "unaligned":
+        x = torch.randn((B * d + 1,), generator=g, device=cuda)[1:].view(B, d)
+    basis = torch.randn((5, d), generator=g, device=cuda)
+    if case == "zero_basis_row":
+        basis[2] = 0.0
+    cent = torch.randn((K, d), generator=g, device=cuda)
+    cent[K - 1] = cent[2]                           # exact tie: 2 must win
+    x[0] = cent[2]
+    live = torch.rand((B,), generator=g, device=cuda) < 0.8
+    live[-1] = False
+    x[-1] = 0.0                                     # a dead zero row
+    k = _hold_admit(x, basis, cent, 0.01, live, store_dtype,
+                    normalize=case != "raw_rows")
+    assert int(k[2][0]) == 2
+    assert not bool(k[1][-1]) and float(k[0][-1]) == 0.0
+
+
+def test_admit_kernel_phases_apart(cuda):
+    """A kernel just before admit writes its x; calls on two alternating
+    batches, each right after that write, equal each batch's answer after
+    a synchronize bit for bit. The tile kernel is a dependent launch and
+    must read the prologue's unit rows (and touch the keys it zeroes) only
+    after its wait: a read before it would see the other batch's rows."""
+    from repro_torch.kernels.admit.admit import admit_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(16)
+    B, K, d = 256, 4218, 384
+    src = [torch.randn((B, d), generator=g, device=cuda) for _ in range(2)]
+    basis = torch.randn((5, d), generator=g, device=cuda)
+    cent = torch.randn((K, d), generator=g, device=cuda)
+    x = torch.empty_like(src[0])
+    want = []
+    for s in src:
+        x.copy_(s)
+        torch.cuda.synchronize()
+        want.append([t.clone() for t in admit_cuda(x, basis, cent, 0.0, None,
+                                                   store_dtype="int8")])
+        torch.cuda.synchronize()
+    for i in range(10):
+        x.copy_(src[i % 2])
+        got = admit_cuda(x, basis, cent, 0.0, None, store_dtype="int8")
+        for a, b in zip(got, want[i % 2]):
+            assert torch.equal(a, b)
+    assert not torch.equal(want[0][2], want[1][2])
+
+
+@pytest.mark.parametrize("B,n,d", [(1, 5, 384), (250, 5, 384), (256, 5, 383),
+                                   (3, 2, 18), (100, 5, 700),
+                                   (70, 5, 200), (70, 5, 201),   # 2 chunks a lane
+                                   (40, 5, 500), (40, 5, 501),   # 4 chunks a lane
+                                   (256, 151, 384)])   # 151 x 384 floats: at the limit
+def test_prefilter_kernel_edges(cuda, B, n, d):
+    """One row; B off the rows a block takes; the 4-byte path (d % 4 !=
+    0); every count of 4-float chunks a lane holds (1 to 4), and rows
+    longer than a lane group holds; the largest basis that fits one
+    block's shared memory."""
+    from repro_torch.kernels.prefilter.prefilter import prefilter_scores_cuda
+    from repro_torch.kernels.prefilter.ref import prefilter_scores_ref
+
+    g = torch.Generator(device=cuda).manual_seed(B + n + d)
+    x = torch.randn((B, d), generator=g, device=cuda)
+    basis = torch.randn((n, d), generator=g, device=cuda)
+    basis[n - 1] = 0.0                            # a zero row adds 0 over the true n
+    before = COUNTS["prefilter"].kernel
+    r_k = prefilter_scores_cuda(x, basis)
+    assert COUNTS["prefilter"].kernel == before + 1
+    r_p = prefilter_scores_ref(x, basis)
+    assert bool(torch.isfinite(r_k).all())
+    assert _close(r_k, r_p)
+
+
+def test_prefilter_and_admit_refuse_a_basis_past_shared_memory(cuda):
+    from repro_torch.kernels.admit.admit import admit_cuda
+    from repro_torch.kernels.prefilter.prefilter import prefilter_scores_cuda
+
+    x = torch.randn((8, 384), device=cuda)
+    basis = torch.randn((152, 384), device=cuda)   # 233,472 B > 232,448
+    with pytest.raises(ValueError, match="shared memory"):
+        prefilter_scores_cuda(x, basis)
+    with pytest.raises(ValueError, match="shared memory"):
+        admit_cuda(x, basis, torch.randn((10, 384), device=cuda), 0.0)
+
+
+def _device_ops(fn):
+    """Names of the device operations (kernels, copies, fills) one warm
+    call queues, as torch.profiler records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("live", [None, "mask"])
+def test_admit_and_prefilter_launches_a_call(cuda, live):
+    """One admit call queues its two kernels (the prologue, then the tile
+    kernel) and no other device work; one prefilter call queues one
+    kernel."""
+    from repro_torch.kernels.admit.admit import admit_cuda
+    from repro_torch.kernels.prefilter.prefilter import prefilter_scores_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((256, 384), generator=g, device=cuda)
+    basis = torch.randn((5, 384), generator=g, device=cuda)
+    cent = torch.randn((4218, 384), generator=g, device=cuda)
+    lv = None if live is None else torch.rand((256,), generator=g, device=cuda) < 0.9
+    ops = _device_ops(lambda: admit_cuda(x, basis, cent, 0.2, lv, store_dtype="int8"))
+    assert len(ops) == 2, ops
+    assert sum("admit_prologue_kernel" in o for o in ops) == 1, ops
+    assert sum("assign_tile_kernel" in o for o in ops) == 1, ops
+    ops = _device_ops(lambda: prefilter_scores_cuda(x, basis))
+    assert len(ops) == 1 and "prefilter_kernel" in ops[0], ops

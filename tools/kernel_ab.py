@@ -19,7 +19,9 @@ top-8 routes with 10% dead labels, int8 rings of depth 64, k = 10),
 that checkout, at serve_p99, 512 x 50, and serve_bulk, 262,144 x 50, Zipf
 ids over 1,000,000 x 64, beside ``F.embedding_bag`` + divide as
 ``bag.*.library``), ``assign`` and ``admit`` (a 256-row batch against
-4218 x 384 centroids; admit with int8 rows); several may be given. Each
+4218 x 384 centroids; admit with int8 rows, with 10% of the rows dead and
+with ``live=None`` as ``admit.live_none``), ``prefilter`` (the same
+256 x 384 rows against a 5 x 384 basis); several may be given. Each
 turn (A B B A, twice) is a fresh process that imports that checkout's
 ``chip_smoke.py`` (and with it that checkout's
 ``src/repro_torch``), builds the kernels from its sources into the
@@ -100,7 +102,14 @@ x = torch.randn((cs.BATCH, 384), generator=g, device="cuda")
 basis = torch.randn((5, 384), generator=g, device="cuda")
 cent = torch.randn((4218, 384), generator=g, device="cuda")
 live = torch.rand((cs.BATCH,), generator=g, device="cuda") < 0.9
-fns = {"admit": lambda: admit_cuda(x, basis, cent, 0.2, live, store_dtype="int8")}
+fns = {"admit": lambda: admit_cuda(x, basis, cent, 0.2, live, store_dtype="int8"),
+       "admit.live_none": lambda: admit_cuda(x, basis, cent, 0.2, None, store_dtype="int8")}
+""",
+    "prefilter": r"""
+from repro_torch.kernels.prefilter.prefilter import prefilter_scores_cuda
+x = torch.randn((cs.BATCH, 384), generator=g, device="cuda")
+basis = torch.randn((5, 384), generator=g, device="cuda")
+fns = {"prefilter": lambda: prefilter_scores_cuda(x, basis)}
 """,
     "rerank": r"""
 from repro_torch.kernels.rerank.rerank import rerank_topk_cuda
