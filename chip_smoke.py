@@ -30,22 +30,46 @@
    batches of the NYT-like stream and answers queries two-stage, then a
    prototype-only server answers on the same engine; every ticket must be
    answered, every kernel launched (counts reset just before, read just
-   after) and no plain version called. The fp32 config (depth 16) runs a
-   few batches too. Answers are checked against the plain versions.
+   after) and no plain version called; the heavy-hitter kernel launches
+   once per batch. The fp32 config (depth 16) runs a few batches too.
+   Answers are checked against the plain versions. The fused ingest
+   ms/batch is printed next to the per-arrival loop's (PERF.md).
+3b. Heavy hitter: the kernel against its plain loop, every state leaf and
+   info entry exact, on the main path's own 16 calls (their masked labels
+   and draws), on a Zipf label stream over 4218 clusters at capacity 100
+   for every policy with exact counts, Morris, adaptive (max capacity 200)
+   and gate_below_capacity, on an all-dropped batch whose window is full,
+   and at B = 1; device ms, bound, the plain loop's host ms and kernels
+   per call (torch.profiler).
 4. Staged path: the same config, seed, warmup and the main path's own 16
    batches, from a fresh init, through ``engine.staged_ingest_impl``
    (``screen -> assign_update -> count -> update_representatives ->
    store_write (store-side quantize) -> upsert_snapshot``), and 8 flushes
    of 64 queries through ``route -> rerank -> decode_rerank`` on a
    published snapshot; counts reset just before: prefilter and assign
-   launch once per batch, mips and rerank once per flush, admit and serve
-   never, no plain version runs. The store must fill (at least 128 live
+   launch once per batch, mips and rerank once per flush, heavy_hitter
+   once per batch, admit and serve never, no plain version runs. The store must fill (at least 128 live
    ring slots, 8 valid prototypes, 90% of routes and picks live), so the
    comparison is not empty. Held per batch against the fused
    ``ingest_impl`` on the same batches and counter draws (keep, labels
    and ring rows under the near-tie rule; a near-tie that flips a
    decision is reported and ends the comparison there), and per flush
    against the fused ``serve_topk`` on the same snapshot (routes, pos).
+4b. Async path: an ``AsyncServer`` on the same config, seed and warmup
+   ingests the main path's 16 batches by ``serve_round`` (publish every
+   4; ingest on its own CUDA stream) while a submitter thread submits a
+   64-query burst a round; then ``sync``, the remaining flushes, and
+   ``close``. Every ticket is answered exactly once, from a published
+   snapshot; sampled flushes, run again whole on the recorded snapshot
+   they name, give the same answers bit for bit; the lag is 0 after
+   ``sync``; admit, heavy_hitter and serve launch (counts reset just
+   before) and no plain version runs; torch.profiler puts the ingest
+   kernels on another stream than serve's. Prints flush and answer
+   p50/p99 while ingest runs beside the synchronous server's, ingest
+   ms/batch on the ingest thread, docs/s and the lag at each publish.
+   Then the same run once more with the interpreter's thread switch
+   interval at 0.5 ms (default 5 ms), with the same checks: a diagnostic
+   of how long a flush waits for the interpreter lock behind ingest.
 5. Recsys kernels: the bag kernel against its plain version at MIND's
    serve_p99 and serve_bulk shapes (1,000,000 x 64 item table, histories
    of 50 drawn from a Zipf popularity, p ~ 1/r^1.2, with a valid prefix
@@ -89,6 +113,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 import warnings
@@ -115,6 +140,8 @@ from repro_torch.kernels.bag.ref import (embedding_bag_ref,  # noqa: E402
                                          embedding_bag_sorted_ref)
 from repro_torch.kernels.common import (NEG_INF, l2_normalize,  # noqa: E402
                                         require_full_fp32, stable_topk)
+from repro_torch.kernels.heavy_hitter.heavy_hitter import update_batch_cuda  # noqa: E402
+from repro_torch.kernels.heavy_hitter.ref import update_batch_ref  # noqa: E402
 from repro_torch.kernels.mips.mips import mips_launcher, mips_topk_cuda  # noqa: E402
 from repro_torch.kernels.mips.ref import mips_topk_ref  # noqa: E402
 from repro_torch.kernels.prefilter.prefilter import prefilter_scores_cuda  # noqa: E402
@@ -126,6 +153,7 @@ from repro_torch.kernels.serve.serve import serve_launcher, serve_topk_cuda  # n
 from repro_torch.models import recsys  # noqa: E402
 from repro_torch.models.api import get_arch  # noqa: E402
 from repro_torch.models.testing import assert_finite, dummy_batch  # noqa: E402
+from repro_torch.serve.runtime import AsyncServer  # noqa: E402
 from repro_torch.serve.server import RAGServer, ServerConfig  # noqa: E402
 from repro_torch.store import quant  # noqa: E402
 
@@ -145,8 +173,14 @@ SOURCES = {"admit": "src/repro/kernels/admit/admit.py:177",
            "rerank": "src/repro/kernels/rerank/rerank.py:141",
            "prefilter": "src/repro/kernels/prefilter/prefilter.py:58",
            "assign": "src/repro/kernels/assign/assign.py:78",
-           "bag": "src/repro/kernels/bag/bag.py:72"}
+           "bag": "src/repro/kernels/bag/bag.py:72",
+           # port-side: no pallas_call; the reference's lax.scan of update_one
+           "heavy_hitter": "src/repro/core/heavy_hitter.py:289"}
 RECSYS_STEPS = ("serve_p99", "serve_bulk", "retrieval_cand")
+LOOP_INGEST_MS = 250.59   # fused ingest ms/batch with the per-arrival loop in place
+#                           of the heavy-hitter kernel (PERF.md; H100 80GB HBM3, 700 W)
+HH_ZIPF_CLUSTERS, HH_ZIPF_CAPACITY, HH_ZIPF_BATCHES = 4218, 100, 3
+ASYNC_PUBLISH_EVERY = 4
 # BERT4Rec's serve_bulk attention scores: 262144 x 2 heads x 200 x 200 fp32
 BERT4REC_BULK_SKIP = ("bert4rec serve_bulk skipped on one card: its attention "
                       "scores [262144, 2, 200, 200] fp32 alone are 84 GB (the "
@@ -1049,22 +1083,28 @@ def compare_with_plain(engine, q, two_stage):
 
 @contextlib.contextmanager
 def timed_heavy_hitter():
-    """Times each ``heavy_hitter.update_batch`` call (the per-arrival loop's
-    share of ingest) into the yielded list, in ms."""
-    hh_ms = []
+    """Times each ``heavy_hitter.update_batch`` call (the counter's share of
+    ingest, host clock between two synchronizes) into the first yielded
+    list, in ms, and records each call's (cfg, state, labels, draws) into
+    the second. The draws are made here from the caller's generator, as
+    ``update_batch`` would make them."""
+    hh_ms, calls = [], []
     real_update = heavy_hitter.update_batch
 
-    def timed_update(*a, **kw):
+    def timed_update(cfg, state, labels, gen=None, draws=None):
+        if draws is None:
+            draws = heavy_hitter.draw(cfg, labels.shape[0], gen, labels.device)
+        calls.append((cfg, state, labels, draws))
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = real_update(*a, **kw)
+        out = real_update(cfg, state, labels, draws=draws)
         torch.cuda.synchronize()
         hh_ms.append((time.perf_counter() - t) * 1e3)
         return out
 
     heavy_hitter.update_batch = timed_update
     try:
-        yield hh_ms
+        yield hh_ms, calls
     finally:
         heavy_hitter.update_batch = real_update
 
@@ -1086,7 +1126,7 @@ def phase_main(stream, warm, results):
     queries = stream.queries(QUERIES * 12)["embedding"]
     counts.reset_all()
     ingest_ms, submitted, answers = [], 0, []
-    with timed_heavy_hitter() as hh_ms:
+    with timed_heavy_hitter() as (hh_ms, hh_calls):
         for i, b in enumerate(batches):
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -1110,6 +1150,9 @@ def phase_main(stream, warm, results):
     for name in ("admit", "serve", "mips"):
         assert launches[name]["kernel"] > 0, f"{name} kernel never launched"
         results[name]["launches"] = launches[name]["kernel"]
+    # one heavy-hitter launch per ingest batch (its plain version: none)
+    assert launches["heavy_hitter"]["kernel"] == len(batches), launches["heavy_hitter"]
+    results["heavy_hitter"] = dict(launches=launches["heavy_hitter"]["kernel"])
     assert all(c["plain"] == 0 for c in launches.values()), "a plain version ran"
     assert len(answers) == submitted, (len(answers), submitted)
     assert sorted(a["ticket"] for a in answers) == list(range(submitted))
@@ -1143,9 +1186,11 @@ def phase_main(stream, warm, results):
     ctr = eng.device_counters()
     lat = server.latency_stats()
     steady = ingest_ms[1:]
-    print(f"  ingest ms/batch: median {np.median(steady):.2f} (first {ingest_ms[0]:.2f}); "
-          f"heavy-hitter loop {np.median(hh_ms[1:]):.2f} ms = "
-          f"{np.median(hh_ms[1:]) / np.median(steady) * 100:.1f}% of a batch")
+    print(f"  ingest ms/batch: median {np.median(steady):.2f} (first {ingest_ms[0]:.2f}; "
+          f"with the per-arrival loop instead of the kernel: {LOOP_INGEST_MS} on an H100 80GB "
+          f"HBM3 at 700 W); heavy-hitter update {np.median(hh_ms[1:]):.3f} ms = "
+          f"{np.median(hh_ms[1:]) / np.median(steady) * 100:.1f}% of a batch (host clock "
+          f"between synchronizes, one kernel launch)")
     print(f"  syncs per ingest batch: {syncs} seen by torch's sync debug mode, "
           f"{eng.host_syncs / (len(batches) + 1):.0f} counted by the engine; at {sync_sites}")
     print(f"  two-stage flush p50 {lat['p50_ms']:.3f} ms p99 {lat['p99_ms']:.3f} ms over "
@@ -1174,7 +1219,7 @@ def phase_main(stream, warm, results):
     print(f"  fp32 depth-16 config: k={cfg32.clus.num_clusters}, 5 batches, "
           f"{len(got)} answered, upserts {server32.engine.state.upserts}, vs plain: "
           f"{n} near-tie id swaps")
-    return batches
+    return batches, hh_calls, lat
 
 
 def written(store, before_ids):
@@ -1209,7 +1254,7 @@ def phase_staged(stream, warm, batches, results):
     torch.cuda.synchronize()
     seen, stored, ingest_ms, flush_ms, answers = [], [], [], [], []
     counts.reset_all()
-    with timed_heavy_hitter() as hh_ms:
+    with timed_heavy_hitter() as (hh_ms, _):
         for b, dr in zip(batches, draws):
             before, cent = staged.store.ids.clone(), staged.clus.centroids
             torch.cuda.synchronize()
@@ -1237,7 +1282,7 @@ def phase_staged(stream, warm, batches, results):
     print(f"staged path: the main path's {n_batches} batches of {BATCH}, "
           f"{STAGED_FLUSHES} flushes of {QUERIES}; launches {launches}")
     want = dict(prefilter=n_batches, assign=n_batches, mips=STAGED_FLUSHES,
-                rerank=STAGED_FLUSHES, admit=0, serve=0)
+                rerank=STAGED_FLUSHES, heavy_hitter=n_batches, admit=0, serve=0)
     for name, n in want.items():
         assert launches[name]["kernel"] == n, (name, launches[name], n)
     assert all(c["plain"] == 0 for c in launches.values()), "a plain version ran"
@@ -1309,12 +1354,328 @@ def phase_staged(stream, warm, batches, results):
     chk.done(f"{batches_held} batches ({rows_held} rows), {STAGED_FLUSHES} flushes")
 
     steady, hh = np.median(ingest_ms[1:]), np.median(hh_ms[1:])
-    print(f"  staged ingest ms/batch: median {steady:.2f} with the heavy-hitter loop, "
-          f"{steady - hh:.2f} without it (loop {hh:.2f} ms; first batch {ingest_ms[0]:.2f})")
+    print(f"  staged ingest ms/batch: median {steady:.2f} with the heavy-hitter update, "
+          f"{steady - hh:.2f} without it (update {hh:.3f} ms; first batch "
+          f"{ingest_ms[0]:.2f})")
     print(f"  staged flush p50 {np.percentile(flush_ms, 50):.3f} ms p99 "
           f"{np.percentile(flush_ms, 99):.3f} ms over {len(flush_ms)} flushes; answered "
           f"{n_answered}/{STAGED_FLUSHES * QUERIES}; upserts {staged.upserts}; index size "
           f"{int(staged.index.valid.sum())}; store live {int((staged.store.ids >= 0).sum())}")
+
+
+# ------------------------------------------------------------ heavy hitter
+def hh_hold(got, want, what, chk: Check):
+    """Every HHState leaf and every info entry equal, bit for bit."""
+    (s_k, i_k), (s_p, i_p) = got, want
+    bad = [n for n, a, b in zip(s_p._fields, s_k, s_p)
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    bad += [n for n in i_p if i_k[n].dtype != i_p[n].dtype or not torch.equal(i_k[n], i_p[n])]
+    if bad:
+        chk.fail.append(f"{what}: {', '.join(bad)} differ")
+
+
+def hh_check(cfg, state, labels, draws, what, chk: Check):
+    """The kernel against its plain version on the same state and draws;
+    returns the kernel's and the plain version's new states."""
+    got = update_batch_cuda(cfg, state, labels, draws)
+    want = update_batch_ref(cfg, state, labels, draws)
+    torch.cuda.synchronize()
+    hh_hold(got, want, what, chk)
+    return got[0], want[0]
+
+
+def hh_bound(cfg, B, bmax):
+    """Bytes: labels and draws in, the state in and out once, the info out
+    (no arithmetic worth a bound: integer compares over the slots)."""
+    cells = cfg.cms_depth * cfg.cms_width if cfg.policy == heavy_hitter.Policy.COUNT_MIN else 0
+    state = 8 * bmax + 4 * cells + 28
+    draws = 4 * B * (1 + int(cfg.morris) + (bmax if cfg.policy == heavy_hitter.Policy.RANDOM_EVICT
+                                            else 0))
+    return bound(0.0, 4 * B + draws + 2 * state + 10 * B)
+
+
+def hh_plain_ms(fn, iters: int = 2) -> float:
+    """Host ms of the plain loop between synchronizes (it is host-bound)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def hh_zipf_cfg(policy, option):
+    kw = dict(capacity=HH_ZIPF_CAPACITY, policy=policy)
+    if option == "morris":
+        kw["morris"] = True
+    elif option == "adaptive":
+        kw.update(adaptive=True, max_capacity=2 * HH_ZIPF_CAPACITY)
+    elif option == "gate":
+        kw["gate_below_capacity"] = True
+    return heavy_hitter.HHConfig(**kw)
+
+
+def phase_heavy_hitter(results, calls):
+    """The heavy-hitter kernel against its plain loop, every leaf exact:
+    on the main path's own 16 calls (MIN_EVICT, bmax 4218, the masked
+    labels and draws that path used), on a Zipf label stream over 4218
+    clusters at capacity 100 (paper Table 2's B; all arrivals valid) for
+    each policy with exact counts, Morris, adaptive (max 200) and
+    gate_below_capacity, on an all-dropped batch whose window is already
+    full, and at B = 1. Then times: device, bound, plain."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    rng = np.random.default_rng(SEED + 3)
+    chk = Check("hh")
+    valid = [int((lab >= 0).sum()) for _, _, lab, _ in calls]
+    for i, (cfg, st, lab, dr) in enumerate(calls):
+        hh_check(cfg, st, lab, dr, f"main batch {i}", chk)
+    cfg0, st0, lab0, dr0 = calls[0]
+    hh_check(cfg0, st0, lab0[:1], {k: v[:1] for k, v in dr0.items()}, "main B=1", chk)
+    writes = {}
+    for policy in heavy_hitter.Policy:
+        for option in ("exact", "morris", "adaptive", "gate"):
+            cfg = hh_zipf_cfg(policy, option)
+            st_k = st_p = heavy_hitter.init(cfg, "cuda")
+            for b in range(HH_ZIPF_BATCHES):
+                lab = torch.from_numpy(zipf_ids(rng, HH_ZIPF_CLUSTERS, (BATCH,))).cuda()
+                dr = heavy_hitter.draw(cfg, BATCH, gen, "cuda")
+                got = update_batch_cuda(cfg, st_k, lab, dr)
+                want = update_batch_ref(cfg, st_p, lab, dr)
+                torch.cuda.synchronize()
+                hh_hold(got, want, f"zipf {policy.name} {option} batch {b}", chk)
+                st_k, st_p = got[0], want[0]
+            writes[f"{policy.name}/{option}"] = (int(st_k.total_writes),
+                                                 int(st_k.total_evictions))
+            if option == "adaptive":   # an all-dropped batch on a full window
+                full = st_k._replace(seen_in_window=torch.tensor(
+                    cfg.window + 3, dtype=torch.int32, device="cuda"))
+                drop = torch.full((BATCH,), -1, dtype=torch.int32, device="cuda")
+                dr = heavy_hitter.draw(cfg, BATCH, gen, "cuda")
+                new, _ = hh_check(cfg, full, drop, dr, f"{policy.name} all dropped", chk)
+                if int(new.seen_in_window) != 0:
+                    chk.fail.append("the all-dropped batch did not close the window")
+            one = torch.from_numpy(zipf_ids(rng, HH_ZIPF_CLUSTERS, (1,))).cuda()
+            hh_check(cfg, st_k, one, heavy_hitter.draw(cfg, 1, gen, "cuda"),
+                     f"{policy.name} {option} B=1", chk)
+    chk.done(f"main x{len(calls)}, zipf 4 policies x 4 options, dropped, B=1")
+    print(f"  hh: valid arrivals per main batch {valid}; zipf (writes, evictions) "
+          f"after {HH_ZIPF_BATCHES} batches: {writes}")
+    # ---- times: the main path's busiest batch, and RANDOM_EVICT's Gumbel rows
+    i = int(np.argmax(valid))
+    cfg, st, lab, dr = calls[i]
+    ms, host = cuda_ms(lambda: update_batch_cuda(cfg, st, lab, dr))
+    plain = hh_plain_ms(lambda: update_batch_ref(cfg, st, lab, dr))
+    b_ms, b_by = hh_bound(cfg, BATCH, st.labels.shape[0])
+    results["heavy_hitter"].update(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=None, host_ms=host)
+    print(f"  hh at the main path's batch {i} (MIN_EVICT, bmax {st.labels.shape[0]}, "
+          f"{valid[i]} valid of {BATCH}): {ms:.4f} ms device ({host:.4f} ms a call from "
+          f"the host), plain loop {plain:.2f} ms (host clock), bound {b_ms:.6f} ms "
+          f"({b_by}); serial chain {valid[i]} block reductions")
+    for policy in (heavy_hitter.Policy.MIN_EVICT, heavy_hitter.Policy.RANDOM_EVICT):
+        cfg = heavy_hitter.HHConfig(capacity=st.labels.shape[0], policy=policy)
+        st_z = heavy_hitter.init(cfg, "cuda")
+        for _ in range(2):   # fill some slots first
+            lab = torch.from_numpy(zipf_ids(rng, HH_ZIPF_CLUSTERS, (BATCH,))).cuda()
+            st_z, _ = update_batch_cuda(cfg, st_z, lab, heavy_hitter.draw(cfg, BATCH, gen,
+                                                                           "cuda"))
+        lab = torch.from_numpy(zipf_ids(rng, HH_ZIPF_CLUSTERS, (BATCH,))).cuda()
+        dr = heavy_hitter.draw(cfg, BATCH, gen, "cuda")
+        hh_check(cfg, st_z, lab, dr, f"{policy.name} bmax {cfg.capacity} zipf", chk)
+        ms_z, _ = cuda_ms(lambda: update_batch_cuda(cfg, st_z, lab, dr))
+        plain_z = hh_plain_ms(lambda: update_batch_ref(cfg, st_z, lab, dr), iters=1)
+        bz, bz_by = hh_bound(cfg, BATCH, cfg.capacity)
+        print(f"  hh {policy.name} at bmax {cfg.capacity}, {BATCH} valid Zipf arrivals: "
+              f"{ms_z:.4f} ms device, plain loop {plain_z:.2f} ms (host clock), bound "
+              f"{bz:.6f} ms ({bz_by}); serial chain {BATCH} block reductions")
+    chk.done("timed inputs")
+    print("  heavy_hitter: no PyTorch call computes the same function (library_ms null)")
+
+
+
+# ------------------------------------------------------------------- async
+class RecordingEngine(Engine):
+    """Keeps every published snapshot (so answers can be held against the
+    snapshot they name) and the host ms of each ingest batch on the
+    thread that ran it (no synchronize added)."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.published, self.ingest_ms = {}, []
+
+    def ingest(self, x, doc_ids, draws=None):
+        t = time.perf_counter()
+        out = super().ingest(x, doc_ids, draws)
+        self.ingest_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def publish(self):
+        snap = super().publish()
+        self.published[snap.version] = snap
+        return snap
+
+
+class LagServer(AsyncServer):
+    """Records (snapshot version, lag in docs) at every publish."""
+
+    def __init__(self, *a, **kw):
+        self.lags = []
+        super().__init__(*a, **kw)
+
+    def _publish(self):
+        super()._publish()
+        self.lags.append((self._snapshot.version, self.stats["docs"] - self._published_docs))
+
+
+def kernel_streams(trace_path: str) -> dict[str, list]:
+    """The CUDA stream id of each launch, by kernel name, in a
+    torch.profiler chrome trace."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict[str, list] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out.setdefault(e["name"], []).append(e.get("args", {}).get("stream"))
+    return out
+
+
+def phase_async(stream, warm, batches, sync_lat, switch_s=None):
+    """An AsyncServer on the main path's config, seed and warmup ingests
+    the main path's 16 batches by serve_round (publish every 4) while a
+    submitter thread submits a 64-query burst each round. ``switch_s``
+    sets the interpreter's thread switch interval for the run (a
+    diagnostic of where a flush waits; None keeps the default and adds
+    the torch.profiler window)."""
+    switch = sys.getswitchinterval()
+    if switch_s is not None:
+        sys.setswitchinterval(switch_s)
+        print(f"async path again, the interpreter's switch interval {switch_s * 1e3:g} ms "
+              f"(default {switch * 1e3:g} ms):")
+    try:
+        _async_run(stream, warm, batches, sync_lat, profiled=switch_s is None)
+    finally:
+        sys.setswitchinterval(switch)
+
+
+def _async_run(stream, warm, batches, sync_lat, profiled):
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = full_config("int8", 64)
+    scfg = ServerConfig(max_batch=QUERIES, topk=TOPK, two_stage=True, nprobe=NPROBE)
+    eng = RecordingEngine(cfg, SEED, warm, device="cuda")
+    server = LagServer(cfg, scfg, engine=eng, publish_every=ASYNC_PUBLISH_EVERY, queue_max=8)
+    qs = stream.queries(QUERIES * len(batches))["embedding"]
+    torch.cuda.synchronize()
+    submitted, flushes = {}, []
+    rounds = threading.Semaphore(0)
+    lock = threading.Lock()
+
+    def submitter():
+        for r in range(len(batches)):
+            if not rounds.acquire(timeout=120):
+                return
+            for qv in qs[r * QUERIES:(r + 1) * QUERIES]:
+                t = server.submit(qv)
+                with lock:
+                    submitted[t] = qv
+
+    counts.reset_all()
+    sub = threading.Thread(target=submitter)
+    sub.start()
+    t0 = time.perf_counter()
+    for b in batches:
+        out = server.serve_round(b)   # flush first, then enqueue the batch
+        if out:
+            flushes.append(out)
+        rounds.release()
+    sub.join(120)
+    assert not sub.is_alive(), "the submitter did not finish"
+    during = server.latency_stats()   # the flushes while ingest ran
+    server.sync(timeout=300)
+    ingest_s = time.perf_counter() - t0
+    while True:
+        out = server.flush()
+        if not out:
+            break
+        flushes.append(out)
+    launches = counts.snapshot()
+    fresh = server.freshness_stats()
+    answers = [a for f in flushes for a in f]
+    # the flushes after sync, with the ingest thread idle
+    idle = list(server.stats["query_latency_ms"])[during["batches"]:]
+    print(f"async path: {len(batches)} batches by serve_round, publish every "
+          f"{ASYNC_PUBLISH_EVERY}, {len(submitted)} queries in bursts of {QUERIES}; "
+          f"launches {launches}")
+    assert sorted(a["ticket"] for a in answers) == sorted(submitted), "a ticket lost or repeated"
+    assert len(answers) == len(submitted) == QUERIES * len(batches)
+    assert {a["snapshot_version"] for a in answers} <= set(eng.published)
+    assert fresh["lag_docs"] == 0, fresh
+    for name in ("admit", "heavy_hitter", "serve"):
+        assert launches[name]["kernel"] > 0, f"{name} never launched on the async path"
+    assert launches["admit"]["kernel"] == launches["heavy_hitter"]["kernel"] == len(batches)
+    assert all(c["plain"] == 0 for c in launches.values()), "a plain version ran"
+    # each sampled flush again, whole, on the snapshot it names: bit for bit
+    held = 0
+    for f in flushes[::3]:
+        snap = eng.published[f[0]["snapshot_version"]]
+        q = np.stack([submitted[a["ticket"]] for a in f])
+        s_, _, ids, _ = eng.query_snapshot(snap, q, TOPK, two_stage=True, nprobe=NPROBE)
+        s_, ids = s_.cpu().numpy(), ids.cpu().numpy()
+        for j, a in enumerate(f):
+            if not (np.array_equal(a["doc_ids"], ids[j]) and np.array_equal(a["scores"], s_[j])):
+                raise AssertionError(f"ticket {a['ticket']}: not its snapshot's answer")
+            held += 1
+    answers_ok(answers, TOPK)
+    live = sum(int((b["doc_id"] >= 0).sum()) for b in batches)
+    steady = eng.ingest_ms[1:]
+    print(f"  answered {len(answers)}/{len(submitted)} exactly once from "
+          f"{len({a['snapshot_version'] for a in answers})} snapshots; {held} answers held "
+          f"bit for bit against their recorded snapshot; lag after sync {fresh['lag_docs']}")
+    print(f"  flush while ingest runs: p50 {during['p50_ms']:.3f} ms p99 {during['p99_ms']:.3f} "
+          f"ms, answer p50 {during['answer_p50_ms']:.3f} ms p99 {during['answer_p99_ms']:.3f} "
+          f"ms over {during['batches']} flushes; synchronous server (main path, this card): "
+          f"p50 {sync_lat['p50_ms']:.3f} p99 {sync_lat['p99_ms']:.3f}, answer p50 "
+          f"{sync_lat['answer_p50_ms']:.3f} p99 {sync_lat['answer_p99_ms']:.3f} ms; this "
+          f"server's {len(idle)} flushes after sync (ingest idle): "
+          + (f"p50 {np.percentile(idle, 50):.3f} ms max {max(idle):.3f} ms" if idle
+             else "none"))
+    print(f"  ingest on the ingest thread: {np.median(steady):.2f} ms/batch median (first "
+          f"{eng.ingest_ms[0]:.2f}); {live} docs ingested and published in {ingest_s:.3f} s "
+          f"= {live / ingest_s:.0f} docs/s; lag (docs) at each publish {server.lags}")
+    if not profiled:
+        server.close(timeout=300)
+        return
+    # torch.profiler: the ingest kernels run on another stream than serve's
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        b = stream.next_batch(BATCH)
+        server.ingest(b["embedding"], b["doc_id"])
+        for qv in qs[:QUERIES]:
+            server.submit(qv)
+        server.flush()
+        server.sync(timeout=300)
+        torch.cuda.synchronize()
+    server.close(timeout=300)
+    trace = str(build.BUILD_DIR / "async_trace.json")
+    prof.export_chrome_trace(trace)
+    streams = kernel_streams(trace)
+    ingest_k = {n: s for n, s in streams.items()
+                if any(k in n for k in ("admit_prologue_kernel", "assign_tile_kernel",
+                                        "heavy_hitter_kernel"))}
+    serve_k = {n: s for n, s in streams.items()
+               if any(k in n for k in ("route_tile_kernel", "serve_rerank_kernel"))}
+    ingest_s_ids = set().union(*ingest_k.values()) if ingest_k else set()
+    serve_s_ids = set().union(*serve_k.values()) if serve_k else set()
+    hh_n = sum(len(v) for n, v in ingest_k.items() if "heavy_hitter_kernel" in n)
+    print(f"  torch.profiler over one more batch and flush: streams of the ingest kernels "
+          f"{sorted(map(str, ingest_s_ids))}, of the serve kernels "
+          f"{sorted(map(str, serve_s_ids))}; heavy_hitter kernels for the one batch: {hh_n}")
+    assert len(ingest_k) == 3 and len(serve_k) == 2, (sorted(streams))
+    assert hh_n == 1, hh_n
+    assert None not in ingest_s_ids | serve_s_ids, "the trace names no stream"
+    assert not ingest_s_ids & serve_s_ids, "ingest and serve kernels share a stream"
+
 
 
 def main() -> int:
@@ -1325,8 +1686,12 @@ def main() -> int:
     phase_setup()
     results: dict = {}
     stream, warm = phase_kernels(results)
-    batches = phase_main(stream, warm, results)
+    batches, hh_calls, sync_lat = phase_main(stream, warm, results)
+    phase_heavy_hitter(results, hh_calls)
+    del hh_calls
     phase_staged(stream, warm, batches, results)
+    phase_async(stream, warm, batches, sync_lat)
+    phase_async(stream, warm, batches, sync_lat, switch_s=0.0005)
     del stream, warm, batches
     torch.cuda.empty_cache()
     phase_recsys(*phase_recsys_kernels(results), results)

@@ -11,7 +11,9 @@ u_t/B_t (paper Table 9).
 Random draws are explicit arguments: per-arrival gate uniforms ``[B]``,
 plus Gumbel noise ``[B, bmax]`` (RANDOM_EVICT) and Morris uniforms ``[B]``
 where those are on. When the caller passes none they are drawn from a
-``torch.Generator``.
+``torch.Generator``. ``update_batch`` runs the microbatch through
+``kernels/heavy_hitter`` (the kernel on a card, a loop of ``update_one``
+on the CPU).
 """
 from __future__ import annotations
 
@@ -264,31 +266,16 @@ def update_batch(cfg: HHConfig, state: HHState, labels: torch.Tensor,
                  gen: torch.Generator | None = None,
                  draws: dict | None = None):
     """The per-arrival update over a microbatch, in order (paper
-    semantics exact): a Python loop of tensor ops with no host reads.
+    semantics exact): the ``heavy_hitter`` kernel on a card, its plain
+    version (a Python loop of ``update_one``) on the CPU.
 
     labels: [B] i32 cluster labels, −1 for upstream-dropped items.
     ``draws`` = {"uniforms": [B], "gumbel": [B, bmax], "morris": [B]}
-    (the last two where the config uses them); drawn from ``gen`` when
-    None. Returns (new_state, info dict of [B] tensors)."""
-    B = labels.shape[0]
+    (the last two where the config uses them), on the labels' device;
+    drawn from ``gen`` when None. Returns (new_state, info dict of [B]
+    tensors: admitted, hit, evicted_label, slot)."""
+    from repro_torch.kernels.heavy_hitter import ops  # its ref.py imports this module
+
     if draws is None:
-        draws = draw(cfg, B, gen, labels.device)
-    uniforms = draws["uniforms"].to(torch.float32)
-    gumbel, morris_u = draws.get("gumbel"), draws.get("morris")
-    slot_ids = torch.arange(state.labels.shape[0], device=labels.device)
-    infos = []
-    for i in range(B):
-        state, info = update_one(
-            cfg, state, labels[i], uniforms[i],
-            None if gumbel is None else gumbel[i],
-            None if morris_u is None else morris_u[i], slot_ids)
-        infos.append(info)
-    if not infos:
-        empty = torch.zeros((0,), dtype=torch.int32, device=labels.device)
-        return state, {"admitted": empty.bool(), "hit": empty.bool(),
-                       "evicted_label": empty, "slot": empty}
-    out = {name: torch.stack([inf[name] for inf in infos])
-           for name in infos[0]}
-    out["evicted_label"] = out["evicted_label"].to(torch.int32)
-    out["slot"] = out["slot"].to(torch.int32)
-    return state, out
+        draws = draw(cfg, labels.shape[0], gen, labels.device)
+    return ops.update_batch(cfg, state, labels, draws)

@@ -268,3 +268,9 @@ class Engine:
         """The pipeline counters as ONE small device->host transfer."""
         vec = stages.pipeline_counters(self.cfg, self.state).cpu().numpy()
         return stages.decode_pipeline_counters(vec[None])
+
+    def state_memory_bytes(self) -> int:
+        return pipeline.state_memory_bytes(self.cfg)
+
+    def store_bytes_per_device(self) -> int:
+        return docstore.memory_bytes(self.cfg.store)

@@ -93,7 +93,8 @@ def admit(pre_cfg: prefilter.PrefilterConfig,
 def count(hh_cfg: heavy_hitter.HHConfig, hh_state, labels: torch.Tensor,
           keep: torch.Tensor, draws: dict | None = None,
           gen: torch.Generator | None = None):
-    """(4) heavy-hitter counting over retained labels (per-arrival loop)."""
+    """(4) heavy-hitter counting over retained labels (the ``heavy_hitter``
+    kernel: the per-arrival update, in order, as one launch)."""
     masked = torch.where(keep, labels, -1).to(torch.int32)
     hh, info = heavy_hitter.update_batch(hh_cfg, hh_state, masked, gen=gen,
                                          draws=draws)

@@ -5,7 +5,9 @@ Each ``src/repro_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 with ``ctypes``. Libraries go to ``build/repro_torch/`` at the repository
 root, named by a hash of the sources and flags, so an unchanged source is
 never rebuilt. The first use of any kernel builds all of them, one
-``nvcc`` per source, all started together.
+``nvcc`` per source, all started together. Build and load hold one lock,
+so two threads that reach their first launch together (an ``AsyncServer``'s
+ingest and query threads) start one compile per source, not two.
 
 No ``--use_fast_math``: it would swap the IEEE divide and sqrt the
 kernels rely on for approximations.
@@ -18,12 +20,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 # the kernels, and an empty kernel that chip_smoke.py times as the launch floor
 SOURCES = ("admit", "serve", "mips", "rerank", "prefilter", "assign", "bag",
-           "launch_floor")
+           "heavy_hitter", "launch_floor")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SMEM_PER_BLOCK = 232_448   # bytes of shared memory one block can use on Hopper
@@ -41,6 +44,7 @@ class Built:
 
 _BUILT: dict[str, Built] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()   # guards _BUILT, _LIBS and the compiles
 
 
 def nvcc_path() -> str:
@@ -64,6 +68,11 @@ def _digest(name: str) -> str:
 def build_all() -> dict[str, Built]:
     """Compile every source whose library is missing, all in parallel;
     raise with nvcc's output if any compile fails."""
+    with _LOCK:
+        return _build_missing()
+
+
+def _build_missing() -> dict[str, Built]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in SOURCES:
@@ -92,14 +101,18 @@ def build_all() -> dict[str, Built]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    if name not in _LIBS:
-        if name not in _BUILT:
-            build_all()
-        lib = ctypes.CDLL(str(_BUILT[name].path))
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
-    return _LIBS[name]
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    with _LOCK:
+        if name not in _LIBS:
+            if name not in _BUILT:
+                _build_missing()
+            lib = ctypes.CDLL(str(_BUILT[name].path))
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

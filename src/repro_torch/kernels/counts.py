@@ -32,6 +32,7 @@ COUNTS: dict[str, CallCounts] = {
     "prefilter": CallCounts(),
     "assign": CallCounts(),
     "bag": CallCounts(),
+    "heavy_hitter": CallCounts(),
 }
 
 

@@ -1,4 +1,6 @@
-"""The port's heavy-hitter counter against the JAX reference.
+"""The port's heavy-hitter counter against the JAX reference, through
+the ``kernels/heavy_hitter`` dispatcher (a CPU tensor runs the plain
+loop, ``ref.py``), and the kernel wrapper's plan and argument checks.
 
 MIN_EVICT, SPACE_SAVING and COUNT_MIN are deterministic given the gate
 uniforms, so the port is fed exactly the uniforms the reference draws
@@ -16,6 +18,11 @@ import torch
 
 from repro.core import heavy_hitter as jhh
 from repro_torch.core import heavy_hitter as thh
+from repro_torch.kernels import build
+from repro_torch.kernels.counts import COUNTS
+from repro_torch.kernels.heavy_hitter import ops as hh_ops
+from repro_torch.kernels.heavy_hitter.heavy_hitter import (heavy_hitter_plan,
+                                                          update_batch_cuda)
 
 from _torch_parity import assert_trees, hh_draws, jax_tree
 
@@ -40,6 +47,7 @@ def test_update_batch_exact_with_reference_uniforms(policy, extra):
     js, ts = jhh.init(jc), thh.init(tc, "cpu")
     rng = np.random.default_rng(int(policy))
     key = jax.random.key(7)
+    COUNTS["heavy_hitter"].reset()
     for step in range(4):
         # a skewed label stream with dropped (-1) arrivals
         labels = rng.zipf(1.5, size=48).astype(np.int32) % 20
@@ -52,6 +60,8 @@ def test_update_batch_exact_with_reference_uniforms(policy, extra):
         assert_trees({k: np.asarray(v) for k, v in jinfo.items()},
                      {k: v.numpy() for k, v in tinfo.items()}, rtol=0, atol=0)
     assert int(ts.total_evictions) > 0 or policy == thh.Policy.COUNT_MIN
+    # the CPU path is the plain loop, once per batch
+    assert (COUNTS["heavy_hitter"].plain, COUNTS["heavy_hitter"].kernel) == (4, 0)
 
 
 def test_update_one_single_arrival_exact():
@@ -112,3 +122,61 @@ def test_config_validation_matches_reference():
             thh.HHConfig(**bad)
         with pytest.raises(ValueError):
             jhh.HHConfig(**bad)
+
+
+@pytest.mark.parametrize("bmax,cells,threads", [(100, 0, 32), (200, 0, 32),
+                                                (4218, 0, 544), (4218, 1024, 544),
+                                                (8436, 0, 1024), (20000, 0, 1024)])
+def test_heavy_hitter_plan_sizes_one_block(bmax, cells, threads):
+    """One block of at most 1024 threads, about 8 slots a thread; shared
+    memory holds labels and counts, the sketch and a chunk of staged
+    arrivals (33.7 KB of slots at bmax 4218, 67.5 KB adaptive at 8436,
+    past the 48 KB that needs the opt-in)."""
+    plan = heavy_hitter_plan(bmax, cells)
+    assert plan.threads == threads and plan.threads % 32 == 0
+    assert plan.smem == 4 * (2 * bmax + cells + 3 * threads)
+    assert plan.smem + 1024 <= build.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("bmax,cells", [(28000, 0), (27000, 4 * 256 * 8)])
+def test_heavy_hitter_plan_refuses_past_shared_memory(bmax, cells):
+    with pytest.raises(ValueError, match="shared memory"):
+        heavy_hitter_plan(bmax, cells)
+
+
+def _hh_inputs(policy=thh.Policy.MIN_EVICT, morris=False, B=6):
+    cfg = thh.HHConfig(capacity=8, policy=policy, morris=morris)
+    labels = torch.arange(B, dtype=torch.int32)
+    draws = thh.draw(cfg, B, torch.Generator().manual_seed(0), "cpu")
+    return cfg, thh.init(cfg, "cpu"), labels, draws
+
+
+@pytest.mark.parametrize("case", ["cpu_tensors", "f64_uniforms", "i64_labels",
+                                  "short_uniforms", "no_gumbel", "no_morris"])
+def test_heavy_hitter_wrapper_refuses_what_the_kernel_does_not_take(case):
+    """The wrapper checks dtypes, shapes, devices and the draws the config
+    needs before it builds or launches anything (so this runs here)."""
+    policy = thh.Policy.RANDOM_EVICT if case == "no_gumbel" else thh.Policy.MIN_EVICT
+    cfg, state, labels, draws = _hh_inputs(policy, morris=case == "no_morris")
+    if case == "f64_uniforms":
+        draws["uniforms"] = draws["uniforms"].double()
+    elif case == "i64_labels":
+        labels = labels.long()
+    elif case == "short_uniforms":
+        draws["uniforms"] = draws["uniforms"][:-1]
+    elif case == "no_gumbel":
+        del draws["gumbel"]
+    elif case == "no_morris":
+        del draws["morris"]
+    with pytest.raises(ValueError, match="heavy_hitter|needs draws"):
+        update_batch_cuda(cfg, state, labels, draws)
+
+
+def test_heavy_hitter_dispatch_refuses_other_and_mixed_devices():
+    cfg, state, labels, draws = _hh_inputs()
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        hh_ops.update_batch(cfg, thh.init(cfg, "meta"), labels.to("meta"),
+                            {k: v.to("meta") for k, v in draws.items()})
+    with pytest.raises(ValueError, match="tensors on"):
+        hh_ops.update_batch(cfg, state, labels,
+                            {k: v.to("meta") for k, v in draws.items()})

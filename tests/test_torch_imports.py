@@ -60,11 +60,21 @@ def test_entry_points_run_on_the_card_by_default():
 
 
 def test_unported_server_options_raise():
+    """The rest of the serving runtime (ROADMAP A6): the result cache, the
+    hot set and durability raise; adaptive serving is ported."""
     from repro_torch.configs.streaming_rag import paper_pipeline_config
+    from repro_torch.serve.runtime import AsyncServer
     from repro_torch.serve.server import RAGServer, ServerConfig
 
     cfg = paper_pipeline_config(dim=16, k=8, capacity=8, store_depth=4)
-    for opt in ({"adaptive": True}, {"cache_entries": 8}, {"hotset": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            RAGServer(cfg, ServerConfig(topk=4, two_stage=True, nprobe=2,
-                                        **opt), seed=0, device="cpu")
+    for opt in ({"cache_entries": 8}, {"hotset": True}):
+        for server in (RAGServer, AsyncServer):
+            with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+                server(cfg, ServerConfig(topk=4, two_stage=True, nprobe=2,
+                                         **opt), seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        AsyncServer(cfg, ServerConfig(topk=4), seed=0, device="cpu",
+                    durability=object())
+    srv = RAGServer(cfg, ServerConfig(topk=4, two_stage=True, nprobe=2,
+                                      adaptive=True), seed=0, device="cpu")
+    assert srv.plan_space is not None and srv._controller is not None

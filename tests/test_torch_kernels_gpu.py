@@ -1,5 +1,6 @@
 """The port's CUDA kernels (admit, serve, mips, rerank, prefilter,
-assign, bag) against their plain PyTorch versions, on the card. Run where
+assign, bag, heavy_hitter) against their plain PyTorch versions, on the
+card, and the ``AsyncServer`` on the card. Run where
 there is one:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py -q
@@ -10,6 +11,8 @@ at run time). Tolerances, as in ``chip_smoke.py``: floats within rtol
 version's competing scores differ by under 1e-5 and the kernel's pick
 must score within 1e-5 of the plain pick; int8 rows equal or off by one
 where v/scale lies within 1e-4 of a half-integer; scales within 2 ulp.
+The heavy-hitter kernel's state and info equal its plain loop's exactly
+(integer decisions over the same floats and draws).
 """
 import numpy as np
 import pytest
@@ -146,7 +149,7 @@ def test_engine_on_card_launches_the_kernels(cuda):
         assert s.is_cuda and torch.isfinite(s).all()
     snap = counts.snapshot()
     assert all(snap[n]["kernel"] > 0 and snap[n]["plain"] == 0
-               for n in ("admit", "serve", "mips")), snap
+               for n in ("admit", "heavy_hitter", "serve", "mips")), snap
 
 
 @pytest.mark.parametrize("quantized,D,depth,k", [(True, 64, None, 10),
@@ -905,3 +908,196 @@ def test_admit_and_prefilter_launches_a_call(cuda, live):
     assert sum("assign_tile_kernel" in o for o in ops) == 1, ops
     ops = _device_ops(lambda: prefilter_scores_cuda(x, basis))
     assert len(ops) == 1 and "prefilter_kernel" in ops[0], ops
+
+
+# ------------------------------------------------------------ heavy hitter
+def _hh_cfg(policy, option, bmax):
+    from repro_torch.core import heavy_hitter as hh
+
+    kw = dict(capacity=bmax, admit_prob=0.3, policy=hh.Policy(policy), cms_width=64)
+    if option == "morris":
+        kw["morris"] = True
+    elif option == "gate":
+        kw["gate_below_capacity"] = True
+    elif option == "adaptive":
+        kw.update(capacity=bmax // 2, max_capacity=bmax, adaptive=True, window=32,
+                  b_step=16, novel_hi=0.5, novel_lo=0.2)
+    return hh.HHConfig(**kw)
+
+
+def _hh_state(cfg, dev, rng, fill):
+    """A state whose first ``fill`` share of the active slots is occupied
+    (distinct labels, small counts; Morris exponents), scalars as init's."""
+    from repro_torch.core import heavy_hitter as hh
+
+    st = hh.init(cfg, dev)
+    cap = cfg.capacity
+    n = int(cap * fill)
+    labels = np.full(cfg.bmax(), -1, np.int32)
+    labels[:n] = rng.permutation(3 * cap)[:n]
+    counts = np.zeros(cfg.bmax(), np.int32)
+    counts[:n] = rng.integers(0, 6 if cfg.morris else 9, n)
+    holes = rng.random(cap) < 0.05            # empty slots among the occupied
+    labels[:cap][holes] = -1
+    counts[:cap][holes] = 0
+    return st._replace(labels=torch.from_numpy(labels).to(dev),
+                       counts=torch.from_numpy(counts).to(dev))
+
+
+def _hh_labels(rng, B, cap, drop=0.2):
+    """Zipf-skewed labels over 3 x capacity clusters, ``drop`` of them -1."""
+    lab = (rng.zipf(1.3, size=B) - 1) % (3 * cap)
+    lab[rng.random(B) < drop] = -1
+    return torch.from_numpy(lab.astype(np.int32))
+
+
+def _hh_equal(got, want):
+    (s_k, i_k), (s_p, i_p) = got, want
+    for name, a, b in zip(s_p._fields, s_k, s_p):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    for name in i_p:
+        assert i_k[name].dtype == i_p[name].dtype, name
+        assert torch.equal(i_k[name], i_p[name]), name
+
+
+@pytest.mark.parametrize("B", [0, 1, 256])
+@pytest.mark.parametrize("bmax", [4218, 8436])
+@pytest.mark.parametrize("option", ["exact", "morris", "gate", "adaptive"])
+@pytest.mark.parametrize("policy", [0, 1, 2, 3])
+def test_heavy_hitter_kernel_matches_plain(cuda, policy, option, bmax, B):
+    """Two batches in a row on a nearly full counter (so arrivals hit,
+    insert and evict), the same draws into both: every state leaf and
+    info entry equal, bit for bit."""
+    from repro_torch.core import heavy_hitter as hh
+    from repro_torch.kernels.heavy_hitter.heavy_hitter import update_batch_cuda
+    from repro_torch.kernels.heavy_hitter.ref import update_batch_ref
+
+    cfg = _hh_cfg(policy, option, bmax)
+    rng = np.random.default_rng(policy * 10 + B)
+    g = torch.Generator(device=cuda).manual_seed(policy)
+    st_k = st_p = _hh_state(cfg, cuda, rng, fill=0.97)
+    for _ in range(2):
+        labels = _hh_labels(rng, B, cfg.capacity).to(cuda)
+        draws = hh.draw(cfg, B, g, cuda)
+        before = COUNTS["heavy_hitter"].kernel
+        got = update_batch_cuda(cfg, st_k, labels, draws)
+        want = update_batch_ref(cfg, st_p, labels, draws)
+        torch.cuda.synchronize()
+        assert COUNTS["heavy_hitter"].kernel == before + (B > 0)
+        _hh_equal(got, want)
+        st_k, st_p = got[0], want[0]
+    if B == 256 and option != "adaptive":
+        assert int(st_k.total_writes) > 0
+
+
+@pytest.mark.parametrize("policy", [0, 1, 2, 3])
+def test_heavy_hitter_kernel_dropped_batch_closes_a_window(cuda, policy):
+    """An all-dropped batch on a state whose window is already full (a
+    merged state can arrive so): the adaptive step fires on the first
+    dropped arrival and nothing else moves."""
+    from repro_torch.core import heavy_hitter as hh
+    from repro_torch.kernels.heavy_hitter.heavy_hitter import update_batch_cuda
+    from repro_torch.kernels.heavy_hitter.ref import update_batch_ref
+
+    cfg = _hh_cfg(policy, "adaptive", 200)
+    rng = np.random.default_rng(policy)
+    for novel in (30, 2):                 # grow, then shrink
+        st = _hh_state(cfg, cuda, rng, fill=0.5)._replace(
+            seen_in_window=torch.tensor(cfg.window + 3, dtype=torch.int32, device=cuda),
+            novel_in_window=torch.tensor(novel, dtype=torch.int32, device=cuda),
+            admit_prob=torch.tensor(0.1, device=cuda),
+            active_capacity=torch.tensor(cfg.capacity + 16, dtype=torch.int32,
+                                         device=cuda))
+        labels = torch.full((64,), -1, dtype=torch.int32, device=cuda)
+        draws = hh.draw(cfg, 64, torch.Generator(device=cuda).manual_seed(1), cuda)
+        got = update_batch_cuda(cfg, st, labels, draws)
+        want = update_batch_ref(cfg, st, labels, draws)
+        _hh_equal(got, want)
+        assert int(got[0].seen_in_window) == 0
+        assert int(got[0].active_capacity) != cfg.capacity + 16
+
+
+def test_heavy_hitter_kernel_refuses_a_bmax_past_shared_memory(cuda):
+    from repro_torch.core import heavy_hitter as hh
+    from repro_torch.kernels.heavy_hitter.heavy_hitter import update_batch_cuda
+
+    cfg = hh.HHConfig(capacity=30_000)
+    draws = hh.draw(cfg, 4, torch.Generator(device=cuda).manual_seed(0), cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        update_batch_cuda(cfg, hh.init(cfg, cuda),
+                          torch.zeros((4,), dtype=torch.int32, device=cuda), draws)
+
+
+def test_async_server_on_card_answers_from_published_snapshots(cuda):
+    """An AsyncServer that publishes after every batch, so old snapshots
+    are dropped (and their blocks freed to the ingest stream) while
+    flushes run: every ticket answered once, every sampled answer equal,
+    bit for bit, to the same query on a copy of the snapshot it names
+    (each snapshot copied to the host as it is published)."""
+    import threading
+
+    from repro_torch.configs.streaming_rag import paper_pipeline_config
+    from repro_torch.engine.engine import Engine, ServingSnapshot
+    from repro_torch.kernels import counts
+    from repro_torch.serve.runtime import AsyncServer, ServerConfig
+
+    class HostCopies(Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.copies = {}
+
+        def publish(self):
+            snap = super().publish()
+            self.copies[snap.version] = _to(snap, "cpu")
+            return snap
+
+    def _to(snap, dev):
+        return ServingSnapshot(
+            index=snap.index._replace(**{f: getattr(snap.index, f).to(dev)
+                                         for f in ("vectors", "ids", "valid")}),
+            route_labels=snap.route_labels.to(dev),
+            store=type(snap.store)(*(t.to(dev) for t in snap.store)),
+            version=snap.version, published_at=snap.published_at)
+
+    cfg = paper_pipeline_config(dim=64, k=64, capacity=64, store_depth=8,
+                                update_interval=32, alpha=0.0, store_dtype="int8")
+    rng = np.random.default_rng(5)
+    eng = HostCopies(cfg, 0, rng.normal(size=(128, 64)).astype(np.float32),
+                     device=cuda)
+    server = AsyncServer(cfg, ServerConfig(max_batch=16, max_wait_ms=0.0, topk=5,
+                                           two_stage=True, nprobe=4),
+                         engine=eng, publish_every=1, queue_max=4)
+    qs = rng.normal(size=(600, 64)).astype(np.float32)
+    tickets, lock = {}, threading.Lock()
+
+    def submitter():
+        for qv in qs:
+            t = server.submit(qv)
+            with lock:
+                tickets[t] = qv
+
+    counts.reset_all()
+    sub = threading.Thread(target=submitter)
+    sub.start()
+    answers = []
+    for step in range(40):
+        b = rng.normal(size=(64, 64)).astype(np.float32)
+        server.ingest(b, np.arange(step * 64, step * 64 + 64, dtype=np.int32))
+        answers += server.flush()
+    sub.join(60)
+    assert not sub.is_alive()
+    server.sync(timeout=60)
+    answers += server.drain()
+    server.close(timeout=60)
+    snap = counts.snapshot()
+    assert all(snap[n]["kernel"] > 0 for n in ("admit", "heavy_hitter", "serve")), snap
+    assert all(c["plain"] == 0 for c in snap.values()), snap
+    assert sorted(a["ticket"] for a in answers) == sorted(tickets) == list(range(600))
+    assert len({a["snapshot_version"] for a in answers}) > 5
+    assert server.freshness_stats()["lag_docs"] == 0
+    for a in answers[::7]:
+        ref = _to(eng.copies[a["snapshot_version"]], cuda)
+        s, _, ids, _ = eng.query_snapshot(ref, tickets[a["ticket"]][None], 5,
+                                          two_stage=True, nprobe=4)
+        assert np.array_equal(a["doc_ids"], ids[0].cpu().numpy())
+        assert np.array_equal(a["scores"], s[0].cpu().numpy())

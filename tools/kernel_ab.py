@@ -21,7 +21,16 @@ ids over 1,000,000 x 64, beside ``F.embedding_bag`` + divide as
 ``bag.*.library``), ``assign`` and ``admit`` (a 256-row batch against
 4218 x 384 centroids; admit with int8 rows, with 10% of the rows dead and
 with ``live=None`` as ``admit.live_none``), ``prefilter`` (the same
-256 x 384 rows against a 5 x 384 basis); several may be given. Each
+256 x 384 rows against a 5 x 384 basis), ``heavy_hitter`` (the counter's
+batch update: ``heavy_hitter.main``, MIN_EVICT at bmax 4218 on a batch
+shaped as the main path's, 256 labels of which 26 valid; ``.zipf``,
+MIN_EVICT at capacity 100 on 256 valid Zipf labels over 4218 clusters on
+a filled counter; ``.random``, RANDOM_EVICT at bmax 4218 on 256 valid
+Zipf labels, which reads 4.3 MB of Gumbel draws; each beside its plain
+loop, ``.plain``, timed on the host clock between synchronizes, since it
+is host-bound; a checkout without the kernel times its loop alone, so
+``tools/kernel_ab.py . . --kernel heavy_hitter`` compares the kernel with
+the loop); several may be given. Each
 turn (A B B A, twice) is a fresh process that imports that checkout's
 ``chip_smoke.py`` (and with it that checkout's
 ``src/repro_torch``), builds the kernels from its sources into the
@@ -43,11 +52,22 @@ import sys
 import numpy as np
 
 PRELUDE = r"""
-import json, sys, torch
+import json, sys, time, torch
 sys.path.insert(0, {root!r})
 import chip_smoke as cs
 from repro_torch.kernels.common import l2_normalize
 g = torch.Generator(device="cuda"); g.manual_seed(0)
+host_fns = {{}}   # host-bound calls, timed on the host clock
+
+
+def host_ms(fn, iters=2):
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / iters
 """
 SETUP = {
     "serve": r"""
@@ -122,6 +142,37 @@ routes = labels[torch.topk(q @ vectors.T, cs.NPROBE).indices].contiguous()
 embs, live, scales = cs.synthetic_store(K, 64, d, True, g)
 fns = {"rerank": lambda: rerank_topk_cuda(q, embs, live, routes, cs.TOPK, scales)}
 """,
+    "heavy_hitter": r"""
+import numpy as np
+from repro_torch.core import heavy_hitter as hh
+try:
+    from repro_torch.kernels.heavy_hitter.heavy_hitter import update_batch_cuda
+    from repro_torch.kernels.heavy_hitter.ref import update_batch_ref as plain_update
+except ImportError:   # a checkout from before the kernel: its update is the loop
+    update_batch_cuda = None
+    plain_update = lambda cfg, st, lab, dr: hh.update_batch(cfg, st, lab, draws=dr)
+rng = np.random.default_rng(0)
+zipf = lambda n: torch.from_numpy(cs.zipf_ids(rng, 4218, (n,))).cuda()
+cases = {}
+cfg = hh.HHConfig(capacity=4218)
+lab = torch.full((cs.BATCH,), -1, dtype=torch.int32, device="cuda")
+lab[torch.randperm(cs.BATCH, generator=g, device="cuda")[:26]] = zipf(26)
+cases["main"] = (cfg, hh.init(cfg, "cuda"), lab)
+for name, cfg in (("zipf", hh.HHConfig(capacity=100)),
+                  ("random", hh.HHConfig(capacity=4218, policy=hh.Policy.RANDOM_EVICT))):
+    st = hh.init(cfg, "cuda")
+    for _ in range(3):   # fill the counter
+        st, _ = plain_update(cfg, st, zipf(cs.BATCH), hh.draw(cfg, cs.BATCH, g, "cuda"))
+    cases[name] = (cfg, st, zipf(cs.BATCH))
+fns = {}
+for name, (cfg, st, lab) in cases.items():
+    dr = hh.draw(cfg, cs.BATCH, g, "cuda")
+    if update_batch_cuda is not None:
+        fns[f"heavy_hitter.{name}"] = (lambda cfg=cfg, st=st, lab=lab, dr=dr:
+                                       update_batch_cuda(cfg, st, lab, dr))
+    host_fns[f"heavy_hitter.{name}.plain"] = (lambda cfg=cfg, st=st, lab=lab, dr=dr:
+                                              plain_update(cfg, st, lab, dr))
+""",
     "bag": r"""
 import numpy as np
 from repro_torch.kernels.bag import ops as bag_ops
@@ -147,6 +198,9 @@ for label, B, S in (("bag.p99", 512, 50), ("bag.bulk", 262_144, 50)):
 TIME = r"""
 for name, fn in fns.items():
     out[name] = sorted(cs.cuda_ms(fn)[0] for _ in range(5))[2]
+for name, fn in host_fns.items():
+    out[name] = host_ms(fn)
+host_fns = {}
 """
 ROUNDS = 2
 
