@@ -39,8 +39,12 @@
    and draws), on a Zipf label stream over 4218 clusters at capacity 100
    for every policy with exact counts, Morris, adaptive (max capacity 200)
    and gate_below_capacity, on an all-dropped batch whose window is full,
-   and at B = 1; device ms, bound, the plain loop's host ms and kernels
-   per call (torch.profiler).
+   and at B = 1. Then timed: the main path's busiest batch, and 256 valid
+   Zipf arrivals at bmax 4218 (MIN_EVICT; RANDOM_EVICT) and at capacity
+   100 (full), each with its device ms, the wrapper's host ms a call, us
+   per valid arrival, its hits, inserts, evictions and dropped arrivals,
+   the bound (the Gumbel rows of the arrivals that evict, not all B x
+   bmax) and the plain loop's host ms.
 4. Staged path: the same config, seed, warmup and the main path's own 16
    batches, from a fresh init, through ``engine.staged_ingest_impl``
    (``screen -> assign_update -> count -> update_representatives ->
@@ -1384,14 +1388,39 @@ def hh_check(cfg, state, labels, draws, what, chk: Check):
     return got[0], want[0]
 
 
-def hh_bound(cfg, B, bmax):
-    """Bytes: labels and draws in, the state in and out once, the info out
-    (no arithmetic worth a bound: integer compares over the slots)."""
+def hh_bound(cfg, B, bmax, rows):
+    """Bytes these inputs need: labels and draws in, the state in and out
+    once, the info out, and for RANDOM_EVICT the Gumbel rows of the
+    ``rows`` arrivals that evict (no other arrival reads its row); no
+    arithmetic worth a bound (integer compares)."""
     cells = cfg.cms_depth * cfg.cms_width if cfg.policy == heavy_hitter.Policy.COUNT_MIN else 0
     state = 8 * bmax + 4 * cells + 28
-    draws = 4 * B * (1 + int(cfg.morris) + (bmax if cfg.policy == heavy_hitter.Policy.RANDOM_EVICT
-                                            else 0))
+    draws = 4 * B * (1 + int(cfg.morris))
+    if cfg.policy == heavy_hitter.Policy.RANDOM_EVICT:
+        draws += 4 * rows * bmax
     return bound(0.0, 4 * B + draws + 2 * state + 10 * B)
+
+
+def hh_tally(state, new, labels, info) -> dict:
+    """What a batch did: hits, inserts, evictions, dropped arrivals."""
+    ev = int(new.total_evictions) - int(state.total_evictions)
+    return dict(valid=int((labels >= 0).sum()), hits=int(info["hit"].sum()),
+                inserts=int(info["admitted"].sum()) - ev, evictions=ev,
+                dropped=int((labels < 0).sum()))
+
+
+def hh_timed(what, cfg, st, lab, dr):
+    """Device ms and the wrapper's host ms a call of one update, its tally,
+    us per valid arrival, the plain loop's host ms and the bound."""
+    new, info = update_batch_cuda(cfg, st, lab, dr)
+    t = hh_tally(st, new, lab, info)
+    ms, host = cuda_ms(lambda: update_batch_cuda(cfg, st, lab, dr))
+    plain = hh_plain_ms(lambda: update_batch_ref(cfg, st, lab, dr), iters=1)
+    b_ms, b_by = hh_bound(cfg, lab.shape[0], st.labels.shape[0], t["evictions"])
+    print(f"  hh {what}: {ms:.4f} ms device, {host:.4f} ms a call from the host, "
+          f"{ms * 1e3 / max(t['valid'], 1):.3f} us per valid arrival; {t}; plain loop "
+          f"{plain:.2f} ms (host clock); bound {b_ms:.6f} ms ({b_by})")
+    return ms, host, plain, b_ms, b_by
 
 
 def hh_plain_ms(fn, iters: int = 2) -> float:
@@ -1462,34 +1491,30 @@ def phase_heavy_hitter(results, calls):
     chk.done(f"main x{len(calls)}, zipf 4 policies x 4 options, dropped, B=1")
     print(f"  hh: valid arrivals per main batch {valid}; zipf (writes, evictions) "
           f"after {HH_ZIPF_BATCHES} batches: {writes}")
-    # ---- times: the main path's busiest batch, and RANDOM_EVICT's Gumbel rows
+    # ---- times: the main path's busiest batch; 256 valid Zipf arrivals at
+    # bmax 4218 (MIN_EVICT, and RANDOM_EVICT, which never fills) and at
+    # capacity 100 (full)
     i = int(np.argmax(valid))
     cfg, st, lab, dr = calls[i]
-    ms, host = cuda_ms(lambda: update_batch_cuda(cfg, st, lab, dr))
-    plain = hh_plain_ms(lambda: update_batch_ref(cfg, st, lab, dr))
-    b_ms, b_by = hh_bound(cfg, BATCH, st.labels.shape[0])
+    ms, host, plain, b_ms, b_by = hh_timed(
+        f"at the main path's batch {i} (MIN_EVICT, bmax {st.labels.shape[0]}, {valid[i]} "
+        f"valid of {BATCH})", cfg, st, lab, dr)
     results["heavy_hitter"].update(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
                                    bound_by=b_by, library_ms=None, host_ms=host)
-    print(f"  hh at the main path's batch {i} (MIN_EVICT, bmax {st.labels.shape[0]}, "
-          f"{valid[i]} valid of {BATCH}): {ms:.4f} ms device ({host:.4f} ms a call from "
-          f"the host), plain loop {plain:.2f} ms (host clock), bound {b_ms:.6f} ms "
-          f"({b_by}); serial chain {valid[i]} block reductions")
-    for policy in (heavy_hitter.Policy.MIN_EVICT, heavy_hitter.Policy.RANDOM_EVICT):
-        cfg = heavy_hitter.HHConfig(capacity=st.labels.shape[0], policy=policy)
+    for policy, cap in ((heavy_hitter.Policy.MIN_EVICT, st.labels.shape[0]),
+                        (heavy_hitter.Policy.RANDOM_EVICT, st.labels.shape[0]),
+                        (heavy_hitter.Policy.MIN_EVICT, HH_ZIPF_CAPACITY)):
+        cfg = heavy_hitter.HHConfig(capacity=cap, policy=policy)
         st_z = heavy_hitter.init(cfg, "cuda")
-        for _ in range(2):   # fill some slots first
+        for _ in range(3):   # fill some slots first (capacity 100: all)
             lab = torch.from_numpy(zipf_ids(rng, HH_ZIPF_CLUSTERS, (BATCH,))).cuda()
             st_z, _ = update_batch_cuda(cfg, st_z, lab, heavy_hitter.draw(cfg, BATCH, gen,
                                                                            "cuda"))
         lab = torch.from_numpy(zipf_ids(rng, HH_ZIPF_CLUSTERS, (BATCH,))).cuda()
         dr = heavy_hitter.draw(cfg, BATCH, gen, "cuda")
         hh_check(cfg, st_z, lab, dr, f"{policy.name} bmax {cfg.capacity} zipf", chk)
-        ms_z, _ = cuda_ms(lambda: update_batch_cuda(cfg, st_z, lab, dr))
-        plain_z = hh_plain_ms(lambda: update_batch_ref(cfg, st_z, lab, dr), iters=1)
-        bz, bz_by = hh_bound(cfg, BATCH, cfg.capacity)
-        print(f"  hh {policy.name} at bmax {cfg.capacity}, {BATCH} valid Zipf arrivals: "
-              f"{ms_z:.4f} ms device, plain loop {plain_z:.2f} ms (host clock), bound "
-              f"{bz:.6f} ms ({bz_by}); serial chain {BATCH} block reductions")
+        hh_timed(f"{policy.name} at bmax {cfg.capacity}, {BATCH} valid Zipf arrivals",
+                 cfg, st_z, lab, dr)
     chk.done("timed inputs")
     print("  heavy_hitter: no PyTorch call computes the same function (library_ms null)")
 

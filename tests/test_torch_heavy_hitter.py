@@ -20,6 +20,7 @@ from repro.core import heavy_hitter as jhh
 from repro_torch.core import heavy_hitter as thh
 from repro_torch.kernels import build
 from repro_torch.kernels.counts import COUNTS
+from repro_torch.kernels.heavy_hitter import heavy_hitter as hh_kernel
 from repro_torch.kernels.heavy_hitter import ops as hh_ops
 from repro_torch.kernels.heavy_hitter.heavy_hitter import (heavy_hitter_plan,
                                                           update_batch_cuda)
@@ -124,24 +125,115 @@ def test_config_validation_matches_reference():
             jhh.HHConfig(**bad)
 
 
-@pytest.mark.parametrize("bmax,cells,threads", [(100, 0, 32), (200, 0, 32),
-                                                (4218, 0, 544), (4218, 1024, 544),
-                                                (8436, 0, 1024), (20000, 0, 1024)])
+@pytest.mark.parametrize("bmax,cells,threads", [(100, 0, 256), (200, 0, 256),
+                                                (4218, 0, 512), (4218, 1024, 512),
+                                                (8436, 0, 512), (20000, 0, 512),
+                                                (21392, 0, 512)])
 def test_heavy_hitter_plan_sizes_one_block(bmax, cells, threads):
-    """One block of at most 1024 threads, about 8 slots a thread; shared
-    memory holds labels and counts, the sketch and a chunk of staged
-    arrivals (33.7 KB of slots at bmax 4218, 67.5 KB adaptive at 8436,
-    past the 48 KB that needs the opt-in)."""
+    """One block of 256 to 512 threads (about 8 slots a thread; at least
+    the 256-arrival chunk); shared memory holds labels and counts, the
+    sketch, the empty-slot bitmap, the chunk and the label -> slot table
+    of 16-bit entries at load factor 0.5, rising to at most 0.8 where
+    shared memory runs short (at bmax 20000 and at the ceiling, 21392)."""
     plan = heavy_hitter_plan(bmax, cells)
     assert plan.threads == threads and plan.threads % 32 == 0
-    assert plan.smem == 4 * (2 * bmax + cells + 3 * threads)
-    assert plan.smem + 1024 <= build.SMEM_PER_BLOCK
+    assert plan.smem == hh_kernel.smem_layout(bmax, cells, plan.table, False)["end"]
+    assert plan.smem + hh_kernel.STATIC_SMEM <= build.SMEM_PER_BLOCK
+    pref, least = hh_kernel.table_size(bmax)
+    assert least <= plan.table <= pref and plan.table % 8 == 0
+    assert plan.table == pref or plan.smem + hh_kernel.STATIC_SMEM + 16 > build.SMEM_PER_BLOCK
+    assert (plan.table == pref) == (bmax <= 8436)
+    assert not plan.stage
 
 
-@pytest.mark.parametrize("bmax,cells", [(28000, 0), (27000, 4 * 256 * 8)])
+def test_heavy_hitter_plan_ceiling():
+    """The largest bmax the plan takes: 21392 slots with no sketch (the
+    table at load 0.8), less beside a sketch; the refusal names it."""
+    assert hh_kernel.MAX_BMAX == hh_kernel.max_bmax(0) == 21392
+    assert hh_kernel.max_bmax(4 * 256) == 21008
+    assert hh_kernel.max_bmax(4 * 256 * 8) == 18308
+    with pytest.raises(ValueError, match="largest bmax with no sketch is 21392"):
+        heavy_hitter_plan(21393, 0)
+
+
+@pytest.mark.parametrize("bmax,cells", [(21393, 0), (18309, 4 * 256 * 8)])
 def test_heavy_hitter_plan_refuses_past_shared_memory(bmax, cells):
     with pytest.raises(ValueError, match="shared memory"):
         heavy_hitter_plan(bmax, cells)
+
+
+@pytest.mark.parametrize("bmax", [1, 7, 100, 4218, 8436, 21392])
+@pytest.mark.parametrize("cells", [0, 4 * 64])
+def test_heavy_hitter_smem_layout(bmax, cells):
+    """The kernel's shared-memory arrays in its order, each on 16 bytes
+    (16-byte vector moves, TMA's bulk copy into the Gumbel rows); the
+    table's preferred and least sizes (load 0.5, 0.8) in multiples of 8."""
+    pref, least = hh_kernel.table_size(bmax)
+    assert pref == -(-2 * bmax // 8) * 8 and least >= 1.25 * bmax and least % 8 == 0
+    assert least <= pref and bmax < least
+    for stage in (False, True):
+        lay = hh_kernel.smem_layout(bmax, cells, pref, stage)
+        names = ["labels", "counts", "sketch", "empty_bits", "chunk", "gumbel_rows",
+                 "table", "end"]
+        assert list(lay) == names
+        assert all(lay[n] % 16 == 0 for n in names)
+        assert lay["counts"] - lay["labels"] >= 4 * bmax
+        assert lay["empty_bits"] - lay["sketch"] >= 4 * cells
+        assert lay["chunk"] - lay["empty_bits"] >= 4 * -(-bmax // 32)
+        assert lay["gumbel_rows"] - lay["chunk"] == 16 * hh_kernel.CHUNK
+        assert lay["table"] - lay["gumbel_rows"] == (8 * -(-bmax // 4) * 4 if stage else 0)
+        assert lay["end"] - lay["table"] == 2 * pref
+
+
+@pytest.mark.parametrize("bmax,policy,staged", [
+    (100, thh.Policy.RANDOM_EVICT, True), (4218, thh.Policy.RANDOM_EVICT, True),
+    (8436, thh.Policy.RANDOM_EVICT, True), (20000, thh.Policy.RANDOM_EVICT, False),
+    (4218, thh.Policy.MIN_EVICT, False), (4218, thh.Policy.COUNT_MIN, False)])
+def test_heavy_hitter_plan_stages_gumbel_rows_where_they_fit(bmax, policy, staged):
+    """RANDOM_EVICT's two staged Gumbel rows take 8 * bmax bytes; the plan
+    stages them only where they fit beside the preferred table (the
+    kernel reads the rows from device memory otherwise), and never for
+    another policy."""
+    cells = 4 * 256 if policy == thh.Policy.COUNT_MIN else 0
+    plan = heavy_hitter_plan(bmax, cells, gumbel=policy == thh.Policy.RANDOM_EVICT)
+    assert plan.stage == staged
+    if staged:
+        assert plan.table == hh_kernel.table_size(bmax)[0]
+        assert plan.smem == hh_kernel.smem_layout(bmax, cells, plan.table, True)["end"]
+
+
+def test_heavy_hitter_table_home():
+    """The kernel's Fibonacci hash of a label into the table: in range,
+    the uint32 product scaled by the table's size (labels near 0 and
+    INT32_MAX), and dense cluster ids spread over the table (no home holds
+    more than 4 of 4218 labels in a table of 8440)."""
+    T = 8440
+    for label in (0, 1, 2, 2**31 - 2, 2**31 - 1):
+        h = hh_kernel.table_home(label, T)
+        assert 0 <= h < T
+        assert h == (((label * 2654435761) % 2**32) * T) // 2**32
+    assert hh_kernel.table_home(0, T) == 0
+    homes = np.bincount([hh_kernel.table_home(x, T) for x in range(4218)], minlength=T)
+    assert homes.max() <= 4 and homes.sum() == 4218
+
+
+@pytest.mark.parametrize("policy", list(thh.Policy))
+@pytest.mark.parametrize("B", [1, 256, 1025])
+def test_heavy_hitter_output_layout(policy, B):
+    """The wrapper's one int32 output buffer: labels, counts, the sketch
+    and the scalars each on 16 bytes (the kernel stores 16-byte
+    vectors), then the evicted labels and the slots; the per-call launch
+    data is built once per (config, B, bmax)."""
+    cfg = thh.HHConfig(capacity=4218, policy=policy)
+    L = hh_kernel._launch_for(cfg, B, 4218)
+    assert hh_kernel._launch_for(cfg, B, 4218) is L
+    cells = 4 * 256 if policy == thh.Policy.COUNT_MIN else 0
+    assert L.size == sum(L.split) and L.split[0] == L.split[2] == 4218
+    assert L.split[4] == cells and L.split[-2:] == [B, B]
+    assert all(o % 16 == 0 for o in (L.o_lab, L.o_cnt, L.o_cms, L.o_sc))
+    assert L.o_slot - L.o_ev == 4 * B and L.o_ev == L.o_sc + 32
+    assert (L.conf.table, bool(L.conf.stage)) == (L.plan.table, L.plan.stage)
+    assert L.conf.B == B and L.conf.bmax == 4218 and L.conf.policy == int(policy)
 
 
 def _hh_inputs(policy=thh.Policy.MIN_EVICT, morris=False, B=6):

@@ -14,6 +14,8 @@ where v/scale lies within 1e-4 of a half-integer; scales within 2 ulp.
 The heavy-hitter kernel's state and info equal its plain loop's exactly
 (integer decisions over the same floats and draws).
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -1026,6 +1028,185 @@ def test_heavy_hitter_kernel_refuses_a_bmax_past_shared_memory(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         update_batch_cuda(cfg, hh.init(cfg, cuda),
                           torch.zeros((4,), dtype=torch.int32, device=cuda), draws)
+
+
+def _hh_run(cfg, state, batches, dev, seed=0, draws_fn=None):
+    """Each batch of labels through the kernel and the plain loop, from the
+    same state and draws; every leaf held equal after each. Returns the
+    last state and the info of every batch."""
+    from repro_torch.core import heavy_hitter as hh
+    from repro_torch.kernels.heavy_hitter.heavy_hitter import update_batch_cuda
+    from repro_torch.kernels.heavy_hitter.ref import update_batch_ref
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    st_k = st_p = state
+    infos = []
+    for labels in batches:
+        labels = torch.as_tensor(np.asarray(labels, np.int32)).to(dev)
+        draws = hh.draw(cfg, labels.shape[0], g, dev)
+        if draws_fn is not None:
+            draws = draws_fn(draws)
+        got = update_batch_cuda(cfg, st_k, labels, draws)
+        want = update_batch_ref(cfg, st_p, labels, draws)
+        torch.cuda.synchronize()
+        _hh_equal(got, want)
+        st_k, st_p = got[0], want[0]
+        infos.append(got[1])
+    return st_k, infos
+
+
+def _hh_with(state, dev, labels, counts, **scalars):
+    st = state._replace(labels=torch.as_tensor(np.asarray(labels, np.int32)).to(dev),
+                        counts=torch.as_tensor(np.asarray(counts, np.int32)).to(dev))
+    for name, v in scalars.items():
+        st = st._replace(**{name: torch.tensor(v, dtype=getattr(st, name).dtype,
+                                               device=dev)})
+    return st
+
+
+@pytest.mark.parametrize("policy", [0, 1, 2, 3])
+def test_heavy_hitter_kernel_label_duplicated_across_bt(cuda, policy):
+    """A label held at or past B_t is a miss, so an insert below B_t
+    duplicates it; a grow then exposes both copies (the lower one hits),
+    and evicting the lower copy exposes the upper one. Adaptive, capacity
+    16 of 48: slots 16..39 hold labels 0..23 (count 5); labels 0..15 are
+    inserted below (count 1), the window grows B_t to 32, then novel
+    labels evict (the lower copies hold the least counts) and labels
+    0..15 arrive again."""
+    from repro_torch.core import heavy_hitter as hh
+
+    cfg = hh.HHConfig(capacity=16, max_capacity=48, adaptive=True, window=16, b_step=16,
+                      novel_hi=0.5, novel_lo=0.1, admit_prob=1.0, u_max=1.0,
+                      policy=hh.Policy(policy), cms_width=64)
+    labels = np.full(48, -1)
+    labels[16:40] = np.arange(24)
+    counts = np.zeros(48)
+    counts[16:40] = 5
+    st = _hh_with(hh.init(cfg, cuda), cuda, labels, counts)
+    rng = np.random.default_rng(policy)
+    batches = [np.arange(16), np.concatenate([100 + np.arange(8), np.arange(16)]),
+               rng.permutation(np.concatenate([np.arange(24), 200 + np.arange(24)]))]
+    st, infos = _hh_run(cfg, st, batches, cuda, seed=policy)
+    assert int(infos[0]["admitted"].sum()) == 16            # the duplicates went in
+    if policy in (1, 2):   # the least count is the lower copy of label 0, at slot 0
+        assert int(infos[1]["evicted_label"][0]) == 0
+        assert int(infos[1]["slot"][8]) == 16               # label 0 hits its upper copy
+
+
+@pytest.mark.parametrize("policy", [0, 1, 2, 3])
+@pytest.mark.parametrize("kind", ["same_home", "same_residue", "extremes"])
+def test_heavy_hitter_kernel_table_collisions(cuda, policy, kind):
+    """Labels that collide in the kernel's label -> slot table (the same
+    home entry, or the same residue modulo its size), and labels near 0
+    and INT32_MAX: hits, inserts and evictions through long probe chains."""
+    from repro_torch.core import heavy_hitter as hh
+    from repro_torch.kernels.heavy_hitter.heavy_hitter import heavy_hitter_plan, table_home
+
+    cfg = hh.HHConfig(capacity=64, admit_prob=0.5, policy=hh.Policy(policy), cms_width=64)
+    T = heavy_hitter_plan(64, 256 if policy == 3 else 0, gumbel=policy == 0).table
+    if kind == "same_home":
+        pool = list(itertools.islice((x for x in range(1 << 20)
+                                      if table_home(x, T) == T - 1), 100))
+    elif kind == "same_residue":
+        pool = [5 + T * k for k in range(100)]
+    else:
+        pool = list(range(50)) + [2**31 - 1 - k for k in range(50)]
+    rng = np.random.default_rng(policy)
+    batches = [np.asarray(pool)[rng.integers(0, len(pool), 256)] for _ in range(4)]
+    st, _ = _hh_run(cfg, hh.init(cfg, cuda), batches, cuda, seed=policy)
+    assert int(st.total_writes) > 0
+
+
+@pytest.mark.parametrize("option", ["exact", "morris", "gate", "adaptive"])
+@pytest.mark.parametrize("policy", [0, 1, 2, 3])
+def test_heavy_hitter_kernel_one_label_repeated(cuda, policy, option):
+    """One label through a whole batch: one insert, then hits only."""
+    st_cfg = _hh_cfg(policy, option, 4218)
+    rng = np.random.default_rng(policy)
+    st = _hh_state(st_cfg, cuda, rng, fill=0.5)
+    st, infos = _hh_run(st_cfg, st, [np.full(256, 77_777), np.full(300, 77_777)], cuda)
+    assert bool(infos[1]["hit"].all()) or option == "gate"
+
+
+@pytest.mark.parametrize("policy", [0, 1, 2, 3])
+@pytest.mark.parametrize("gate", ["rejects", "admits"])
+def test_heavy_hitter_kernel_full_counter_every_miss(cuda, policy, gate):
+    """A full counter (bmax 4218) fed 256 novel labels: a gate that rejects
+    every miss (every uniform above u_t) and one that admits every miss
+    (u_t = 1), so MIN_EVICT and RANDOM_EVICT evict on no arrival or on
+    every one (SPACE_SAVING always evicts; COUNT_MIN as its sketch says)."""
+    from repro_torch.core import heavy_hitter as hh
+
+    cfg = hh.HHConfig(capacity=4218, admit_prob=0.5 if gate == "rejects" else 1.0,
+                      policy=hh.Policy(policy), cms_width=64)
+    rng = np.random.default_rng(policy)
+    st = _hh_with(hh.init(cfg, cuda), cuda, rng.permutation(10_000)[:4218],
+                  rng.integers(0, 9, 4218))
+
+    def draws_fn(d):
+        if gate == "rejects":
+            d["uniforms"] = 0.75 + 0.25 * d["uniforms"]
+        return d
+
+    novel = 20_000 + np.arange(512)
+    st, infos = _hh_run(cfg, st, [novel[:256], novel[256:]], cuda, draws_fn=draws_fn)
+    evictions = sum(int(i["admitted"].sum()) for i in infos)
+    if policy in (0, 1):
+        assert evictions == (0 if gate == "rejects" else 512)
+    elif policy == 2:
+        assert evictions == 512
+
+
+@pytest.mark.parametrize("bmax", [4218, 8436, 20000])
+@pytest.mark.parametrize("evict", ["none", "every"])
+def test_heavy_hitter_kernel_random_evict_rows(cuda, bmax, evict):
+    """RANDOM_EVICT with no eviction (a counter that never fills: no
+    Gumbel row is read) and with an eviction on every arrival (a full
+    counter, u_t = 1, novel labels: every arrival reads its row; staged
+    through shared memory at 4218 and 8436, read from device memory at
+    20000, where the rows do not fit beside the table)."""
+    from repro_torch.core import heavy_hitter as hh
+
+    cfg = hh.HHConfig(capacity=bmax, admit_prob=1.0, policy=hh.Policy.RANDOM_EVICT)
+    rng = np.random.default_rng(bmax)
+    st = hh.init(cfg, cuda)
+    if evict == "every":
+        st = _hh_with(st, cuda, rng.permutation(4 * bmax)[:bmax], rng.integers(0, 9, bmax))
+        batches = [10 * bmax + np.arange(256 * k, 256 * (k + 1)) for k in range(2)]
+    else:
+        batches = [rng.integers(0, 3 * 256, 256) for _ in range(2)]
+    st, infos = _hh_run(cfg, st, batches, cuda, seed=bmax)
+    assert int(st.total_evictions) == (512 if evict == "every" else 0)
+
+
+@pytest.mark.parametrize("B", [1025, 3000])
+@pytest.mark.parametrize("option", ["exact", "adaptive"])
+@pytest.mark.parametrize("policy", [0, 1, 2, 3])
+def test_heavy_hitter_kernel_batches_past_one_chunk(cuda, policy, option, B):
+    """B past the kernel's 256-arrival chunk: dropped runs that cross a
+    chunk's edge, Gumbel rows staged across chunks."""
+    cfg = _hh_cfg(policy, option, 4218)
+    rng = np.random.default_rng(B + policy)
+    st = _hh_state(cfg, cuda, rng, fill=0.97)
+    lab = _hh_labels(rng, B, cfg.capacity, drop=0.3).numpy()
+    lab[250:270] = -1                       # a dropped run across the first edge
+    _hh_run(cfg, st, [lab, _hh_labels(rng, B, cfg.capacity).numpy()], cuda, seed=B)
+
+
+@pytest.mark.parametrize("policy", [0, 1, 2, 3])
+def test_heavy_hitter_kernel_largest_bmax_the_plan_takes(cuda, policy):
+    """The plan's ceiling (the table at load 0.8 beside the slots): the
+    kernel launches there and equals its loop."""
+    from repro_torch.core import heavy_hitter as hh
+    from repro_torch.kernels.heavy_hitter.heavy_hitter import heavy_hitter_plan, max_bmax
+
+    cells = 4 * 64 if policy == 3 else 0
+    bmax = max_bmax(cells)
+    assert bmax >= 20_000 and heavy_hitter_plan(bmax, cells).table < 1.3 * bmax
+    cfg = hh.HHConfig(capacity=bmax, admit_prob=0.3, policy=hh.Policy(policy), cms_width=64)
+    rng = np.random.default_rng(policy)
+    st = _hh_state(cfg, cuda, rng, fill=0.99)
+    _hh_run(cfg, st, [_hh_labels(rng, 256, bmax).numpy() for _ in range(2)], cuda)
 
 
 def test_async_server_on_card_answers_from_published_snapshots(cuda):

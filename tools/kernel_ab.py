@@ -25,12 +25,19 @@ with ``live=None`` as ``admit.live_none``), ``prefilter`` (the same
 batch update: ``heavy_hitter.main``, MIN_EVICT at bmax 4218 on a batch
 shaped as the main path's, 256 labels of which 26 valid; ``.zipf``,
 MIN_EVICT at capacity 100 on 256 valid Zipf labels over 4218 clusters on
-a filled counter; ``.random``, RANDOM_EVICT at bmax 4218 on 256 valid
-Zipf labels, which reads 4.3 MB of Gumbel draws; each beside its plain
-loop, ``.plain``, timed on the host clock between synchronizes, since it
-is host-bound; a checkout without the kernel times its loop alone, so
-``tools/kernel_ab.py . . --kernel heavy_hitter`` compares the kernel with
-the loop); several may be given. Each
+a filled counter; ``.valid256``, MIN_EVICT at bmax 4218 on 256 valid Zipf
+labels on a counter filled by three such batches; ``.random``,
+RANDOM_EVICT at bmax 4218 on 256 valid Zipf labels (a counter that never
+fills, so no arrival evicts); ``.evict_min`` and ``.evict_random``,
+MIN_EVICT and RANDOM_EVICT at bmax 4218 with u_t = 1 on a full counter fed
+256 novel labels, so every arrival evicts (the minimum, or its Gumbel
+row); each with the wrapper's host ms a call,
+``.host`` (``cuda_ms``'s second number: the same calls with the card
+idle), and beside its plain loop, ``.plain``, timed on the host clock
+between synchronizes, since it is host-bound; a checkout without the
+kernel times its loop alone, so ``tools/kernel_ab.py . . --kernel
+heavy_hitter`` compares the kernel with the loop); several may be
+given. Each
 turn (A B B A, twice) is a fresh process that imports that checkout's
 ``chip_smoke.py`` (and with it that checkout's
 ``src/repro_torch``), builds the kernels from its sources into the
@@ -58,6 +65,7 @@ import chip_smoke as cs
 from repro_torch.kernels.common import l2_normalize
 g = torch.Generator(device="cuda"); g.manual_seed(0)
 host_fns = {{}}   # host-bound calls, timed on the host clock
+host_too = set()   # kernels whose wrapper's host ms a call is reported too
 
 
 def host_ms(fn, iters=2):
@@ -159,17 +167,26 @@ lab = torch.full((cs.BATCH,), -1, dtype=torch.int32, device="cuda")
 lab[torch.randperm(cs.BATCH, generator=g, device="cuda")[:26]] = zipf(26)
 cases["main"] = (cfg, hh.init(cfg, "cuda"), lab)
 for name, cfg in (("zipf", hh.HHConfig(capacity=100)),
+                  ("valid256", hh.HHConfig(capacity=4218)),
                   ("random", hh.HHConfig(capacity=4218, policy=hh.Policy.RANDOM_EVICT))):
     st = hh.init(cfg, "cuda")
     for _ in range(3):   # fill the counter
         st, _ = plain_update(cfg, st, zipf(cs.BATCH), hh.draw(cfg, cs.BATCH, g, "cuda"))
     cases[name] = (cfg, st, zipf(cs.BATCH))
 fns = {}
+for name, policy in (("evict_min", hh.Policy.MIN_EVICT),
+                     ("evict_random", hh.Policy.RANDOM_EVICT)):
+    cfg = hh.HHConfig(capacity=4218, admit_prob=1.0, policy=policy)
+    full = torch.from_numpy(rng.permutation(4 * 4218)[:4218].astype(np.int32)).cuda()
+    counts = torch.from_numpy(rng.integers(0, 9, 4218).astype(np.int32)).cuda()
+    cases[name] = (cfg, hh.init(cfg, "cuda")._replace(labels=full, counts=counts),
+                   torch.arange(50_000, 50_000 + cs.BATCH, dtype=torch.int32, device="cuda"))
 for name, (cfg, st, lab) in cases.items():
     dr = hh.draw(cfg, cs.BATCH, g, "cuda")
     if update_batch_cuda is not None:
         fns[f"heavy_hitter.{name}"] = (lambda cfg=cfg, st=st, lab=lab, dr=dr:
                                        update_batch_cuda(cfg, st, lab, dr))
+        host_too.add(f"heavy_hitter.{name}")
     host_fns[f"heavy_hitter.{name}.plain"] = (lambda cfg=cfg, st=st, lab=lab, dr=dr:
                                               plain_update(cfg, st, lab, dr))
 """,
@@ -197,7 +214,10 @@ for label, B, S in (("bag.p99", 512, 50), ("bag.bulk", 262_144, 50)):
 }
 TIME = r"""
 for name, fn in fns.items():
-    out[name] = sorted(cs.cuda_ms(fn)[0] for _ in range(5))[2]
+    runs = sorted(cs.cuda_ms(fn) for _ in range(5))
+    out[name] = runs[2][0]
+    if name in host_too:
+        out[name + ".host"] = sorted(r[1] for r in runs)[2]
 for name, fn in host_fns.items():
     out[name] = host_ms(fn)
 host_fns = {}
