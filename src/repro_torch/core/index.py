@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.common import l2_normalize
+from repro_torch.kernels.common import l2_normalize, l2_normalize_queries
 from repro_torch.kernels.mips.ops import mips_topk
 
 
@@ -54,7 +54,7 @@ def upsert(cfg: IndexConfig, index: FlatIndex, rows: torch.Tensor,
 
 def search(cfg: IndexConfig, index: FlatIndex, queries: torch.Tensor, k: int):
     """Top-k MIPS over valid rows: (scores [Q, k], rows [Q, k], ids [Q, k])."""
-    q = l2_normalize(queries) if cfg.normalize else \
+    q = l2_normalize_queries(queries) if cfg.normalize else \
         queries.to(torch.float32).contiguous()
     scores, rows = mips_topk(q, index.vectors, index.valid, k)
     return scores, rows, index.ids[rows.to(torch.int64)]

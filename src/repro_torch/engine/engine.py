@@ -138,6 +138,18 @@ def snapshot_query_impl(cfg: "pipeline.PipelineConfig", index, route_labels,
         scores, rows, ids = index_lib.search(cfg.index, index, q, k)
         return (scores, rows, ids,
                 route_labels[rows.to(torch.int64)])
+    return routed_query(cfg, index, route_labels, store, q, k, nprobe,
+                        depth)[:4]
+
+
+def routed_query(cfg: "pipeline.PipelineConfig", index, route_labels, store,
+                 q: torch.Tensor, k: int, nprobe: int,
+                 depth: int | None = None):
+    """The two-stage query (the ``serve`` kernel, then the decode) over
+    any ring source addressed by ``route_labels``: the store, or a hot
+    tier with its remapped labels. Returns (scores, rows, doc_ids,
+    clusters, routes [Q, nprobe]) — the routes the answer was served
+    through."""
     store_depth = cfg.store_depth
     depth_eff = store_depth if depth is None else min(depth, store_depth)
     assert store_depth > 0, "two_stage requires store_depth > 0"
@@ -146,7 +158,7 @@ def snapshot_query_impl(cfg: "pipeline.PipelineConfig", index, route_labels,
                                             store, q, k, nprobe,
                                             depth=depth_eff)
     return stages.decode_rerank(store.ids, routes, scores, pos, depth_eff,
-                                nprobe, store_depth=store_depth)
+                                nprobe, store_depth=store_depth) + (routes,)
 
 
 def query_impl(cfg: "pipeline.PipelineConfig", state: "pipeline.PipelineState",
@@ -242,12 +254,23 @@ class Engine:
             }
         self._pub_sig = sig
 
+    # ------------------------------------------------------------ durability
+    # PipelineState leaves index clusters on their leading axis — the axis
+    # ``serve.durability`` slices dirty-cluster delta checkpoints on.
+    ckpt_cluster_axis = 0
+
     def checkpoint_state(self):
-        """The state the durability layer checkpoints."""
+        """The tree the durability layer checkpoints; doubles as the
+        abstract tree (structure, dtypes, devices) recovery restores
+        into."""
         return self.state
 
     def restore_state(self, state) -> None:
-        """Adopt a recovered state; the next publish reports mode "full"."""
+        """Adopt a recovered state, as ``train.checkpoint.unflatten_arrays``
+        rebuilds it against ``checkpoint_state()``: on the engine's device,
+        the generator included. The publish baseline resets, so the next
+        publication reports mode "full" with ``dirty=None`` — the event
+        the serving caches treat as clear-everything."""
         self.state = state
         self._pub_sig = None
         self.last_publish_info = None

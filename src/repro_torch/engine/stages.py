@@ -23,8 +23,9 @@ Stage map (two-stage query):
           ``serve_topk``
 
 The staged forms are the decomposition the fused kernels are held
-against; an engine composes the fused ones. The sharded and hot-set
-stages wait for their slices.
+against; an engine composes the fused ones. ``gather_rings`` pins the
+hot-set serving tier (``serve.hotset``); the sharded stages wait for
+their slice.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ import torch
 
 from repro_torch.core import clustering, heavy_hitter, index as index_lib, prefilter
 from repro_torch.kernels.admit.ops import admit as admit_op
-from repro_torch.kernels.common import NEG_INF, host_to_device, l2_normalize
+from repro_torch.kernels.common import (NEG_INF, host_to_device,
+                                        l2_normalize_queries)
 from repro_torch.kernels.rerank.ops import rerank_topk
 from repro_torch.kernels.serve.ops import serve_topk as serve_topk_op
 from repro_torch.store import docstore
@@ -198,9 +200,48 @@ def route(index_cfg: index_lib.IndexConfig, index, route_labels,
     """Stage 1: the prototype index routes each query to its top-``nprobe``
     clusters. Returns routes [Q, nprobe] i32 cluster ids (-1 = no route)."""
     sc1, slots, _ = index_lib.search(index_cfg, index, q, nprobe)
+    return _route_ids(sc1, slots, route_labels)
+
+
+def _route_ids(sc1, slots, route_labels) -> torch.Tensor:
     labels = route_labels[slots.to(torch.int64)]
     return torch.where((sc1 > NEG_INF / 2) & (labels >= 0), labels,
                        -1).to(torch.int32)
+
+
+def route_witnessed(index_cfg: index_lib.IndexConfig, index, route_labels,
+                    q: torch.Tensor, nprobe: int):
+    """Stage 1 as the serving cache's witness, in one ``mips`` launch:
+    (routes [Q, nprobe] i32 as ``route`` gives them, clear [Q] bool), both
+    on the host.
+
+    The ``serve`` kernel routes by its own dot products, summed in
+    another order than ``mips``'s, so at a near-tie the two can order the
+    routes differently. ``clear`` marks the queries where no summation
+    order can: each of the top ``nprobe`` + 1 scores lies more than 4 e
+    above the next, where e = gamma_d |q| max|v| bounds how far any fp32
+    dot product of d terms lies from the exact one (gamma_d = d u /
+    (1 - d u), u = 2^-24), so two computations of one score differ by at
+    most 2 e and a pair's order survives a gap above 4 e. A normalizing
+    index holds unit or zero rows and routes unit queries, whose norms
+    ``l2_normalize`` keeps within 1 + 2 gamma_d + 4 u."""
+    k = min(nprobe + 1, index.vectors.shape[0])
+    sc, slots, _ = index_lib.search(index_cfg, index, q, k)
+    routes = _route_ids(sc[:, :nprobe], slots[:, :nprobe],
+                        route_labels).cpu().numpy()
+    sc = sc.cpu().numpy().astype(np.float64)
+    d = q.shape[1]
+    u = 2.0 ** -24
+    gamma = d * u / (1 - d * u)
+    if index_cfg.normalize:
+        qv = np.full((q.shape[0],), (1 + 2 * gamma + 4 * u) ** 2)
+    else:
+        qv = (np.linalg.norm(q.cpu().numpy().astype(np.float64), axis=1)
+              * float(torch.linalg.vector_norm(index.vectors, dim=1).max()))
+    # the factor of (1 + 2^-10) covers the rounding of the bound itself
+    wide = (sc[:, :-1] - sc[:, 1:]) > 4 * (1 + 2.0 ** -10) * gamma * qv[:, None]
+    clear = np.all(wide | (sc[:, :-1] <= NEG_INF / 2), axis=1)
+    return routes, clear
 
 
 def slice_rings(embs, live, scales, depth: int | None):
@@ -232,13 +273,32 @@ def serve_topk(index_cfg: index_lib.IndexConfig, index, route_labels, store,
     ``depth`` slots; None = full), dequant-rerank, top-``k``. Returns
     (scores [Q, k] desc, pos [Q, k] = j*depth+slot, routes [Q, nprobe]),
     -1 for dead entries."""
-    qn = l2_normalize(q)
+    qn = l2_normalize_queries(q)
     qr = qn if index_cfg.normalize else q.to(torch.float32).contiguous()
     scales = store.scales if store.embs.dtype == torch.int8 else None
     embs, live, scales = slice_rings(store.embs, docstore.live_mask(store),
                                      scales, depth)
     return serve_topk_op(qr, qn, index.vectors, index.valid, route_labels,
                          embs, live, k, nprobe, scales=scales)
+
+
+def gather_rings(store, clusters: torch.Tensor, valid: torch.Tensor):
+    """Gather a row-subset of a doc store into a compact contiguous block —
+    the hot-set serving tier's pin step.
+
+    ``clusters`` [H] i32/i64 store rows to pin (padding rows may repeat a
+    real cluster); ``valid`` [H] bool marks real entries. The gathered
+    rows are exact copies of the source rings (same dtype, same scales,
+    same stamps), so a rerank over the tier is bit-identical to one over
+    the full store; padded rows get all-dead ids (-1), so ``live_mask``
+    kills them and they can never surface a document.
+
+    Returns a ``DocStore`` of shape ``[H, depth, ...]`` addressed by tier
+    slot — callers route into it with a remapped ``route_labels`` (true
+    cluster id -> tier slot, -1 for unpinned)."""
+    idx = clusters.to(torch.int64)
+    tier = docstore.DocStore(*(t.index_select(0, idx) for t in store))
+    return tier._replace(ids=torch.where(valid[:, None], tier.ids, -1))
 
 
 def decode_rerank(store_ids, routes, scores, pos, depth: int, nprobe: int,

@@ -52,6 +52,49 @@ def stable_topk(s: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+QUERY_BLOCK = 64   # rows one query-side product or reduction takes at a time
+
+
+def in_query_blocks(fn, q: torch.Tensor, *per_query: torch.Tensor):
+    """``fn(q, *per_query)`` over QUERY_BLOCK rows of their leading axis at
+    a time (zero rows pad the last block), the results stacked back.
+
+    How a reduction or a matmul sums a row depends on how many rows it
+    takes, on a card and on the CPU alike, so a query's unit vector and
+    scores would change with the queries that share its call. At one
+    fixed shape they do not (row i of a block does not see the others),
+    which the serving cache relies on: a sub-batch answers each query as
+    the whole batch does."""
+    if q.shape[0] == QUERY_BLOCK:
+        return fn(q, *per_query)
+    out = []
+    for lo in range(0, max(q.shape[0], 1), QUERY_BLOCK):
+        blk = [t[lo:lo + QUERY_BLOCK] for t in (q, *per_query)]
+        m = blk[0].shape[0]
+        if m < QUERY_BLOCK:
+            blk = [torch.cat([t, t.new_zeros((QUERY_BLOCK - m, *t.shape[1:]))])
+                   for t in blk]
+        out.append(fn(*blk)[:m])
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def rowwise_dots(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``q [Q, d] . rows [..., N, d]`` -> [Q, N] fp32 scores (``rows``
+    [N, d] shared, or [Q, N, d] one block per query), the plain versions'
+    inner products, in query blocks (``in_query_blocks``)."""
+    q32, rows32 = q.to(torch.float32), rows.to(torch.float32)
+    if rows32.dim() == 2:
+        return in_query_blocks(lambda qb: qb @ rows32.T, q32)
+    return in_query_blocks(lambda qb, rb: torch.einsum("qd,qnd->qn", qb, rb),
+                           q32, rows32)
+
+
+def l2_normalize_queries(q: torch.Tensor) -> torch.Tensor:
+    """``l2_normalize`` of query rows, in query blocks
+    (``in_query_blocks``)."""
+    return in_query_blocks(l2_normalize, q)
+
+
 def require_full_fp32() -> None:
     """The reference accumulates every product in full fp32: refuse TF32
     matmuls and turn TF32 off for cuDNN."""

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import NEG_INF, stable_topk
+from repro_torch.kernels.common import NEG_INF, rowwise_dots, stable_topk
 from repro_torch.kernels.counts import COUNTS
 
 
@@ -14,7 +14,7 @@ def mips_topk_ref(q: torch.Tensor, index: torch.Tensor, valid: torch.Tensor,
     descending, ids [Q, k] i32); invalid rows score NEG_INF; ties go to
     the lowest row."""
     COUNTS["mips"].plain += 1
-    s = q.to(torch.float32) @ index.to(torch.float32).T
+    s = rowwise_dots(q, index)   # a query's scores do not depend on Q
     s = torch.where(valid[None, :], s, NEG_INF)
     scores, ids = stable_topk(s, k)
     return scores, ids.to(torch.int32)

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import NEG_INF, stable_topk
+from repro_torch.kernels.common import NEG_INF, rowwise_dots, stable_topk
 from repro_torch.kernels.counts import COUNTS
 
 
@@ -30,9 +30,9 @@ def routed_topk(q: torch.Tensor, embs: torch.Tensor, live: torch.Tensor,
     Q = q.shape[0]
     C = embs.shape[0]
     r = torch.clamp(routes, 0, C - 1).to(torch.int64)
-    cand = embs[r]                                        # [Q, P, depth, d]
-    s = torch.einsum("qd,qpsd->qps", q.to(torch.float32),
-                     cand.to(torch.float32))
+    depth = embs.shape[1]
+    cand = embs[r].reshape(Q, -1, embs.shape[2])          # [Q, P*depth, d]
+    s = rowwise_dots(q, cand).reshape(Q, -1, depth)       # [Q, P, depth]
     if scales is not None:
         s = s * scales[r].to(torch.float32)
     ok = live[r] & (routes >= 0)[..., None]

@@ -38,10 +38,35 @@ reads them. Neither path synchronizes the device: ingest's host reads
 (the ring write's row pick, publish's change signature) wait on the
 ingest stream only. On the CPU the same class runs without streams.
 
-Not yet ported (ROADMAP A6): the result cache and hot set
-(``ServerConfig.cache_entries``/``hotset`` raise ``NotImplementedError``),
-durability (``AsyncServer(durability=...)`` raises), fault points and the
-metrics/trace spans of ``obs``.
+The hot-set serving cache (``ServerConfig.cache_entries``/``hotset``,
+two-stage ``AsyncServer`` only): a snapshot-versioned exact result cache
+(``serve.result_cache``) and a query-side heavy-hitter hot set whose hot
+clusters are pinned into a compact ring tier (``serve.hotset``). A cached
+flush answers route-free exact hits first, then runs ONE route pass over
+the pending queries (``stages.route_witnessed``: the ``mips`` kernel)
+that verifies survivors of a publish, tests tier coverage and feeds the
+query-side counter (the ``heavy_hitter`` kernel), then serves hot misses
+over the tier and cold misses over the snapshot (both the ``serve``
+kernel). The serve kernel answers a query the same whatever else shares
+its launch, so sub-batches are served as they are: the reference's
+power-of-two padding (``_pad_pow2``) only bounds its jit shapes. The two
+kernels sum a route score in other orders, so at a near-tie they can
+order a query's routes differently. Hence every served row's own routes
+are held against the route pass's (where they differ a hot row is served
+again from the snapshot and no row is cached), and a publish's survivor
+is verified only where the pass's route scores are too far apart for any
+summation order to reorder them (elsewhere it misses). A cached or tier
+answer is thus always the snapshot's own.
+
+Durability (``AsyncServer(durability=DurabilityConfig(...))``): every
+batch is journaled (append + fsync) under the producer lock before it is
+enqueued, the ingest thread checkpoints on ``checkpoint_every`` applied
+batches (the host copies on the ingest stream, the write on a thread of
+its own) and at ``close``, and the constructor recovers — restores the
+checkpoint chain and replays the journal tail on the ingest stream —
+before its first publish. Named fault points (``testing.faults``:
+``ingest.enqueue``, ``ingest.admit``, ``publish``) and the ``obs`` spans
+and metrics sit where the reference has them.
 """
 from __future__ import annotations
 
@@ -57,14 +82,18 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import pipeline
-from repro_torch.engine.engine import Engine, ServingSnapshot
+from repro_torch.engine import stages
+from repro_torch.engine.engine import (Engine, ServingSnapshot, _resolve_plan,
+                                       routed_query)
 from repro_torch.engine.plan import PlanSpace
-from repro_torch.serve.durability import classify_error
+from repro_torch.serve.durability import (DurabilityConfig, DurableIngest,
+                                          classify_error)
 from repro_torch.serve.executor import DegradationController, PriorityDispatcher
-
-NOT_PORTED = ("arrives with the rest of the port's serving runtime (ROADMAP A6: "
-              "result cache, hot set, durability, obs)")
+from repro_torch.serve.hotset import HotSet
+from repro_torch.serve.result_cache import ResultCache
+from repro_torch.testing import faults
 
 
 @dataclasses.dataclass
@@ -86,9 +115,21 @@ class ServerConfig:
     recover_after: int = 4      # calm flushes required to step back up
     min_depth: int = 1          # floor of the depth ladder
     min_nprobe: int = 1         # floor of the nprobe ladder
-    # ---- the hot-set serving cache: not yet ported (raise) ----
-    cache_entries: int = 0
-    hotset: bool = False
+    # ---- hot-set serving cache (two_stage + AsyncServer only) ----
+    # cache_entries > 0 arms the snapshot-versioned exact result cache
+    # (``serve.result_cache``): repeat queries answer from recorded exact
+    # results, delta publications invalidate only entries routed through
+    # dirty clusters. hotset=True arms the query-side heavy-hitter hot
+    # set (``serve.hotset``): the hot route sets' clusters pin into a
+    # compact fast tier served through the serve kernel. Both are
+    # bit-identical to uncached serving whenever they answer.
+    cache_entries: int = 0      # result-cache capacity (0 = disabled)
+    hotset: bool = False        # pinned hot-tier serving
+    pin_budget_mb: float = 8.0  # hot-tier budget, charged against
+    #                             state_memory_bytes (pow2-floored rows)
+    hotset_capacity: int = 32   # HH tracker slots (route-set signatures)
+    hotset_refresh: int = 16    # flushes between hot-set reselections
+    hotset_min_count: int = 2   # min tracked count before a set pins
 
 
 class QueryFrontend:
@@ -101,10 +142,6 @@ class QueryFrontend:
 
     def __init__(self, cfg: "pipeline.PipelineConfig", server_cfg: ServerConfig,
                  embed_fn: Callable[[list], np.ndarray] | None = None):
-        for name, on in (("cache_entries", server_cfg.cache_entries),
-                         ("hotset", server_cfg.hotset)):
-            if on:
-                raise NotImplementedError(f"ServerConfig.{name} {NOT_PORTED}")
         if server_cfg.two_stage:  # fail at construction, not first flush
             assert cfg.store_depth > 0, \
                 "two_stage serving needs a PipelineConfig with store_depth > 0"
@@ -112,6 +149,10 @@ class QueryFrontend:
                 "topk must be <= nprobe * store_depth"
             assert server_cfg.nprobe <= cfg.hh.bmax(), \
                 "nprobe must be <= the prototype index capacity"
+        assert not (server_cfg.cache_entries or server_cfg.hotset) \
+            or server_cfg.two_stage, \
+            "the hot-set serving cache requires two_stage=True (cached " \
+            "answers record routed clusters)"
         self.cfg = cfg
         self.scfg = server_cfg
         self.embed_fn = embed_fn
@@ -189,6 +230,15 @@ class QueryFrontend:
             depth = len(self._pending)
         plan = self._choose_plan(depth)
         degraded = plan is not None and (plan.shed or plan != self._full_plan)
+        # telemetry is fetched ONCE per batch; both are None when disabled
+        # and every obs branch below is skipped — the hot path stays free
+        reg, tr = obs.metrics(), obs.tracer()
+        plan_args = ({} if plan is None else
+                     {"plan_nprobe": plan.nprobe, "plan_depth": plan.depth,
+                      "degraded": degraded, "shed": plan.shed})
+        fspan = (tr.span("flush", batch=len(batch), queue_depth=depth,
+                         **plan_args)
+                 if tr is not None else None)
         t0 = time.perf_counter()
         if plan is not None and plan.shed:
             k = self.scfg.topk
@@ -197,7 +247,14 @@ class QueryFrontend:
             labels = np.full((len(batch), k), -1, np.int32)
         else:
             raw = [b["q"] for b in batch]
-            q = self.embed_fn(raw) if self.embed_fn is not None else np.stack(raw)
+            if self.embed_fn is not None:
+                if tr is not None:
+                    with tr.span("embed", batch=len(batch)):
+                        q = self.embed_fn(raw)
+                else:
+                    q = self.embed_fn(raw)
+            else:
+                q = np.stack(raw)
             scores, _, ids, labels = self._query_batch(
                 np.asarray(q, np.float32), plan)
             # one host transfer per output
@@ -226,6 +283,41 @@ class QueryFrontend:
                 self.stats["answer_latency_ms"].append(
                     o["enqueue_to_answer_ms"])
             self._lat_sum += lat
+        if reg is not None:
+            reg.counter("serve_queries_total").inc(len(batch))
+            reg.counter("serve_batches_total").inc()
+            reg.gauge("serve_queue_depth").set(depth)
+            reg.gauge("serve_batch_fill").set(
+                len(batch) / self.scfg.max_batch)
+            reg.histogram("serve_batch_latency_ms", unit="ms").observe(lat)
+            h = reg.histogram("serve_query_e2e_ms", unit="ms")
+            for o in out:
+                h.observe(o["enqueue_to_answer_ms"])
+            if plan is not None:
+                # serve.plan telemetry: what effort was actually chosen
+                reg.histogram("serve_plan_nprobe", lo=0.5,
+                              hi=2048.0).observe(float(plan.nprobe))
+                reg.histogram("serve_plan_depth", lo=0.5,
+                              hi=2048.0).observe(float(plan.depth))
+                reg.gauge("serve_degradation_level").set(
+                    self._controller.level
+                    if self._controller is not None else 0)
+                if plan.shed:
+                    reg.counter("serve_shed_total").inc(len(batch))
+        if tr is not None:
+            fspan.args.update(meta if plan is None else
+                              {k: v for k, v in meta.items() if k != "plan"})
+            fspan.end()
+            now = tr.now_us()
+            # per-query submit->answer spans, correlated to the snapshot
+            # they were answered from (and the plan that served them)
+            for o in out:
+                e2e_us = o["enqueue_to_answer_ms"] * 1e3
+                tr.complete("query", now - e2e_us, e2e_us, cat="query",
+                            ticket=o["ticket"],
+                            **{k: v for k, v in o.items()
+                               if k == "snapshot_version"},
+                            **plan_args)
         return out
 
     def drain(self) -> list[dict]:
@@ -241,8 +333,9 @@ class QueryFrontend:
         """Running mean over all batches; percentiles over the bounded
         windows — per-batch dispatch latency (``p*_ms``) and per-query
         enqueue->answer latency (``answer_p*_ms``). The schema is the
-        reference's and constant; the serving-cache keys are 0 (no cache
-        is ported yet)."""
+        reference's and constant for the life of the server, the
+        serving-cache keys (``cache_hit_rate``/``pinned_bytes``) included:
+        0 when caching is disabled or nothing has been served yet."""
         with self._lock:
             window = np.asarray(self.stats["query_latency_ms"], np.float64)
             answers = np.asarray(self.stats["answer_latency_ms"], np.float64)
@@ -252,6 +345,8 @@ class QueryFrontend:
         def pct(a, q):
             return float(np.percentile(a, q)) if a.size else 0.0
 
+        cache = getattr(self, "_result_cache", None)
+        hotset = getattr(self, "_hotset", None)
         return {
             "batches": n,
             "mean_ms": lat_sum / n if n else 0.0,
@@ -261,9 +356,39 @@ class QueryFrontend:
             "answer_p90_ms": pct(answers, 90),
             "answer_p99_ms": pct(answers, 99),
             "answer_window": int(answers.size),
-            "cache_hit_rate": 0.0,
-            "pinned_bytes": 0,
+            "cache_hit_rate": (cache.stats()["hit_rate"]
+                               if cache is not None else 0.0),
+            "pinned_bytes": (hotset.pinned_bytes
+                             if hotset is not None else 0),
         }
+
+    def cache_stats(self) -> dict:
+        """Serving-cache observability with a consistent zero-safe schema
+        whether or not either cache level is enabled (and at any point in
+        the server lifecycle — empty windows report zeros, never raise)."""
+        cache = getattr(self, "_result_cache", None)
+        hotset = getattr(self, "_hotset", None)
+        out = {
+            "enabled": cache is not None or hotset is not None,
+            "hits": 0, "misses": 0, "hit_rate": 0.0, "entries": 0,
+            "invalidated": 0, "cleared": 0, "rekeyed": 0,
+            "evicted_lru": 0, "hit_staleness": 0.0,
+            "pinned_bytes": 0, "pinned_clusters": 0, "hot_served": 0,
+            "tier_rebuilds": 0,
+        }
+        if cache is not None:
+            s = cache.stats()
+            for key in ("hits", "misses", "hit_rate", "entries",
+                        "invalidated", "cleared", "rekeyed", "evicted_lru",
+                        "hit_staleness"):
+                out[key] = s[key]
+        if hotset is not None:
+            h = hotset.stats()
+            out["pinned_bytes"] = h["pinned_bytes"]
+            out["pinned_clusters"] = h["pinned_clusters"]
+            out["hot_served"] = h["hot_served"]
+            out["tier_rebuilds"] = h["rebuilds"]
+        return out
 
     def _query_batch(self, q: np.ndarray, plan=None):
         raise NotImplementedError
@@ -299,6 +424,10 @@ class AsyncServer(QueryFrontend):
     batch would make a flush wait out that batch's host sync. So a queued
     flush goes ahead of the next ingest step, and no flush waits for an
     ingest batch to finish.
+
+    ``durability`` (a ``DurabilityConfig``) arms the write-ahead journal,
+    cadence checkpoints and constructor-time recovery; with it armed
+    ``ingest`` takes no ``draws`` (the journal cannot replay them).
     """
 
     _STOP = object()
@@ -306,11 +435,11 @@ class AsyncServer(QueryFrontend):
     def __init__(self, cfg: "pipeline.PipelineConfig", server_cfg: ServerConfig,
                  seed: int | None = None, warmup=None, embed_fn=None,
                  engine: Engine | None = None, publish_every: int = 4,
-                 queue_max: int = 64, durability=None, max_restarts: int = 8,
-                 backoff_base_s: float = 0.01, backoff_max_s: float = 1.0,
-                 supervise_seed: int = 0, device=None):
-        if durability is not None:
-            raise NotImplementedError(f"AsyncServer(durability=...) {NOT_PORTED}")
+                 queue_max: int = 64,
+                 durability: DurabilityConfig | None = None,
+                 max_restarts: int = 8, backoff_base_s: float = 0.01,
+                 backoff_max_s: float = 1.0, supervise_seed: int = 0,
+                 device=None):
         super().__init__(cfg, server_cfg, embed_fn)
         if engine is not None:
             assert engine.cfg == cfg, "engine.cfg disagrees with cfg"
@@ -329,22 +458,53 @@ class AsyncServer(QueryFrontend):
             self._stream.wait_stream(torch.cuda.current_stream(engine.device))
             for t in _tensors(engine.state):
                 t.record_stream(self._stream)
-        # ---- supervision ----
+        # ---- supervision + durability (crash-safe streaming) ----
         self.max_restarts = max_restarts
         self._backoff = (backoff_base_s, backoff_max_s)
         self._jitter = random.Random(supervise_seed)
         self.restarts = 0
         self.quarantined: list[int] = []   # poison-batch seqs (never silent)
         self._attempts: dict[int, int] = {}
-        self._quarantine_after = 3
+        self._quarantine_after = (durability.quarantine_after
+                                  if durability is not None else 3)
         self._error_seq: int | None = None
         self._inflight = None              # ingest-thread resume state
         self._inflight_stage = "done"
-        self._next_seq = 0
-        self._ingest_lock = threading.Lock()  # seq order == queue order
+        self._next_seq = 0                 # non-durable seq counter
+        self._ingest_lock = threading.Lock()  # journal order == queue order
+        self.recovery_report: dict | None = None
         self._docs_ingested = 0             # ingest-thread private
+        self._durable = (DurableIngest(
+            durability, cluster_axis=getattr(engine, "ckpt_cluster_axis", 0))
+            if durability is not None else None)
+        if self._durable is not None and self._durable.needs_recovery():
+            self._recover()  # before the first publish: the initial
+            #                  snapshot already serves the recovered stream
+        # ---- hot-set serving cache (built BEFORE the first publish so
+        # no publication can ever race their creation) ----
+        self._result_cache = (ResultCache(server_cfg.cache_entries)
+                              if server_cfg.cache_entries > 0 else None)
+        self._hotset = (HotSet(
+            cfg, max_batch=server_cfg.max_batch,
+            pin_budget_bytes=int(server_cfg.pin_budget_mb * 2**20),
+            capacity=server_cfg.hotset_capacity,
+            refresh_every=server_cfg.hotset_refresh,
+            min_count=server_cfg.hotset_min_count, device=engine.device)
+            if server_cfg.hotset else None)
+        # rows whose served routes differed from the route pass's (see
+        # the module docstring); 0 wherever the two kernels agree
+        self.route_mismatches = 0
+        # pending rows whose route order a near-tie left open, so that
+        # the route pass could not verify a cached survivor
+        self.route_near_ties = 0
+        # publish events (version, dirty-cluster array) cross from the
+        # ingest thread to the query path through this deque (GIL-atomic
+        # append/popleft); the query path applies them IN ORDER up to the
+        # snapshot version it pinned, so invalidation can neither run
+        # ahead of the snapshot a flush serves from nor miss a publish.
+        self._pub_events: collections.deque = collections.deque()
         self._published = self._publish_now()   # queries never see None
-        self._published_docs = 0
+        self._published_docs = self._docs_ingested  # recovery is published
         self._since_publish = 0
         self._error: BaseException | None = None
         self._queue: queue.Queue = queue.Queue(maxsize=max(1, queue_max))
@@ -378,11 +538,17 @@ class AsyncServer(QueryFrontend):
         """Supervisor: runs the ingest loop, classifies failures, and
         restarts it with exponential backoff + seeded jitter within a
         bounded budget. Fatal errors (and an exhausted budget) surface on
-        the caller thread with the failing batch's sequence number."""
+        the caller thread with the failing batch's sequence number; an
+        :class:`~repro_torch.testing.faults.InjectedCrash` escapes
+        supervision entirely — the thread dies like a SIGKILL'd process,
+        with no final publish/checkpoint/truncation, and only recovery
+        from the durable state brings the stream back."""
         while True:
             try:
                 self._ingest_run()
                 return
+            except faults.InjectedCrash:
+                return  # simulated process death: no finalization at all
             except BaseException as e:  # surfaced by _check, never dropped
                 seq = (self._inflight[0]
                        if isinstance(self._inflight, tuple) else None)
@@ -392,6 +558,9 @@ class AsyncServer(QueryFrontend):
                     self._error = e  # set LAST: _check reads seq after it
                     return
                 self.restarts += 1
+                reg = obs.metrics()
+                if reg is not None:
+                    reg.counter("ingest_restarts_total").inc()
                 base, cap = self._backoff
                 delay = min(cap, base * (2 ** (self.restarts - 1)))
                 time.sleep(delay * (1.0 + 0.25 * self._jitter.random()))
@@ -399,10 +568,10 @@ class AsyncServer(QueryFrontend):
 
     def _ingest_run(self):
         """One supervised incarnation of the ingest loop. Per-batch work
-        is a resumable stage machine (admit -> publish): after a
-        mid-batch failure the restart resumes at the failing stage, so an
-        applied batch is never ingested twice and a failed cadence
-        publish is retried at once."""
+        is a resumable stage machine (admit -> publish -> checkpoint):
+        after a mid-batch failure the restart resumes at the failing
+        stage, so an applied batch is never ingested twice and a failed
+        cadence publish/checkpoint is retried at once."""
         while True:
             item = self._inflight
             if item is None:
@@ -411,6 +580,8 @@ class AsyncServer(QueryFrontend):
                 self._inflight_stage = "admit"
             if item is self._STOP:
                 self._publish()
+                if self._durable is not None:  # tail checkpoint + truncate
+                    self._checkpoint(blocking=True)
                 self._inflight = None
                 return
             if isinstance(item, threading.Event):  # sync barrier
@@ -420,42 +591,142 @@ class AsyncServer(QueryFrontend):
                 continue
             seq, x, ids, draws = item
             if self._inflight_stage == "admit":
+                faults.fault_point("ingest.admit", seq=seq)
+                tr = obs.tracer()
+                span = (tr.span("ingest.admit", cat="ingest", seq=seq,
+                                batch=int(np.asarray(ids).size))
+                        if tr is not None else None)
                 with self._dispatch.ingest():   # queued flushes go first
                     pass
                 with self._on_ingest_stream():
                     self.engine.ingest(x, ids, draws)
+                if span is not None:  # dispatch time (execution is async)
+                    span.end()
                 self._docs_ingested += int(np.sum(np.asarray(ids) >= 0))
                 self._since_publish += 1
+                if self._durable is not None:
+                    self._durable.batch_applied(seq)
                 self._attempts.pop(seq, None)
                 self._inflight_stage = "publish"
             if self._inflight_stage == "publish":
                 if self._since_publish >= self.publish_every:
                     self._publish()
+                self._inflight_stage = "checkpoint"
+            if self._inflight_stage == "checkpoint":
+                if (self._durable is not None
+                        and self._durable.should_checkpoint()):
+                    self._checkpoint()
                 self._inflight = None
                 self._inflight_stage = "done"
 
     def _on_restart(self, seq: int | None):
-        """Post-backoff restart hygiene: a batch that burned its retry
-        budget at the admit stage is quarantined — dropped from the retry
-        loop only, counted and remembered."""
+        """Post-backoff restart hygiene: poison-batch quarantine and
+        serving-cache coherence."""
+        # a batch that burned its whole per-batch retry budget at the
+        # admit stage is quarantined: dropped from the retry loop ONLY —
+        # counted, logged, and remembered so recovery replay skips it too
         if seq is not None and self._inflight_stage == "admit":
             n = self._attempts.get(seq, 0) + 1
             self._attempts[seq] = n
             if n >= self._quarantine_after:
                 self.quarantined.append(seq)
+                if self._durable is not None:
+                    self._durable.quarantined.append(seq)
                 self._attempts.pop(seq, None)
                 self._inflight = None
                 self._inflight_stage = "done"
+                reg = obs.metrics()
+                if reg is not None:
+                    reg.counter("ingest_quarantined_total").inc()
+        # cache coherence: clear the result cache at the pinned version
+        # and mark the hot tier stale — nothing a failed attempt might
+        # have half-published can survive the restart
+        if self._result_cache is not None or self._hotset is not None:
+            self._pub_events.append((self._snapshot.version, None))
+
+    def _checkpoint(self, blocking: bool = False):
+        """Cadence checkpoint from the ingest thread: the host copies
+        queue on the ingest stream, the write runs on the store's own
+        thread (the journal truncates from its durable callback). A prior
+        write failure was counted by the store and left the dirty
+        baseline untouched — this save simply covers it too."""
+        self._durable.ckpt.poll_error()  # counted; cleared for the retry
+        with self._on_ingest_stream():
+            self._durable.checkpoint(
+                self.engine.checkpoint_state(),
+                metadata={"docs_ingested": self._docs_ingested},
+                blocking=blocking)
+
+    def _recover(self):
+        """Constructor-time recovery: restore the newest checkpoint chain
+        and replay the journal tail through the normal ingest path, on
+        the ingest stream — bit-identical to the engine that never
+        crashed (determinism of ingest + batch-boundary checkpoints).
+        Runs before the first publish, so the initial snapshot already
+        serves the recovered stream and every cache starts coherent."""
+        eng = self.engine
+        with self._on_ingest_stream():
+            report = self._durable.recover(
+                eng.checkpoint_state(),
+                lambda x, ids: eng.ingest(x, ids),
+                lambda tree, meta: eng.restore_state(tree))
+        self.recovery_report = report
+        self.quarantined = list(report["quarantined"])
+        docs = report["docs_checkpointed"] + report["docs_replayed"]
+        self._docs_ingested = docs
+        with self._lock:
+            self.stats["docs"] = docs
 
     def _publish(self):
+        faults.fault_point("publish")
         # the doc watermark BEFORE publishing: the snapshot holds at
         # least everything ingested up to here
         docs = self._docs_ingested
+        reg, tr = obs.metrics(), obs.tracer()
+        span = (tr.span("ingest.publish", cat="ingest")
+                if tr is not None else None)
+        t0 = time.perf_counter()
         with self._dispatch.ingest():   # queued flushes go first
             pass
-        self._published = self._publish_now()   # one reference swap
+        pub = self._publish_now()
+        info = self.engine.last_publish_info
+        # the invalidation event is visible BEFORE the snapshot swap: any
+        # flush that pins the new version is guaranteed to find its dirty
+        # set queued (a flush still on the old version leaves it queued —
+        # version-gated application keeps ordering exact either way)
+        if self._result_cache is not None or self._hotset is not None:
+            self._pub_events.append(
+                (pub.snap.version, info.get("dirty") if info else None))
+        self._published = pub        # one reference swap
         self._published_docs = docs
         self._since_publish = 0
+        if reg is None and tr is None:
+            return
+        # publish-time telemetry ONLY: the device-counter fetch below is
+        # the one host transfer metrics add, and it runs here on the
+        # ingest thread and stream — never on the query path
+        pub_ms = (time.perf_counter() - t0) * 1e3
+        lag = self.stats["docs"] - docs
+        if span is not None:
+            span.args["version"] = pub.snap.version
+            if info is not None:   # scalars only: the dirty index array
+                #                    is not JSON-exportable span material
+                span.args.update({key: v for key, v in info.items()
+                                  if key != "dirty"})
+            span.end()
+            tr.counter("freshness", {"lag_docs": lag,
+                                     "snapshot_version": pub.snap.version})
+        if reg is not None:
+            reg.counter("publish_total").inc()
+            if info is not None:
+                reg.counter(f"publish_{info['mode']}_total").inc()
+            reg.histogram("publish_latency_ms", unit="ms").observe(pub_ms)
+            reg.gauge("publish_lag_docs").set(lag)
+            reg.gauge("snapshot_version").set(pub.snap.version)
+            with self._on_ingest_stream():
+                counters = self.engine.device_counters()
+            reg.set_many("pipeline_", counters,
+                         help="device pipeline counters (publish fetch)")
 
     def _check(self):
         if self._error is not None:
@@ -484,23 +755,50 @@ class AsyncServer(QueryFrontend):
                timeout: float = 120.0):
         """Enqueue one stream batch for background ingestion (bounded
         queue: blocks the producer, never the query path, when full).
-        ``draws`` are the heavy-hitter's per-arrival draws for this batch
-        (``heavy_hitter.update_batch``); None draws them from the engine's
-        generator."""
+
+        With durability armed the batch is journaled (appended + fsync'd)
+        BEFORE it is enqueued, under one producer lock, so journal
+        sequence order IS queue order — the property replay bit-identity
+        rests on. The ``ingest.enqueue`` fault point fires before the
+        journal append: a producer-side failure means the batch was never
+        acknowledged durable, so nothing is ever silently lost.
+
+        ``draws`` (a test hook) are the heavy-hitter's per-arrival draws
+        for this batch (``heavy_hitter.update_batch``); None draws them
+        from the engine's generator. The journal cannot replay them, so
+        a durable server refuses them."""
         if self._closed:
             raise RuntimeError(
                 "server is closed: ingest() after close() would never "
                 "be applied")
+        if draws is not None and self._durable is not None:
+            raise ValueError("a durable server takes no draws: journal "
+                             "replay draws from the engine's generator")
         self._check()
         x = np.asarray(embeddings)
         ids = np.asarray(doc_ids)
+        tr = obs.tracer()
+        span = (tr.span("ingest.enqueue", cat="ingest", batch=int(ids.size))
+                if tr is not None else None)
         with self._ingest_lock:
-            seq = self._next_seq
-            self._next_seq += 1
+            faults.fault_point("ingest.enqueue")
+            if self._durable is not None:
+                seq = self._durable.record(x, ids)
+            else:
+                seq = self._next_seq
+                self._next_seq += 1
             self._put((seq, x, ids, draws), timeout)
+        if span is not None:
+            span.args["seq"] = seq
+            span.end()
         # live rows only (doc_id < 0 is padding), as _docs_ingested counts
+        live = int(np.sum(ids >= 0))
         with self._lock:
-            self.stats["docs"] += int(np.sum(ids >= 0))
+            self.stats["docs"] += live
+        reg = obs.metrics()
+        if reg is not None:
+            reg.counter("ingest_docs_enqueued_total").inc(live)
+            reg.gauge("ingest_queue_depth").set(self._queue.qsize())
 
     def submit(self, query) -> int:
         """Queue one query; raises after ``close()`` and with the ingest
@@ -516,20 +814,162 @@ class AsyncServer(QueryFrontend):
         self._check()
         return super().flush()
 
+    def _pin(self, pub: _Published):
+        """Make the query stream wait for ``pub``'s publish and mark the
+        snapshot's tensors as used there (no-op on the CPU)."""
+        if pub.ready is not None:
+            stream = torch.cuda.current_stream(self.engine.device)
+            stream.wait_event(pub.ready)
+            for t in _tensors(pub.snap):
+                t.record_stream(stream)
+
     def _query_batch(self, q: np.ndarray, plan=None):
         self._check()
         pub = self._published         # pin ONE snapshot for the whole batch
-        snap = pub.snap
-        self._last_snapshot = snap
+        self._last_snapshot = pub.snap
+        if self._result_cache is not None or self._hotset is not None:
+            return self._query_batch_cached(pub, q, plan)
         with self._dispatch.query():
-            if pub.ready is not None:
-                stream = torch.cuda.current_stream(self.engine.device)
-                stream.wait_event(pub.ready)
-                for t in _tensors(snap):
-                    t.record_stream(stream)
+            self._pin(pub)
             return self.engine.query_snapshot(
-                snap, q, self.scfg.topk, two_stage=self.scfg.two_stage,
+                pub.snap, q, self.scfg.topk, two_stage=self.scfg.two_stage,
                 nprobe=self.scfg.nprobe, plan=plan)
+
+    def _query_batch_cached(self, pub: _Published, q: np.ndarray, plan=None):
+        """Two-level cached serving for one flush, pinned to ``pub``.
+
+        1. apply queued publications up to the pinned version (precise
+           result-cache invalidation + hot-tier staleness);
+        2. route-free exact hits: entries whose routes were verified at
+           the pinned version answer immediately — an all-hit flush never
+           touches the device;
+        3. ONE route pass over the *pending* sub-batch
+           (``stages.route_witnessed``, the ``mips`` kernel) yields ordered
+           routes — the exactness witness for entries that survived a
+           publish (where no near-tie leaves their order open), the
+           hot-tier coverage test, and the heavy-hitter observation (one
+           ``heavy_hitter`` launch);
+        4. remaining misses split into hot-covered (the ``serve`` kernel
+           over the pinned tier) and cold (over the snapshot's store),
+           served as they are (no padding: the kernel's answer for a
+           query does not depend on the sub-batch), checked against the
+           route pass's routes, and inserted back into the cache.
+
+        Every answer is bit-identical to what the uncached path returns
+        for the same snapshot. Returns host tensors."""
+        snap = pub.snap
+        cache, hotset = self._result_cache, self._hotset
+        k = self.scfg.topk
+        nprobe_eff, depth = _resolve_plan(plan, self.scfg.nprobe)
+        store_depth = self.cfg.store_depth
+        depth_eff = store_depth if depth is None else min(depth, store_depth)
+        plan_key = (plan.key if plan is not None
+                    else f"np{nprobe_eff}xd{depth_eff}")
+        while self._pub_events and self._pub_events[0][0] <= snap.version:
+            version, dirty = self._pub_events.popleft()
+            if cache is not None:
+                cache.on_publish(version, dirty)
+            if hotset is not None:
+                hotset.note_publish(version, dirty)
+        B = q.shape[0]
+        scores = np.full((B, k), -np.inf, np.float32)
+        rows = np.full((B, k), -1, np.int32)
+        ids = np.full((B, k), -1, np.int32)
+        labels = np.full((B, k), -1, np.int32)
+        qbytes = [q[i].tobytes() for i in range(B)]
+        pend = []   # needs routing: unverified survivor or absent entry
+        for i in range(B):
+            ans = (cache.peek_exact(qbytes[i], plan_key, snap.version)
+                   if cache is not None else None)
+            if ans is not None:
+                scores[i], rows[i], ids[i], labels[i] = ans
+            else:
+                pend.append(i)
+        n_miss = 0
+        hot_served = 0
+        if pend:
+            pidx = np.asarray(pend)
+            with self._dispatch.query():
+                self._pin(pub)
+                if hotset is not None:
+                    hotset.sync(snap)
+                routes, clear = stages.route_witnessed(
+                    self.cfg.index, snap.index, snap.route_labels,
+                    self.engine._queries(q[pidx]), nprobe_eff)
+            self.route_near_ties += int(np.sum(~clear))
+            miss_pos = []
+            for j, i in enumerate(pend):
+                # a route order a near-tie leaves open witnesses nothing
+                ans = (cache.lookup(qbytes[i], plan_key, snap.version,
+                                    routes[j] if clear[j] else None)
+                       if cache is not None else None)
+                if ans is not None:
+                    scores[i], rows[i], ids[i], labels[i] = ans
+                else:
+                    miss_pos.append(j)
+            # hot-set tracking observes the routed sub-batch only: the
+            # route-free hits above are exactly the queries that don't
+            # need the tier, so the counter keeps seeing the traffic the
+            # tier exists for
+            if hotset is not None:
+                hotset.observe(routes)
+            n_miss = len(miss_pos)
+        if n_miss:
+            mpos = np.asarray(miss_pos)
+            midx = pidx[mpos]
+            hot_mask = (hotset.covered(routes[mpos]) if hotset is not None
+                        else np.zeros((mpos.size,), bool))
+            hot_served = int(np.sum(hot_mask))
+            served = np.zeros((mpos.size,), bool)  # routes agree with the pass
+            out_h = None
+            with self._dispatch.query():
+                if hot_mask.any():
+                    out_h = hotset.serve(
+                        snap, self.engine._queries(q[midx[hot_mask]]), k,
+                        nprobe_eff, depth_eff)
+            if out_h is not None:
+                sc, rw_t, di, cl_t, rt_t = (a.cpu().numpy() for a in out_h)
+                rw, cl = hotset.remap(rw_t, cl_t)
+                ok = np.all(hotset.remap_routes(rt_t) == routes[mpos[hot_mask]],
+                            axis=1)
+                hsel = np.nonzero(hot_mask)[0][ok]
+                sel = midx[hsel]
+                scores[sel], rows[sel] = sc[ok], rw[ok]
+                ids[sel], labels[sel] = di[ok], cl[ok]
+                served[hsel] = True
+                self.route_mismatches += int(np.sum(~ok))
+            cold = np.nonzero(~served)[0]
+            if cold.size:
+                with self._dispatch.query():
+                    out_c = routed_query(
+                        self.cfg, snap.index, snap.route_labels, snap.store,
+                        self.engine._queries(q[midx[cold]]), k, nprobe_eff,
+                        depth)
+                sc, rw, di, cl, rt = (a.cpu().numpy() for a in out_c)
+                sel = midx[cold]
+                scores[sel], rows[sel] = sc, rw
+                ids[sel], labels[sel] = di, cl
+                ok = np.all(rt == routes[mpos[cold]], axis=1)
+                self.route_mismatches += int(np.sum(~ok & ~hot_mask[cold]))
+                served[cold[ok]] = True
+            if cache is not None:
+                for j, i in zip(mpos[served], midx[served]):
+                    cache.insert(qbytes[i], plan_key, snap.version,
+                                 routes[j], (scores[i].copy(),
+                                             rows[i].copy(), ids[i].copy(),
+                                             labels[i].copy()))
+        reg = obs.metrics()
+        if reg is not None:
+            reg.counter("cache_hits_total").inc(B - n_miss)
+            reg.counter("cache_misses_total").inc(n_miss)
+            if cache is not None:
+                reg.gauge("cache_entries").set(len(cache))
+            if hotset is not None:
+                reg.counter("hotset_served_total").inc(hot_served)
+                reg.gauge("hotset_pinned_bytes").set(hotset.pinned_bytes)
+                reg.gauge("hotset_pinned_clusters").set(
+                    hotset.stats()["pinned_clusters"])
+        return tuple(torch.from_numpy(a) for a in (scores, rows, ids, labels))
 
     def _batch_meta(self) -> dict:
         # a shed flush never pins a snapshot: it reports the current one
@@ -560,8 +1000,9 @@ class AsyncServer(QueryFrontend):
                 raise TimeoutError("ingest thread did not sync in time")
 
     def close(self, timeout: float = 120.0):
-        """Stop the ingest thread after a final publish; idempotent once
-        the thread has stopped (a timed-out close can be retried)."""
+        """Stop the ingest thread after a final publish (and, durable, a
+        tail checkpoint); idempotent once the thread has stopped (a
+        timed-out close can be retried)."""
         if self._closed:
             return
         if not self._stop_sent and self._thread.is_alive():
@@ -571,6 +1012,8 @@ class AsyncServer(QueryFrontend):
         if self._thread.is_alive():
             raise TimeoutError("ingest thread did not stop in time")
         self._closed = True
+        if self._durable is not None:
+            self._durable.close()
         self._check()
 
     def __enter__(self):
@@ -581,20 +1024,24 @@ class AsyncServer(QueryFrontend):
 
     # ------------------------------------------------------------ accounting
     def state_memory_bytes(self) -> int:
-        """Engine state bytes (the hot tier, which would add its pinned
-        bytes, is not ported)."""
-        return self.engine.state_memory_bytes()
+        """Engine state bytes PLUS the hot tier's resident pin bytes —
+        the serving-side number charged against the paper's 150 MB
+        envelope."""
+        base = self.engine.state_memory_bytes()
+        return base + (self._hotset.pinned_bytes
+                       if self._hotset is not None else 0)
 
     def robustness_stats(self) -> dict:
-        """Supervision accounting, in the reference's constant schema
-        (the durability keys are zero / None / empty: none is ported)."""
-        return {
+        """Supervision + durability accounting. The schema is CONSTANT
+        whether or not durability is armed (zeros / None / empty when
+        disabled) and at every point of the server lifecycle."""
+        out = {
             "restarts": self.restarts,
             "max_restarts": self.max_restarts,
             "quarantined": list(self.quarantined),
             "error_seq": self._error_seq,
-            "durable": False,
-            "recovery": None,
+            "durable": self._durable is not None,
+            "recovery": self.recovery_report,
             "journal_last_seq": -1,
             "journal_segments": 0,
             "journal_disk_bytes": 0,
@@ -604,6 +1051,14 @@ class AsyncServer(QueryFrontend):
             "checkpoint_saves": {"full": 0, "delta": 0, "failed": 0},
             "checkpoint_bytes": {"full": 0, "delta": 0},
         }
+        if self._durable is not None:
+            s = self._durable.stats()
+            for key in ("journal_last_seq", "journal_segments",
+                        "journal_disk_bytes", "journal_lag_batches",
+                        "checkpoint_seq", "checkpoint_age_batches",
+                        "checkpoint_saves", "checkpoint_bytes"):
+                out[key] = s[key]
+        return out
 
     def freshness_stats(self) -> dict:
         """How far the published snapshot trails the ingested stream, in

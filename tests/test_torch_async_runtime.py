@@ -417,10 +417,20 @@ def test_drain_racing_concurrent_submit_answers_exactly_once():
     server.close(timeout=T)
 
 
-def test_unported_runtime_options_raise():
+def test_unported_runtime_options_raise(tmp_path):
+    """Every runtime option is ported now; what remains are the guards:
+    caching and adaptive serving need two_stage. Durability constructs
+    and journals."""
+    from repro_torch.serve.durability import DurabilityConfig
+
     cfg = small_cfg(store_depth=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        AsyncServer(cfg, ServerConfig(topk=4, two_stage=True, nprobe=2), seed=0,
-                    device="cpu", durability=object())
-    with pytest.raises(AssertionError, match="two_stage"):
-        AsyncServer(cfg, ServerConfig(topk=4, adaptive=True), seed=0, device="cpu")
+    srv = AsyncServer(cfg, ServerConfig(topk=4, two_stage=True, nprobe=2),
+                      seed=0, device="cpu",
+                      durability=DurabilityConfig(checkpoint_dir=str(tmp_path)))
+    srv.ingest(np.zeros((4, DIM), np.float32), np.arange(4, dtype=np.int32))
+    srv.close(timeout=T)
+    assert srv.robustness_stats()["durable"]
+    assert srv.robustness_stats()["journal_last_seq"] == 0
+    for opt in ({"adaptive": True}, {"cache_entries": 8}, {"hotset": True}):
+        with pytest.raises(AssertionError, match="two_stage"):
+            AsyncServer(cfg, ServerConfig(topk=4, **opt), seed=0, device="cpu")

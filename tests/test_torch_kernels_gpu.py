@@ -1282,3 +1282,281 @@ def test_async_server_on_card_answers_from_published_snapshots(cuda):
                                           two_stage=True, nprobe=4)
         assert np.array_equal(a["doc_ids"], ids[0].cpu().numpy())
         assert np.array_equal(a["scores"], s[0].cpu().numpy())
+
+
+# ------------------------------------------- the serving cache on the card
+def _main_snapshot(cuda, store_dtype, C=4218, cap=4218, depth=64, d=384):
+    """A snapshot at the main path's shapes: a unit prototype index with a
+    few dead slots, route labels over C clusters, rings 70% live."""
+    from repro_torch.core.index import FlatIndex
+    from repro_torch.engine.engine import ServingSnapshot
+    from repro_torch.store import docstore, quant
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    vec = l2_normalize(torch.randn((cap, d), generator=g, device=cuda))
+    valid = torch.rand((cap,), generator=g, device=cuda) < 0.97
+    labels = torch.randperm(C, generator=g, device=cuda)[:cap].to(torch.int32)
+    labels = torch.where(torch.rand((cap,), generator=g, device=cuda) < 0.02,
+                         -1, labels)
+    rows = l2_normalize(torch.randn((C, depth, d), generator=g, device=cuda))
+    if store_dtype == "int8":
+        embs, scales = quant.quantize_int8(rows, dim=-1)
+    else:
+        embs, scales = rows, torch.ones((C, depth), device=cuda)
+    live = torch.rand((C, depth), generator=g, device=cuda) < 0.7
+    ids = torch.where(live, torch.arange(C * depth, device=cuda,
+                                         dtype=torch.int32).view(C, depth), -1)
+    store = docstore.DocStore(embs.contiguous(), ids, ids.clone(),
+                              torch.full((C,), depth, dtype=torch.int32,
+                                         device=cuda), scales.contiguous())
+    index = FlatIndex(vec, labels.clone(), valid, 1)
+    return ServingSnapshot(index, torch.where(valid, labels, -1), store, 1)
+
+
+@pytest.mark.parametrize("store_dtype", ["fp32", "int8"])
+def test_serve_answer_independent_of_batch_and_ring_source(cuda, store_dtype):
+    """The cache's contract on the card: a query's serve answer (scores,
+    positions, routes) and its route pass (the mips kernel) do not depend
+    on how many queries share the launch (Q = 1, 7, 64), and serving it
+    over a 256-cluster hot tier with remapped labels equals serving it
+    over the 4218-ring store, bit for bit."""
+    from repro_torch.configs.streaming_rag import paper_pipeline_config
+    from repro_torch.engine import stages
+    from repro_torch.engine.engine import routed_query
+
+    cfg = paper_pipeline_config(dim=384, k=4218, capacity=4218,
+                                store_depth=64, store_dtype=store_dtype)
+    snap = _main_snapshot(cuda, store_dtype)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((64, 384), generator=g, device=cuda)
+    full = routed_query(cfg, snap.index, snap.route_labels, snap.store, q,
+                        10, 8)
+    rfull = stages.route(cfg.index, snap.index, snap.route_labels, q, 8)
+    for n in (1, 7, 64):
+        for lo in range(0, 64, n):
+            part = routed_query(cfg, snap.index, snap.route_labels,
+                                snap.store, q[lo:lo + n].contiguous(), 10, 8)
+            for a, b in zip(part, full):
+                assert torch.equal(a, b[lo:lo + n])
+            rp = stages.route(cfg.index, snap.index, snap.route_labels,
+                              q[lo:lo + n].contiguous(), 8)
+            assert torch.equal(rp, rfull[lo:lo + n])
+    # the hot tier: the first queries' routed clusters, padded to 256 rings
+    routes = full[4].cpu().numpy()
+    pinned = []
+    for row in routes:
+        new = [c for c in row if c >= 0 and c not in pinned]
+        if len(pinned) + len(new) > 256:
+            break
+        pinned += new
+    covered = len([r for r in routes if set(r[r >= 0]) <= set(pinned)])
+    assert covered >= 16
+    clusters = np.zeros(256, np.int32)
+    clusters[:len(pinned)] = pinned
+    valid = np.arange(256) < len(pinned)
+    tier = stages.gather_rings(snap.store, torch.from_numpy(clusters).to(cuda),
+                               torch.from_numpy(valid).to(cuda))
+    c2s = np.full(4218, -1, np.int32)
+    c2s[pinned] = np.arange(len(pinned), dtype=np.int32)
+    lab = snap.route_labels.cpu().numpy()
+    hot = torch.from_numpy(np.where(lab >= 0, c2s[np.maximum(lab, 0)],
+                                    -1).astype(np.int32)).to(cuda)
+    qc = q[:covered].contiguous()
+    got = routed_query(cfg, snap.index, hot, tier, qc, 10, 8)
+    slot2c = torch.from_numpy(np.where(valid, clusters, -1)).to(cuda)
+    assert torch.equal(got[0], full[0][:covered])
+    assert torch.equal(got[2], full[2][:covered])
+    assert torch.equal(torch.where(got[3] >= 0, slot2c[got[3].clamp(min=0).long()],
+                                   -1), full[3][:covered])
+    assert torch.equal(torch.where(got[4] >= 0, slot2c[got[4].clamp(min=0).long()],
+                                   -1), full[4][:covered])
+
+
+def _full_engine(cuda, store_dtype, seed=0):
+    """The main path's engine: the 150 MB config, warmed up on the head of
+    the NYT-like stream (so admission keeps rows); returns (engine, the
+    stream, continued)."""
+    from repro_torch.configs.streaming_rag import paper_pipeline_config
+    from repro_torch.core import pipeline
+    from repro_torch.data.streams import make_stream
+    from repro_torch.engine.engine import Engine
+
+    cfg = pipeline.budget_to_config(150.0, dim=384, base=paper_pipeline_config(
+        dim=384, store_depth=64, store_dtype=store_dtype))
+    stream = make_stream("nyt", dim=384)
+    warm = np.concatenate([stream.next_batch(256)["embedding"]
+                           for _ in range(-(-2 * cfg.clus.num_clusters // 256))])
+    return Engine(cfg, seed, warm, device=cuda), stream
+
+
+def _assert_states_equal(a, b):
+    from repro_torch.train import checkpoint as ckpt
+
+    fa, fb = ckpt.flatten_tree(a), ckpt.flatten_tree(b)
+    assert fa.keys() == fb.keys()
+    bad = [k for k in fa if not np.array_equal(ckpt.to_host(fa[k]),
+                                               ckpt.to_host(fb[k]))]
+    assert not bad, f"leaves differ: {bad}"
+
+
+@pytest.mark.parametrize("store_dtype", ["fp32", "int8"])
+def test_ingest_is_deterministic_on_card(cuda, store_dtype):
+    """The precondition of bit-identical recovery: the same state and the
+    same batches give bit-equal states — one engine on the default
+    stream, one on a side stream (where an AsyncServer ingests)."""
+    a, stream = _full_engine(cuda, store_dtype)
+    b, _ = _full_engine(cuda, store_dtype)
+    batches = [stream.next_batch(256) for _ in range(6)]
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    for bt in batches:
+        a.ingest(bt["embedding"], bt["doc_id"])
+        with torch.cuda.stream(side):
+            b.ingest(bt["embedding"], bt["doc_id"])
+    torch.cuda.synchronize()
+    assert int(a.state.store.ptr.sum()) > 0
+    _assert_states_equal(a.state, b.state)
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """Full then delta checkpoints of a card-resident state, copied on a
+    side stream with no device sync, restore leaf for leaf onto the card;
+    the restored generator lives on the card and continues the saved
+    one's draws."""
+    from repro_torch.serve.durability import CheckpointStore
+
+    eng, stream = _full_engine(cuda, "int8")
+    store = CheckpointStore(str(tmp_path))
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    modes = []
+    with torch.cuda.stream(side):
+        for seq in range(3):
+            for _ in range(2):
+                bt = stream.next_batch(256)
+                eng.ingest(bt["embedding"], bt["doc_id"])
+            modes.append(store.save(seq, eng.state)["mode"])
+        store.wait()
+    assert modes == ["full", "delta", "delta"]
+    assert store.last_save["copy_ms"] > 0.0
+    assert int(eng.state.store.ptr.sum()) > 0
+    fresh, _ = _full_engine(cuda, "int8", seed=9)
+    restored, meta = store.restore(fresh.state)
+    assert meta["seq"] == 2
+    assert restored.gen.device.type == "cuda"
+    assert restored.store.embs.device.type == "cuda"
+    _assert_states_equal(eng.state, restored)
+    a = torch.rand(4, generator=eng.state.gen, device=cuda)
+    b = torch.rand(4, generator=restored.gen, device=cuda)
+    assert torch.equal(a, b)
+
+
+def test_query_side_heavy_hitter_matches_plain(cuda):
+    """The hot set's counter (capacity 64, admit_prob 1, MIN_EVICT, B = 64
+    route signatures: 31-bit crc labels, Zipf-repeated, padded with -1)
+    against its plain loop, every leaf exact, over many flushes."""
+    from repro_torch.core import heavy_hitter as hh
+    from repro_torch.kernels.heavy_hitter.heavy_hitter import update_batch_cuda
+    from repro_torch.kernels.heavy_hitter.ref import update_batch_ref
+
+    cfg = hh.HHConfig(capacity=64, admit_prob=1.0, policy=hh.Policy.MIN_EVICT)
+    rng = np.random.default_rng(2)
+    sigs = rng.integers(0, 2**31 - 1, size=300).astype(np.int32)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    st_k = st_p = hh.init(cfg, cuda)
+    for flush in range(40):
+        n = int(rng.integers(1, 65))
+        lab = np.full(64, -1, np.int32)
+        lab[:n] = sigs[np.minimum(rng.zipf(1.1, size=n) - 1, 299)]
+        labels = torch.from_numpy(lab).to(cuda)
+        draws = hh.draw(cfg, 64, g, cuda)
+        got = update_batch_cuda(cfg, st_k, labels, draws)
+        want = update_batch_ref(cfg, st_p, labels, draws)
+        _hh_equal(got, want)
+        st_k, st_p = got[0], want[0]
+    assert int(st_k.total_evictions) > 0 and int(st_k.total_writes) > 0
+
+
+def test_cached_async_server_on_card_is_exact(cuda):
+    """A cached + hot AsyncServer on the card while ingest runs: every
+    ticket answered once, every answer equal, bit for bit, to its query
+    served alone on a copy of the snapshot it names, route-checked hits
+    after a publish that moves no cluster included; the route pass, the
+    hot tier and the query-side counter ran on their kernels."""
+    from repro_torch.configs.streaming_rag import paper_pipeline_config
+    from repro_torch.engine.engine import Engine, ServingSnapshot
+    from repro_torch.kernels import counts
+    from repro_torch.serve.runtime import AsyncServer, ServerConfig
+
+    class HostCopies(Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.copies = {}
+
+        def publish(self):
+            snap = super().publish()
+            self.copies[snap.version] = _snap_to(snap, "cpu")
+            return snap
+
+    cfg = paper_pipeline_config(dim=64, k=64, capacity=64, store_depth=8,
+                                update_interval=32, alpha=0.0, store_dtype="int8")
+    rng = np.random.default_rng(6)
+    eng = HostCopies(cfg, 0, rng.normal(size=(128, 64)).astype(np.float32),
+                     device=cuda)
+    server = AsyncServer(cfg, ServerConfig(
+        max_batch=16, max_wait_ms=0.0, topk=5, two_stage=True, nprobe=4,
+        cache_entries=48, hotset=True, pin_budget_mb=0.05, hotset_capacity=16,
+        hotset_refresh=2, hotset_min_count=2),
+        engine=eng, publish_every=2, queue_max=4)
+    pool = rng.normal(size=(96, 64)).astype(np.float32)
+    pick = np.minimum(rng.zipf(1.1, size=480) - 1, 95)
+    counts.reset_all()
+    answers, asked = [], {}
+    for step in range(30):
+        b = rng.normal(size=(64, 64)).astype(np.float32)
+        server.ingest(b, np.arange(step * 64, step * 64 + 64, dtype=np.int32))
+        for i in pick[step * 16:(step + 1) * 16]:
+            asked[server.submit(pool[i])] = pool[i]
+        answers += server.flush()
+    server.sync(timeout=60)
+    answers += server.drain()
+    # a publish that moves no cluster (a batch of padding rows) keeps every
+    # entry: the same queries asked again go through the route check
+    again = pool[pick[-16:]]
+    for rnd in range(2):
+        if rnd:
+            before = server._result_cache.stats()
+            server.ingest(np.zeros((64, 64), np.float32), np.full((64,), -1, np.int32))
+            server.sync(timeout=60)
+            assert eng.last_publish_info["mode"] == "republish"
+        for q in again:
+            asked[server.submit(q)] = q
+        answers += server.flush()
+    rs = server._result_cache.stats()
+    assert rs["rekeyed"] > before["rekeyed"]
+    assert rs["hits"] - rs["hits_exact"] > before["hits"] - before["hits_exact"]
+    server.close(timeout=60)
+    snap = counts.snapshot()
+    assert all(snap[n]["kernel"] > 0 for n in ("mips", "serve", "heavy_hitter")), snap
+    assert all(c["plain"] == 0 for c in snap.values()), snap
+    assert sorted(a["ticket"] for a in answers) == sorted(asked)
+    cs = server.cache_stats()
+    assert cs["hits"] > 0 and cs["hot_served"] > 0 and cs["tier_rebuilds"] > 0
+    for a in answers:
+        ref = _snap_to(eng.copies[a["snapshot_version"]], cuda)
+        s, _, ids, cl = eng.query_snapshot(ref, asked[a["ticket"]][None], 5,
+                                           two_stage=True, nprobe=4)
+        assert np.array_equal(a["scores"], s[0].cpu().numpy())
+        assert np.array_equal(a["doc_ids"], ids[0].cpu().numpy())
+        assert np.array_equal(a["clusters"], cl[0].cpu().numpy())
+
+
+def _snap_to(snap, dev):
+    from repro_torch.engine.engine import ServingSnapshot
+
+    return ServingSnapshot(
+        index=snap.index._replace(**{f: getattr(snap.index, f).to(dev)
+                                     for f in ("vectors", "ids", "valid")}),
+        route_labels=snap.route_labels.to(dev),
+        store=type(snap.store)(*(t.to(dev) for t in snap.store)),
+        version=snap.version, published_at=snap.published_at)
