@@ -119,6 +119,39 @@
    ms), the save's host ms on the ingest thread, recovery ms (restore,
    then replay) and the flush p50 overall and while a checkpoint write
    was in flight.
+4e. Sharded path (after 4d): a ``ShardedEngine`` on ``make_streaming_mesh(2,
+   2)`` (all four shards on the one card; the device map is printed) on
+   the same config, seed and warmup ingests the main path's 16 batches,
+   publishes every 4 (full, then delta by the dirty signature) and answers
+   8 fused flushes of 64 queries, 4 staged and 4 prototype-only; counts
+   reset just before: admit and heavy_hitter launch twice a batch, serve
+   twice a fused flush, rerank twice a staged one, mips once a staged or
+   prototype-only flush, no plain version. Each data shard must equal a
+   single-device ``Engine`` replaying its half of every batch from
+   ``shard_init_state``, bit for bit; the last publish must equal a full
+   rebuild (``reconcile_states``) on the card bit for bit and on the host
+   (ints exact, floats within rtol 1e-5); every answer must equal the
+   single-device query on the merged snapshot under the near-tie rule;
+   every admit and heavy_hitter call of the sharded ingest (128 rows a
+   shard) is recorded with its output and held against its plain version
+   on the same inputs (admit under the near-tie rule, every counter leaf
+   and info entry bit for bit); every serve call under its localized label
+   table and every rerank call under its localized routes is run again
+   against the plain version; one store shard holds half the store's bytes. Prints ingest ms/batch
+   (sharded, the two replays, one engine on the whole batch), publish ms
+   and dirty clusters, a full rebuild's ms on the card and the host, the
+   fused flush p50/p99 beside the single-device one, and peak memory.
+4f. The launcher: ``python -m repro_torch.launch.serve --mesh 2,2
+   --two-stage --async --cache-entries 384 --hotset --checkpoint-dir <tmp>``
+   at d = 384, int8 depth 64, 16 batches of 256 with 64 queries each, in
+   its own process; it must exit 0 with every query it submitted answered,
+   the map on one device, no restart, a checkpoint per batch, and one store
+   shard holding half the bytes of a k = 150 store; a second run of 2
+   batches on the same directory must recover from that last checkpoint
+   with nothing left to replay. Its traffic repeats no query, so cache hits
+   and pinned clusters are 0 by construction (printed, not held: 4c holds
+   the cache and hot tier); its kernels at k = 150 are not held against
+   their plain versions (4e holds the same kernels at k = 4218).
 5. Recsys kernels: the bag kernel against its plain version at MIND's
    serve_p99 and serve_bulk shapes (1,000,000 x 64 item table, histories
    of 50 drawn from a Zipf popularity, p ~ 1/r^1.2, with a valid prefix
@@ -244,6 +277,14 @@ PIN_BUDGET_MB, HOT_CAPACITY, HOT_REFRESH = 8.0, 64, 8
 # the durable path (4d): checkpoint every 4 applied batches, the ingest
 # thread killed at admit hit 11 (batch seq 10)
 DURABLE_EVERY, DURABLE_CRASH_AT = 4, 11
+# the sharded path (4e): a 2 x 2 mesh on the one card (k = 4218 divides by
+# M = 2), a publish every 4 batches, then 8 fused flushes and 4 each staged
+# and prototype-only; the launcher (4f) at the same width, in its own process
+SHARDED_MESH, SHARDED_PUBLISH_EVERY, SHARDED_FLUSHES, SHARDED_OTHER_FLUSHES = (2, 2), 4, 8, 4
+LAUNCH_FLAGS = ("--mesh", "2,2", "--two-stage", "--async", "--cache-entries", "384",
+                "--hotset", "--dim", "384", "--store-depth", "64", "--store-dtype", "int8",
+                "--batches", "16", "--batch", "256", "--qps", "64")
+LAUNCH_TIMEOUT_S = 300
 # BERT4Rec's serve_bulk attention scores: 262144 x 2 heads x 200 x 200 fp32
 BERT4REC_BULK_SKIP = ("bert4rec serve_bulk skipped on one card: its attention "
                       "scores [262144, 2, 200, 200] fp32 alone are 84 GB (the "
@@ -356,6 +397,13 @@ def check_admit(x, basis, cent, alpha, live, store_dtype, chk: Check):
     out_k = admit_cuda(x, basis, cent, alpha, live, store_dtype=store_dtype)
     out_p = admit_ref(x, basis, cent, alpha, live, store_dtype=store_dtype)
     torch.cuda.synchronize()
+    hold_admit(out_k, out_p, x, cent, alpha, store_dtype, chk)
+    return out_k
+
+
+def hold_admit(out_k, out_p, x, cent, alpha, store_dtype, chk: Check):
+    """The kernel's outputs against the plain version's: floats close,
+    keep/labels/int8 rows equal but at near-ties."""
     r_k, keep_k, lab_k, sim_k, v_k, s_k = out_k
     r_p, keep_p, lab_p, sim_p, v_p, s_p = out_p
     chk.floats("r", r_k, r_p)
@@ -376,7 +424,6 @@ def check_admit(x, basis, cent, alpha, live, store_dtype, chk: Check):
         chk.decisions("int8 rows", diff != 0, (diff.abs() == 1) & half)
     else:
         chk.floats("rows", v_k, v_p)
-    return out_k
 
 
 def admit_split(x, basis, cent, alpha, live, iters: int = 20) -> str:
@@ -1764,6 +1811,24 @@ def calls_seen(obj, name, hook):
         setattr(obj, name, real)
 
 
+@contextlib.contextmanager
+def recorded(obj, name, into: list):
+    """Append ``(args, kwargs, output)`` of each call of ``obj.name`` to
+    ``into`` while active."""
+    real = getattr(obj, name)
+
+    def rec(*a, **kw):
+        out = real(*a, **kw)
+        into.append((a, kw, out))
+        return out
+
+    setattr(obj, name, rec)
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
 def check_tier_serves(cfg, calls, chk: Check) -> int:
     """The serve kernel over each hot tier the cached path served from,
     with the inputs ``HotSet.serve`` gave it (the tier's remapped route
@@ -2095,6 +2160,255 @@ def phase_durable(stream, warm, batches):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- sharded
+def same_tensors(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def held_answers(got, want, what: str, chk: Check):
+    """Sharded (scores, rows, ids, clusters) against the single-device
+    answer on the merged snapshot: scores within tolerance, the rest equal
+    except where the single-device scores hold a near-tie."""
+    chk.floats(f"{what} scores", got[0], want[0])
+    s = want[0]
+    gap = torch.full_like(s, float("inf"))
+    gap[:, :-1] = s[:, :-1] - s[:, 1:]
+    tie = gap < TIE
+    tie[:, 1:] |= gap[:, :-1] < TIE
+    for name, g, w in zip(("rows", "ids", "clusters"), got[1:4], want[1:4]):
+        chk.decisions(f"{what} {name}", g != w, tie)
+
+
+def phase_sharded(stream, warm, batches):
+    """4e. The sharded engine on a 2 x 2 mesh (every shard on the one
+    card) at the main path's width: the 16 batches, a publish every 4
+    (full, then delta), fused, staged and prototype-only flushes; held
+    against single-device replays of each data shard, the host merge and
+    the single-device query on the merged snapshot."""
+    from repro_torch.engine.sharded import ShardedEngine, reconcile_states, state_to
+    from repro_torch.kernels.heavy_hitter import ops as hh_ops
+    from repro_torch.kernels.rerank import ops as rerank_ops
+    from repro_torch.kernels.serve import ops as serve_ops
+    from repro_torch.launch.mesh import make_streaming_mesh
+
+    cfg = full_config("int8", 64)
+    D, M = SHARDED_MESH
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_streaming_mesh(D, M)
+    eng = ShardedEngine(cfg, mesh, SEED, warmup=warm, reconcile_every=10**9,
+                        reconcile_mode="delta")
+    replays = [Engine(cfg, state=ShardedEngine.shard_init_state(cfg, SEED, s, D, warm))
+               for s in range(D)]
+    single = Engine(cfg, SEED, warm, device="cuda")
+    qs = stream.queries(QUERIES * SHARDED_FLUSHES)["embedding"]
+    print(f"sharded path: {eng.describe()}; k={cfg.clus.num_clusters} (k/M = "
+          f"{cfg.clus.num_clusters // M}), int8 depth {cfg.store_depth}, "
+          f"{len(batches)} batches of {BATCH}, publish every {SHARDED_PUBLISH_EVERY}")
+    torch.cuda.synchronize()
+    ms = dict(sharded=[], replays=[], single=[])
+    publishes, served, tier_calls, admits, hhs = [], [], [], [], []
+    counts.reset_all()
+    with recorded(stages, "admit_op", admits), recorded(hh_ops, "update_batch", hhs):
+        for i, b in enumerate(batches):
+            t = time.perf_counter()
+            eng.ingest(b["embedding"], b["doc_id"])
+            torch.cuda.synchronize()
+            ms["sharded"].append((time.perf_counter() - t) * 1e3)
+            if (i + 1) % SHARDED_PUBLISH_EVERY == 0:
+                t = time.perf_counter()
+                eng.prepare_publish()
+                snap = eng.publish()
+                torch.cuda.synchronize()
+                publishes.append(((time.perf_counter() - t) * 1e3,
+                                  dict(eng.last_publish_info)))
+    snap = eng.serving
+    with calls_seen(serve_ops, "serve_topk", lambda *a, **kw: tier_calls.append(
+            ("serve", a, kw))), \
+            calls_seen(rerank_ops, "rerank_topk", lambda *a, **kw: tier_calls.append(
+                ("rerank", a, kw))):
+        flush_ms = []
+        for f in range(SHARDED_FLUSHES):
+            q = qs[f * QUERIES:(f + 1) * QUERIES]
+            t = time.perf_counter()
+            out = eng.query_snapshot(snap, q, TOPK, two_stage=True, nprobe=NPROBE)
+            out = tuple(a.cpu() for a in out)
+            flush_ms.append((time.perf_counter() - t) * 1e3)
+            served.append(("fused", q, out))
+        for f in range(SHARDED_OTHER_FLUSHES):
+            q = qs[f * QUERIES:(f + 1) * QUERIES]
+            served.append(("staged", q, tuple(a.cpu() for a in eng.query_snapshot(
+                snap, q, TOPK, two_stage=True, nprobe=NPROBE, staged=True))))
+            served.append(("prototype-only", q, tuple(a.cpu() for a in eng.query_snapshot(
+                snap, q, TOPK))))
+    torch.cuda.synchronize()
+    launches = counts.snapshot()
+    print(f"  launches on the sharded path: {launches}")
+    n_b = len(batches)
+    assert launches["admit"]["kernel"] == launches["heavy_hitter"]["kernel"] == D * n_b
+    assert launches["serve"]["kernel"] == M * SHARDED_FLUSHES
+    assert launches["rerank"]["kernel"] == M * SHARDED_OTHER_FLUSHES
+    assert launches["mips"]["kernel"] == 2 * SHARDED_OTHER_FLUSHES  # staged route + proto
+    assert all(c["plain"] == 0 for c in launches.values()), "a plain version ran"
+    peak = torch.cuda.max_memory_allocated()
+
+    # admit and heavy_hitter at this path's shapes (BATCH / D rows a shard)
+    # against their plain versions on the inputs the path gave them
+    assert len(admits) == len(hhs) == D * n_b, (len(admits), len(hhs))
+    chk_a, chk_h = Check("admit"), Check("hh")
+    for a, kw, out in admits:
+        x, _, cent, alpha, _ = a
+        hold_admit(out, admit_ref(*a, **kw), x, cent, alpha, kw["store_dtype"], chk_a)
+    for i, (a, _, out) in enumerate(hhs):
+        hh_hold(out, update_batch_ref(*a), f"sharded call {i}", chk_h)
+    rows = sorted({int(a[0].shape[0]) for a, _, _ in admits})
+    chk_a.done(f"sharded ingest x{len(admits)} B={rows}")
+    chk_h.done(f"sharded ingest x{len(hhs)}")
+    del admits, hhs
+
+    # each data shard == a single-device replay of its sub-stream, bit for bit
+    h = BATCH // D
+    for b in batches:
+        for s, rep in enumerate(replays):
+            t = time.perf_counter()
+            rep.ingest(b["embedding"][s * h:(s + 1) * h], b["doc_id"][s * h:(s + 1) * h])
+            torch.cuda.synchronize()
+            ms["replays"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        single.ingest(b["embedding"], b["doc_id"])
+        torch.cuda.synchronize()
+        ms["single"].append((time.perf_counter() - t) * 1e3)
+    for s, rep in enumerate(replays):
+        diff = same_state(rep.state, eng.shards[s])
+        assert not diff, f"data shard {s} differs from its replay: {diff}"
+    # the publish == reconcile_states on the card (a full rebuild), bit for
+    # bit, and == reconcile_states on the host, ints exact, floats close
+    full_store = docstore.DocStore(*(torch.cat(ts) for ts in zip(*snap.store)))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card = reconcile_states(cfg, eng.shards)
+    torch.cuda.synchronize()
+    rebuild_ms = (time.perf_counter() - t) * 1e3
+    assert same_tensors((*card.index[:3], card.route_labels, *card.store),
+                        (*snap.index[:3], snap.route_labels, *full_store)), \
+        "the delta publish differs from a full rebuild"
+    t = time.perf_counter()
+    host = reconcile_states(cfg, [state_to(s, "cpu") for s in eng.shards])
+    host_ms = (time.perf_counter() - t) * 1e3
+    chk = Check("reconcile")
+    chk.floats("index vectors", snap.index.vectors.cpu(), host.index.vectors)
+    bad = [name for name, a, b in (
+        ("index ids", snap.index.ids, host.index.ids),
+        ("index valid", snap.index.valid, host.index.valid),
+        ("route labels", snap.route_labels, host.route_labels),
+        *((f"store {n}", a, b) for n, a, b in zip(docstore.DocStore._fields,
+                                                   full_store, host.store)))
+        if not torch.equal(a.cpu(), b)]
+    chk.fail += [f"{name} differs" for name in bad]
+    chk.done("publish vs host merge")
+    assert eng.store_bytes_per_device() * M == docstore.memory_bytes(cfg.store)
+
+    # answers == the single-device query on the merged snapshot
+    merged = snap._replace(store=full_store)
+    chk = Check("sharded")
+    single_ms = []
+    for kind, q, got in served:
+        t = time.perf_counter()
+        want = single.query_snapshot(merged, q, TOPK, two_stage=kind != "prototype-only",
+                                     nprobe=NPROBE)
+        want = tuple(a.cpu() for a in want)
+        if kind == "fused":
+            single_ms.append((time.perf_counter() - t) * 1e3)
+        held_answers(got, want, kind, chk)
+    chk.done(f"answers ({len(served)} flushes)")
+    answers_live = sum(int((got[2] >= 0).sum()) for _, _, got in served)
+    assert answers_live > 0
+    # the serve and rerank kernels under localized labels and routes
+    chk_s, chk_r = Check("serve"), Check("rerank")
+    for name, a, kw in tier_calls:
+        if name == "serve":
+            check_serve(*a[:7], kw.get("scales"), a[7], a[8], chk_s)
+        else:
+            check_rerank(*a[:5], kw.get("scales"), chk_r)
+    dead = sum(int((a[4] < 0).sum()) for n, a, _ in tier_calls if n == "serve")
+    chk_s.done(f"localized labels ({dead} -1)")
+    chk_r.done("localized routes")
+
+    full = [p for p in publishes if p[1]["mode"] == "full"]
+    delta = [p for p in publishes if p[1]["mode"] != "full"]
+    assert any(p[1]["mode"] == "delta" for p in delta), publishes
+    steady = lambda v: np.median(v[1:])  # noqa: E731
+    print(f"  every data shard bit-equal to its single-device replay; the delta publish "
+          f"bit-equal to a full rebuild on the card and to the host merge; store bytes "
+          f"per device {eng.store_bytes_per_device()} x {M} = full")
+    print(f"  ingest ms/batch: sharded median {steady(ms['sharded']):.2f} (first "
+          f"{ms['sharded'][0]:.2f}); the two shards' replays {steady(ms['replays']) * D:.2f} "
+          f"({steady(ms['replays']):.2f} each); one engine on the whole batch "
+          f"{steady(ms['single']):.2f}")
+    print(f"  publish ms: full {', '.join(f'{p[0]:.2f}' for p in full)} (the first); delta "
+          + ", ".join(f"{p[0]:.2f} ({p[1]['mode']}, {p[1]['dirty_clusters']} dirty clusters)"
+                      for p in delta)
+          + f"; a full rebuild from the final states {rebuild_ms:.2f} on the card, "
+            f"{host_ms:.1f} on the host")
+    print(f"  two-stage flush of {QUERIES}: sharded p50 {np.percentile(flush_ms, 50):.3f} ms "
+          f"p99 {np.percentile(flush_ms, 99):.3f} over {len(flush_ms)}; single-device on "
+          f"the merged snapshot p50 {np.percentile(single_ms, 50):.3f} p99 "
+          f"{np.percentile(single_ms, 99):.3f}; {answers_live} live answers held")
+    print(f"  peak memory {peak / 1e6:.1f} MB (2 shard states, the snapshot, the merge)")
+    del eng, replays, single, snap, merged, card, host, served, tier_calls
+    torch.cuda.empty_cache()
+
+
+def launcher_run(flags, tmp: str, root: str) -> dict[str, str]:
+    """One run of the launcher in its own process: its output echoed, a
+    non-zero exit raised; returns its summary lines, label -> value."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *flags, "--checkpoint-dir", tmp]
+    t = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                         timeout=LAUNCH_TIMEOUT_S)
+    print(f"launcher: {' '.join(cmd[1:])} (exit {out.returncode}, "
+          f"{time.perf_counter() - t:.1f} s)")
+    for line in out.stdout.splitlines():
+        print(f"  | {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"the launcher failed:\n{out.stderr[-4000:]}")
+    return {ln.split(":", 1)[0].strip(): ln.split(":", 1)[1].strip()
+            for ln in out.stdout.splitlines() if " : " in ln}
+
+
+def phase_launcher():
+    """4f. ``python -m repro_torch.launch.serve`` in its own process on the
+    card, sharded, async, cached, durable; then again on the same
+    directory, where it must recover first."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    batches = int(LAUNCH_FLAGS[LAUNCH_FLAGS.index("--batches") + 1])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_launch_") as tmp:
+        first = launcher_run(LAUNCH_FLAGS, tmp, root)
+        again = list(LAUNCH_FLAGS)
+        again[again.index("--batches") + 1] = "2"
+        second = launcher_run(again, tmp, root)
+    want = ("device map", "docs ingested", "queries answered", "index size", "durability",
+            "supervision", "serving cache", "hot tier", "state memory", "store bytes/dev")
+    missing = [w for w in want if w not in first]
+    assert not missing and "recovered" not in first, (missing, sorted(first))
+    for lines, n in ((first, 16 * 64), (second, 2 * 64)):
+        got, sub = lines["queries answered"].split(" submitted")[0].split(" / ")
+        assert int(got) == int(sub) == n, lines["queries answered"]
+    assert "on 1 device(s)" in first["device map"], first["device map"]
+    assert first["supervision"] == "restarts=0 quarantined=[]", first["supervision"]
+    seq = first["durability"].split()[0]
+    assert seq == f"checkpoint_seq={batches - 1}" and "'failed': 0" in first["durability"], \
+        first["durability"]
+    assert second["recovered"].startswith(f"{seq} replayed=0 batches"), second["recovered"]
+    store = paper_pipeline_config(dim=384, k=150, store_depth=64, store_dtype="int8").store
+    assert int(first["store bytes/dev"]) * 2 == docstore.memory_bytes(store), \
+        first["store bytes/dev"]
+    print(f"  launcher: every query answered, one card, {seq}, the second run recovered "
+          f"from it ({second['recovered']}); store bytes/dev x 2 = a k=150 store; cache "
+          f"{first['serving cache']}; hot tier {first['hot tier']} (no query repeats)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2116,6 +2430,8 @@ def main() -> int:
     # sit in every recsys peak-memory reading
     phase_cached(stream, warm, batches, results)
     phase_durable(stream, warm, batches)
+    phase_sharded(stream, warm, batches)
+    phase_launcher()
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name:9s} kernel {r['ms']:.4f} ms device ({r['host_ms']:.4f} ms a call "

@@ -23,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.common import stable_topk
+
 INT_MAX = 2**31 - 1
 EMPTY = -1
 _U32 = 0xFFFFFFFF
@@ -279,3 +281,47 @@ def update_batch(cfg: HHConfig, state: HHState, labels: torch.Tensor,
     if draws is None:
         draws = draw(cfg, labels.shape[0], gen, labels.device)
     return ops.update_batch(cfg, state, labels, draws)
+
+
+def merge(cfg: HHConfig, a: HHState, b: HHState) -> HHState:
+    """Merge two shard-local counters into one (the label union with
+    summed estimated counts, top-``bmax`` kept), on ``a``'s device.
+
+    As the reference: duplicate labels are summed over runs of a stable
+    sort by label, then the top ``bmax`` counts are kept with ties to the
+    lowest position (a stable descending sort: ``torch.topk`` promises
+    no tie order); Morris counts go back to exponents
+    ``ceil(log2(c + 1))``."""
+    b = HHState(*(t.to(a.labels.device) for t in b))
+    labels = torch.cat([a.labels, b.labels])
+    counts = torch.cat([estimated_counts(cfg, a), estimated_counts(cfg, b)])
+    occ = torch.cat([active_mask(a), active_mask(b)])
+    counts = torch.where(occ, counts, 0.0)
+    labels = torch.where(occ, labels, EMPTY)
+
+    order = torch.argsort(labels, stable=True)
+    sl, sc = labels[order], counts[order]
+    first = torch.ones_like(sl, dtype=torch.bool)
+    first[1:] = sl[1:] != sl[:-1]
+    seg = torch.cumsum(first.to(torch.int64), 0) - 1
+    summed = torch.zeros_like(sc).index_add_(0, seg, sc)
+    uniq_label = torch.where(first, sl, EMPTY)
+    uniq_count = torch.where(first & (sl != EMPTY), summed[seg], 0.0)
+
+    bmax = a.labels.shape[0]
+    top_count, top_idx = stable_topk(uniq_count, bmax)
+    keep = top_count > 0
+    out_counts = torch.where(keep, top_count, 0.0)
+    if cfg.morris:
+        out_counts = torch.ceil(torch.log2(out_counts + 1.0))
+    return HHState(
+        labels=torch.where(keep, uniq_label[top_idx], EMPTY).to(torch.int32),
+        counts=out_counts.to(torch.int32),
+        cms=a.cms + b.cms,
+        admit_prob=torch.maximum(a.admit_prob, b.admit_prob),
+        active_capacity=torch.maximum(a.active_capacity, b.active_capacity),
+        novel_in_window=a.novel_in_window + b.novel_in_window,
+        seen_in_window=a.seen_in_window + b.seen_in_window,
+        total_seen=a.total_seen + b.total_seen,
+        total_evictions=a.total_evictions + b.total_evictions,
+        total_writes=a.total_writes + b.total_writes)

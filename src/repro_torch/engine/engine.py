@@ -213,6 +213,10 @@ class Engine:
         return pipeline.query(self.cfg, self.state, self._queries(q), k,
                               two_stage=two_stage, nprobe=nprobe, depth=depth)
 
+    def prepare_publish(self) -> None:
+        """Nothing to prepare: a single-device publish has no host-blocking
+        part (``ShardedEngine`` reads its dirty signature here)."""
+
     def publish(self) -> ServingSnapshot:
         """Clone the queryable sub-state into a serving snapshot (ingest
         writes the live tensors in place, so a snapshot must not alias)."""
@@ -283,6 +287,13 @@ class Engine:
                                    snap.store, self._queries(q), k,
                                    two_stage=two_stage, nprobe=nprobe,
                                    depth=depth)
+
+    def routed_query_snapshot(self, snap: ServingSnapshot, q, k: int,
+                              nprobe: int, depth: int | None = None):
+        """The fused two-stage query on a published snapshot: (scores,
+        rows, doc_ids, clusters, routes [Q, nprobe])."""
+        return routed_query(self.cfg, snap.index, snap.route_labels,
+                            snap.store, self._queries(q), k, nprobe, depth)
 
     def index_size(self) -> int:
         return int(index_lib.size(self.state.index))

@@ -24,8 +24,8 @@ Stage map (two-stage query):
 
 The staged forms are the decomposition the fused kernels are held
 against; an engine composes the fused ones. ``gather_rings`` pins the
-hot-set serving tier (``serve.hotset``); the sharded stages wait for
-their slice.
+hot-set serving tier (``serve.hotset``); ``delta_upsert_snapshot`` is
+the sharded engine's delta publish (``engine.sharded``).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ import torch
 
 from repro_torch.core import clustering, heavy_hitter, index as index_lib, prefilter
 from repro_torch.kernels.admit.ops import admit as admit_op
-from repro_torch.kernels.common import (NEG_INF, host_to_device,
+from repro_torch.kernels.common import (NEG_INF, host_to_device, l2_normalize,
                                         l2_normalize_queries)
 from repro_torch.kernels.rerank.ops import rerank_topk
 from repro_torch.kernels.serve.ops import serve_topk as serve_topk_op
@@ -145,6 +145,35 @@ def upsert_snapshot(index_cfg: index_lib.IndexConfig, index, hh_state,
     return new_index, torch.where(valid, lbl, -1)
 
 
+def delta_upsert_snapshot(index_cfg: index_lib.IndexConfig, prev_index,
+                          prev_slot_labels, hh_state, centroids, rep_ids,
+                          cluster_dirty):
+    """Delta form of ``upsert_snapshot``: re-write only the slots whose
+    row can have changed since the previous publish — its raw counter
+    label changed (``prev_slot_labels`` is the raw ``hh.labels`` of that
+    publish), its validity flipped, or its cluster is dirty (centroid or
+    representative moved) — and keep every other row of ``prev_index``.
+    Those rows are what a full rebuild would write, so a delta publish
+    equals a full one bit for bit. ``prev_index`` is not written.
+
+    Returns (new_index, route_labels, slot_labels): ``slot_labels`` is
+    the raw label snapshot the next delta publish compares against."""
+    lbl = hh_state.labels
+    valid = heavy_hitter.active_mask(hh_state)
+    lc = torch.clamp(lbl, min=0).to(torch.int64)
+    stale = ((lbl != prev_slot_labels) | (valid != prev_index.valid)
+             | cluster_dirty[lc])
+    vecs = (l2_normalize(centroids[lc]) if index_cfg.normalize
+            else centroids[lc].to(torch.float32))
+    new_index = index_lib.FlatIndex(
+        vectors=torch.where(stale[:, None], vecs, prev_index.vectors),
+        ids=torch.where(stale, torch.where(valid, rep_ids[lc], -1),
+                        prev_index.ids).to(torch.int32),
+        valid=valid.clone(),
+        version=prev_index.version)   # full rebuilds always publish 1
+    return new_index, torch.where(valid, lbl, -1), lbl.clone()
+
+
 # -------------------------------------------------------------- observability
 PIPELINE_COUNTER_NAMES = (
     "arrivals", "admitted", "hh_seen", "hh_evictions", "hh_writes",
@@ -152,6 +181,14 @@ PIPELINE_COUNTER_NAMES = (
     "store_slots", "store_min_fill", "store_max_fill", "index_valid",
     "upserts",
 )
+# how the shards' counter vectors aggregate (aligned with the names):
+# extensive quantities sum across data shards, extrema take min/max, the
+# shard-local index reports the shard max
+PIPELINE_COUNTER_COMBINE = (
+    "sum", "sum", "sum", "sum", "sum", "sum", "sum", "max", "sum", "sum",
+    "min", "max", "max", "sum",
+)
+assert len(PIPELINE_COUNTER_NAMES) == len(PIPELINE_COUNTER_COMBINE)
 
 
 def pipeline_counters(cfg, state) -> torch.Tensor:
@@ -182,12 +219,14 @@ def pipeline_counters(cfg, state) -> torch.Tensor:
 
 def decode_pipeline_counters(stacked) -> dict:
     """Host decode of fetched counter vectors ``[S, N]`` (S = 1 for the
-    single-device engine) plus the derived rates."""
+    single-device engine), aggregated across shards by
+    ``PIPELINE_COUNTER_COMBINE``, plus the derived rates."""
     arr = np.asarray(stacked, dtype=np.int64)
     assert arr.ndim == 2 and arr.shape[1] == len(PIPELINE_COUNTER_NAMES), \
         arr.shape
-    out = {name: int(arr[0, i]) for i, name in
-           enumerate(PIPELINE_COUNTER_NAMES)}
+    reduce = {"sum": np.sum, "max": np.max, "min": np.min}
+    out = {name: int(reduce[comb](arr[:, i])) for i, (name, comb) in
+           enumerate(zip(PIPELINE_COUNTER_NAMES, PIPELINE_COUNTER_COMBINE))}
     out["admit_rate"] = out["admitted"] / max(out["arrivals"], 1)
     out["store_fill"] = out["store_live"] / max(out["store_slots"], 1)
     out["hh_occupancy"] = out["hh_occupied"] / max(out["hh_capacity"], 1)
@@ -287,7 +326,8 @@ def gather_rings(store, clusters: torch.Tensor, valid: torch.Tensor):
     the hot-set serving tier's pin step.
 
     ``clusters`` [H] i32/i64 store rows to pin (padding rows may repeat a
-    real cluster); ``valid`` [H] bool marks real entries. The gathered
+    real cluster); ``valid`` [H] bool marks real entries. ``store`` may
+    be cluster-sharded (a tuple of shards, ``docstore.gather_rows``). The gathered
     rows are exact copies of the source rings (same dtype, same scales,
     same stamps), so a rerank over the tier is bit-identical to one over
     the full store; padded rows get all-dead ids (-1), so ``live_mask``
@@ -296,16 +336,17 @@ def gather_rings(store, clusters: torch.Tensor, valid: torch.Tensor):
     Returns a ``DocStore`` of shape ``[H, depth, ...]`` addressed by tier
     slot — callers route into it with a remapped ``route_labels`` (true
     cluster id -> tier slot, -1 for unpinned)."""
-    idx = clusters.to(torch.int64)
-    tier = docstore.DocStore(*(t.index_select(0, idx) for t in store))
+    tier = docstore.gather_rows(store, clusters)
     return tier._replace(ids=torch.where(valid[:, None], tier.ids, -1))
 
 
 def decode_rerank(store_ids, routes, scores, pos, depth: int, nprobe: int,
-                  store_depth: int | None = None):
+                  store_depth: int | None = None, doc_ids=None):
     """Resolve rerank positions into (scores, rows, doc_ids, clusters);
     rows are flat store positions cluster*store_depth + slot, -1 where
-    dead. ``depth`` is the depth ``pos`` was encoded with."""
+    dead. ``depth`` is the depth ``pos`` was encoded with. ``doc_ids``
+    may come resolved (the sharded rerank reads them on the shard that
+    holds the ring); otherwise they are read from ``store_ids``."""
     if store_depth is None:
         store_depth = depth
     dead = pos < 0
@@ -315,7 +356,8 @@ def decode_rerank(store_ids, routes, scores, pos, depth: int, nprobe: int,
     cluster = torch.gather(routes.to(torch.int64), 1, j)
     cluster = torch.where(dead, -1, cluster)
     cc = torch.clamp(cluster, min=0)
-    doc_ids = torch.where(dead, -1, store_ids[cc, slot])
+    if doc_ids is None:
+        doc_ids = torch.where(dead, -1, store_ids[cc, slot])
     rows = torch.where(dead, -1, cc * store_depth + slot)
     return (scores, rows.to(torch.int32), doc_ids.to(torch.int32),
             cluster.to(torch.int32))

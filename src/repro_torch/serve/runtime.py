@@ -85,8 +85,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import pipeline
 from repro_torch.engine import stages
-from repro_torch.engine.engine import (Engine, ServingSnapshot, _resolve_plan,
-                                       routed_query)
+from repro_torch.engine.engine import Engine, ServingSnapshot, _resolve_plan
 from repro_torch.engine.plan import PlanSpace
 from repro_torch.serve.durability import (DurabilityConfig, DurableIngest,
                                           classify_error)
@@ -406,7 +405,9 @@ class _Published(NamedTuple):
 
 
 class AsyncServer(QueryFrontend):
-    """Background-ingest serving runtime over an ``Engine``.
+    """Background-ingest serving runtime over an ``Engine`` or a
+    ``ShardedEngine`` (built with a huge ``reconcile_every``: the runtime's
+    publish cadence drives its reconciles).
 
     ``ingest`` enqueues a stream batch and returns (a full queue blocks
     the producer, never the query path); the ingest thread applies it and
@@ -475,7 +476,7 @@ class AsyncServer(QueryFrontend):
         self.recovery_report: dict | None = None
         self._docs_ingested = 0             # ingest-thread private
         self._durable = (DurableIngest(
-            durability, cluster_axis=getattr(engine, "ckpt_cluster_axis", 0))
+            durability, cluster_axis=engine.ckpt_cluster_axis)
             if durability is not None else None)
         if self._durable is not None and self._durable.needs_recovery():
             self._recover()  # before the first publish: the initial
@@ -685,6 +686,11 @@ class AsyncServer(QueryFrontend):
         reg, tr = obs.metrics(), obs.tracer()
         span = (tr.span("ingest.publish", cat="ingest")
                 if tr is not None else None)
+        # host-blocking publish prep (the sharded engine's dirty signature
+        # waits on ingest) runs outside the dispatch section, so a
+        # concurrent flush never waits behind it
+        with self._on_ingest_stream():
+            self.engine.prepare_publish()
         t0 = time.perf_counter()
         with self._dispatch.ingest():   # queued flushes go first
             pass
@@ -941,10 +947,8 @@ class AsyncServer(QueryFrontend):
             cold = np.nonzero(~served)[0]
             if cold.size:
                 with self._dispatch.query():
-                    out_c = routed_query(
-                        self.cfg, snap.index, snap.route_labels, snap.store,
-                        self.engine._queries(q[midx[cold]]), k, nprobe_eff,
-                        depth)
+                    out_c = self.engine.routed_query_snapshot(
+                        snap, q[midx[cold]], k, nprobe_eff, depth)
                 sc, rw, di, cl, rt = (a.cpu().numpy() for a in out_c)
                 sel = midx[cold]
                 scores[sel], rows[sel] = sc, rw

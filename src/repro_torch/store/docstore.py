@@ -115,6 +115,104 @@ def add_batch(
     return store._replace(ptr=store.ptr + per_cluster)
 
 
+def merge_stacked(cfg: StoreConfig, stores: DocStore) -> DocStore:
+    """Exact merge of S shard-local stores (leaves stacked on a leading
+    shard axis) into the store one sequential writer would hold.
+
+    Per cluster, the union of the shards' entries is ordered by arrival
+    stamp, dead entries first and ties by (shard, slot) through a stable
+    ascending sort, and the newest ``depth`` survive; the write counter
+    is the shards' sum, and the entries are placed so that the newest
+    sits at slot ``(ptr - 1) % depth``. int8 rows and their scales are
+    gathered, never re-quantized. The cluster count is read from the
+    leaves, so a row subset (the dirty clusters of a delta publish)
+    merges the same way."""
+    if cfg.depth == 0:
+        return DocStore(*(t[0] for t in stores))
+    S, k = stores.ids.shape[0], stores.ids.shape[1]
+    depth, d = cfg.depth, cfg.dim
+    flat = S * depth
+
+    # [k, S*depth] entry tables, shard-major (the tie-break order)
+    ids = stores.ids.transpose(0, 1).reshape(k, flat)
+    stamps = stores.stamps.transpose(0, 1).reshape(k, flat)
+    scales = stores.scales.transpose(0, 1).reshape(k, flat)
+    embs = stores.embs.transpose(0, 1).reshape(k, flat, d)
+
+    key = torch.where(ids >= 0, stamps, -(2**31))         # dead sort first
+    order = torch.argsort(key, dim=1, stable=True)[:, -depth:].to(torch.int64)
+    sel_ids = torch.gather(ids, 1, order)
+    sel_stamps = torch.gather(stamps, 1, order)
+    sel_scales = torch.gather(scales, 1, order)
+    sel_embs = torch.gather(embs, 1, order[..., None].expand(-1, -1, d))
+    live = sel_ids >= 0
+
+    # window position i -> slot (ptr - depth + i) % depth, gathered as
+    # out[:, s] = window[:, (s - ptr) % depth]
+    ptr = stores.ptr[0]
+    for s in range(1, S):
+        ptr = ptr + stores.ptr[s]
+    s_idx = torch.arange(depth, device=ptr.device)[None, :]
+    i = torch.remainder(s_idx - ptr[:, None].to(torch.int64), depth)
+    embs_out = torch.where(live[..., None], sel_embs,
+                           torch.zeros((), dtype=sel_embs.dtype,
+                                       device=sel_embs.device))
+    return DocStore(
+        embs=torch.gather(embs_out, 1, i[..., None].expand(-1, -1, d)),
+        ids=torch.gather(torch.where(live, sel_ids, -1), 1, i),
+        stamps=torch.gather(torch.where(live, sel_stamps, -1), 1, i),
+        ptr=ptr.to(torch.int32),
+        scales=torch.gather(torch.where(live, sel_scales, 0.0), 1, i))
+
+
+def scatter_rows(store: DocStore, rows: DocStore, idx: torch.Tensor) -> DocStore:
+    """``store`` with the per-cluster ``rows`` (a DocStore whose leading
+    axis enumerates the clusters ``idx`` names) written in, as new
+    tensors: the previous snapshot stays as it was. Out-of-range ``idx``
+    entries are dropped (delta publishes scatter only the dirty clusters
+    a store shard owns)."""
+    k = store.ids.shape[0]
+    idx = idx.to(store.ids.device, torch.int64)
+    keep = torch.nonzero((idx >= 0) & (idx < k)).squeeze(1)
+    at = idx[keep]
+    out = []
+    for a, r in zip(store, rows):
+        a = a.clone()
+        a[at] = r.to(a.device)[keep]
+        out.append(a)
+    return DocStore(*out)
+
+
+def shard_slice(cfg: StoreConfig, store: DocStore, shard: int,
+                n_shards: int) -> DocStore:
+    """Cluster range ``[shard*k/n, (shard+1)*k/n)`` of a full store (a
+    view) — one store shard when rings are cluster-sharded."""
+    assert cfg.num_clusters % n_shards == 0, \
+        "num_clusters must divide evenly across store shards"
+    kl = cfg.num_clusters // n_shards
+    return DocStore(*(t[shard * kl:(shard + 1) * kl] for t in store))
+
+
+def gather_rows(store, idx: torch.Tensor) -> DocStore:
+    """Cluster rows ``idx`` (global ids, on the device the result goes
+    to) of a DocStore, or of a cluster-sharded store: a tuple of DocStore
+    shards in shard order, shard m holding clusters ``[m*kl, (m+1)*kl)``.
+    Each shard gives the rows it owns; exact copies either way."""
+    idx = idx.to(torch.int64)
+    if isinstance(store, DocStore):
+        return DocStore(*(t.index_select(0, idx.to(t.device)) for t in store))
+    kl = store[0].ids.shape[0]
+    out = [torch.empty((idx.shape[0],) + t.shape[1:], dtype=t.dtype,
+                       device=idx.device) for t in store[0]]
+    for m, shard in enumerate(store):
+        at = torch.nonzero(torch.div(idx, kl, rounding_mode="floor") == m
+                           ).squeeze(1)
+        rows = idx[at] - m * kl
+        for o, t in zip(out, shard):
+            o[at] = t.index_select(0, rows.to(t.device)).to(o.device)
+    return DocStore(*out)
+
+
 def dequantize(cfg: StoreConfig, store: DocStore) -> torch.Tensor:
     """[k, depth, d] f32 embeddings (``q * scale`` for int8 stores)."""
     if cfg.store_dtype == "int8":

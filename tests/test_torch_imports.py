@@ -26,7 +26,11 @@ def test_port_and_chip_smoke_import_no_jax():
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
-        assert len(names) >= 81, names
+        assert len(names) >= 87, names
+        for name in ("repro_torch.launch.serve", "repro_torch.launch.mesh",
+                     "repro_torch.distributed.collectives",
+                     "repro_torch.engine.sharded"):
+            assert name in names, name
         print(len(names))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -41,6 +45,9 @@ def test_entry_points_run_on_the_card_by_default():
     from repro_torch.configs.streaming_rag import paper_pipeline_config
     from repro_torch.core import pipeline
     from repro_torch.engine.engine import Engine
+    from repro_torch.engine.sharded import ShardedEngine
+    from repro_torch.launch.mesh import make_streaming_mesh
+    from repro_torch.launch.serve import main as launch_serve
     from repro_torch.models.api import get_arch
     from repro_torch.serve.server import RAGServer, ServerConfig
 
@@ -48,14 +55,20 @@ def test_entry_points_run_on_the_card_by_default():
     makers = (lambda: pipeline.init(cfg).route_labels,
               lambda: Engine(cfg).state.route_labels,
               lambda: RAGServer(cfg, ServerConfig(topk=4), seed=0).state.route_labels,
-              lambda: get_arch("mind", smoke=True).init()["item_emb"])
+              lambda: get_arch("mind", smoke=True).init()["item_emb"],
+              lambda: ShardedEngine(cfg, make_streaming_mesh(2, 2)).shards[1].route_labels)
     for make in makers:
         if torch.cuda.is_available():
             assert make().device.type == "cuda"
         else:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make()
+    if not torch.cuda.is_available():   # the launcher: no run on the CPU
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launch_serve(["--batches", "1"])
     assert Engine(cfg, device="cpu").state.route_labels.device.type == "cpu"
+    sharded = ShardedEngine(cfg, make_streaming_mesh(2, 2, "cpu"))
+    assert {s.route_labels.device.type for s in sharded.shards} == {"cpu"}
     assert get_arch("mind", smoke=True).init(device="cpu")["item_emb"].device.type == "cpu"
 
 

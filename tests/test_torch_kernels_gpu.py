@@ -1560,3 +1560,124 @@ def _snap_to(snap, dev):
         route_labels=snap.route_labels.to(dev),
         store=type(snap.store)(*(t.to(dev) for t in snap.store)),
         version=snap.version, published_at=snap.published_at)
+
+
+# ------------------------------------------------------------ sharded
+@pytest.mark.parametrize("quantized", [True, False])
+@pytest.mark.parametrize("Q", [1, 64])
+@pytest.mark.parametrize("M", [2, 4])
+def test_serve_kernel_under_a_localized_label_table(cuda, M, Q, quantized):
+    """The sharded engine's serve call: every shard m of M serves its kl
+    rings under the label table localized to it — a valid slot whose
+    cluster lies on another shard carries label -1 (1/2 and 3/4 of the
+    table away). The kernel keeps such a slot as a dead route position,
+    as the plain version does, never skipping to the next slot."""
+    g = torch.Generator(device=cuda).manual_seed(M * 100 + Q)
+    d, cap, C, D, P, k = 384, 4218, 4218, 64, 8, 10
+    kl = C // M
+    v = l2_normalize(torch.randn((cap, d), generator=g, device=cuda))
+    valid = torch.rand((cap,), generator=g, device=cuda) < 0.9
+    labels = torch.randperm(C, generator=g, device=cuda).int()
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
+    embs, live, scales = _ring_store(g, kl, D, d, quantized)
+    routes = []
+    for m in range(M):
+        local = torch.where((labels >= m * kl) & (labels < (m + 1) * kl),
+                            labels - m * kl, -1).int()
+        assert float((local < 0).float().mean()) >= (M - 1) / M - 0.01
+        s_k, p_k, r_k = _hold_serve(q, v, valid, local, embs, live, k, P, scales)
+        assert r_k.shape == (Q, P)
+        routes.append(torch.where(r_k >= 0, r_k + m * kl, -1))
+    # each route position is live on exactly one shard: their max is the
+    # global route list, the table's labels of the top-P valid slots
+    glob = torch.stack(routes).max(dim=0).values
+    assert bool(((torch.stack(routes) >= 0).sum(0) <= 1).all())
+    top = torch.sort(torch.where(valid[None], q @ v.T, NEG_INF), dim=1,
+                     descending=True, stable=True).indices[:, :P]
+    want = labels[top]
+    assert int((glob == want).all(dim=1).sum()) >= Q - 1   # a near-tie at most
+
+
+@pytest.mark.parametrize("M", [2, 4])
+def test_rerank_kernel_under_localized_routes(cuda, M):
+    """The staged sharded stage 2: global routes localized to each shard
+    (other shards' clusters -1), reranked over the shard's rings."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    Q, d, C, D, P, k = 64, 384, 4218, 64, 8, 10
+    kl = C // M
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
+    embs, live, scales = _ring_store(g, kl, D, d, True)
+    routes = torch.randint(0, C, (Q, P), generator=g, device=cuda).int()
+    for m in range(M):
+        local = torch.where((routes >= m * kl) & (routes < (m + 1) * kl),
+                            routes - m * kl, -1).int()
+        s_k, p_k = _hold_rerank(q, embs, live, local, k, scales)
+        dead = (local < 0).all(dim=1)
+        assert bool((p_k[dead] == -1).all())
+
+
+@pytest.mark.parametrize("store_dtype", ["int8", "fp32"])
+def test_sharded_engine_on_card_matches_single_device(cuda, store_dtype):
+    """A 2 x 2 ShardedEngine on the card (every shard on one device):
+    each data shard's state equals a single-device Engine replaying its
+    sub-stream from ``shard_init_state``, bit for bit; the published
+    snapshot equals ``reconcile_states``; fused and staged two-stage and
+    prototype-only answers equal the single-device query over the merged
+    snapshot (near-tie rule); admit and heavy_hitter launch twice a
+    batch, serve twice a fused flush, rerank twice a staged one."""
+    from repro_torch.configs.streaming_rag import paper_pipeline_config
+    from repro_torch.engine.engine import Engine, snapshot_query_impl
+    from repro_torch.engine.sharded import ShardedEngine, reconcile_states
+    from repro_torch.kernels import counts
+    from repro_torch.launch.mesh import make_streaming_mesh
+    from repro_torch.store import docstore
+
+    cfg = paper_pipeline_config(dim=64, k=64, capacity=48, store_depth=8,
+                                update_interval=64, alpha=0.0,
+                                store_dtype=store_dtype)
+    rng = np.random.default_rng(0)
+    warm = rng.normal(size=(64, 64)).astype(np.float32)
+    eng = ShardedEngine(cfg, make_streaming_mesh(2, 2), 0, warmup=warm,
+                        reconcile_every=10**9, reconcile_mode="delta")
+    singles = [Engine(cfg, state=ShardedEngine.shard_init_state(
+        cfg, 0, s, 2, warm)) for s in range(2)]
+    sharded = {"admit": 0, "heavy_hitter": 0}
+    for step in range(4):
+        x = rng.normal(size=(64, 64)).astype(np.float32)
+        ids = np.arange(step * 64, step * 64 + 64, dtype=np.int32)
+        counts.reset_all()
+        eng.ingest(x, ids)
+        for name in sharded:
+            sharded[name] += counts.COUNTS[name].kernel
+        for s, single in enumerate(singles):
+            single.ingest(x[s * 32:(s + 1) * 32], ids[s * 32:(s + 1) * 32])
+        eng.reconcile()
+    snap = eng.serving
+    assert sharded == {"admit": 8, "heavy_hitter": 8}, sharded
+    from repro_torch.train import checkpoint as ckpt_lib
+    for s, single in enumerate(singles):
+        fa = ckpt_lib.flatten_tree(single.state)
+        fb = ckpt_lib.flatten_tree(eng.shards[s])
+        assert [k for k in fa if not torch.equal(
+            torch.as_tensor(ckpt_lib.to_host(fa[k])),
+            torch.as_tensor(ckpt_lib.to_host(fb[k])))] == []
+    oracle = reconcile_states(cfg, [single.state for single in singles])
+    full = docstore.DocStore(*(torch.cat(ts) for ts in zip(*snap.store)))
+    for a, b in zip((*oracle.index[:3], oracle.route_labels, *oracle.store),
+                    (*snap.index[:3], snap.route_labels, *full)):
+        assert torch.equal(a, b)
+    q = torch.from_numpy(rng.normal(size=(64, 64)).astype(np.float32)).cuda()
+    for two, staged, name, n in ((True, False, "serve", 2), (True, True, "rerank", 2),
+                                 (False, False, "mips", 1)):
+        before = counts.COUNTS[name].kernel
+        got = eng.query_snapshot(snap, q, 10, two_stage=two, nprobe=8,
+                                 staged=staged)
+        assert counts.COUNTS[name].kernel == before + n
+        want = snapshot_query_impl(cfg, snap.index, snap.route_labels, full, q, 10,
+                                   two_stage=two, nprobe=8)
+        assert _close(got[0], want[0])
+        gap = torch.cat([want[0][:, :-1] - want[0][:, 1:],
+                         torch.full_like(want[0][:, :1], np.inf)], dim=1)
+        tie = (gap < TIE) | torch.cat([torch.zeros_like(gap[:, :1], dtype=torch.bool),
+                                       gap[:, :-1] < TIE], dim=1)
+        assert bool(((got[2] == want[2]) | tie).all()), name
