@@ -20,7 +20,10 @@
    same way, with their edge cases: a depth-32 strided ring view, fp32
    rings, dead and duplicate routes, k above the live count; a zero
    basis row and a batch off the rows a block takes; K = 4218 and B = 1.
-   Admit is also held with live=None (every row live). Admit's two
+   Admit is also held with live=None (every row live). Serve's route-only
+   entry (the serving cache's route witness) must give the fused kernel's
+   routes bit for bit, and agree with its plain version under the
+   near-tie rule. Admit's two
    launches (prologue, tile kernel), mips's (score-and-select, merge) and
    serve's (route tiles, routed rerank) are timed apart; assign's, admit's and prefilter's kernels per
    call are listed as torch.profiler records them, and the launch floor
@@ -84,14 +87,17 @@
    over a pool of 512 stream queries run, then 16 flushes with ingest
    idle, then a batch of padding rows (doc id -1: a publish that moves no
    cluster, so every entry survives it) and the last idle round once
-   more; counts reset just before: mips launches once per flush that had
-   pending queries (the route pass), the heavy-hitter kernel once per such
-   flush on the query stream beside once per ingest batch, serve for the
-   cold and hot sub-batches, no plain version. Every ticket is answered
+   more; counts reset just before: serve's route-only entry launches once
+   per flush that had pending queries (the route pass; mips never), the
+   heavy-hitter kernel once per such flush on the query stream beside once
+   per ingest batch, serve for the cold and hot sub-batches, no plain
+   version; no route order is left unwitnessed and no served row's routes
+   differ from the pass's. Every ticket is answered
    once and every answer equals, bit for bit (scores, doc ids, clusters),
    its query served alone by ``engine.query_snapshot`` on the recorded
-   snapshot it names; hits, hot-tier serves, tier rebuilds, re-keyed
-   entries and route-checked hits must be non-zero. Every query-side
+   snapshot it names; hits, hot-tier serves, tier rebuilds and re-keyed
+   entries must be non-zero, and the route-checked hits at least the 59
+   the mips witness with its near-tie margin gave. Every query-side
    counter update the path made (the state before it, its signatures) is
    run again through the kernel and its plain loop, every leaf equal; every
    tier serve (the tier's rings and remapped route labels, the queries) is
@@ -100,10 +106,10 @@
    beside the same idle draws uncached on the same snapshot, the hit
    rate, the route-free exact and the route-checked hits, what the route
    check met before the clean publish (hits, routes moved, orders a
-   near-tie left open), why the route witness leaves a pool query open on
-   the last snapshot, hot-served, pinned bytes, the rows where the route
-   pass and the served routes differed, and the query-side counter's
-   device ms a call.
+   near-tie left open: 0), the witness over the 512-query pool on the last
+   snapshot (its routes must equal the served routes bit for bit; the
+   near-ties among them are printed), hot-served, pinned bytes, and the
+   query-side counter's device ms a call.
 4d. Durable async path (after 4c): first, two engines ingest the 16 batches and
    must end bit-equal (ingest is deterministic on the card). Then a
    durable ``AsyncServer`` (journal + checkpoints every 4 applied batches,
@@ -182,7 +188,31 @@
    scores alone are 84 GB, more than the card holds); each one's retrieved
    scores and ids are held against plain mips + stable top-k on the
    queries and table its retrieve hands mips (FM's [1,000,000, 11] table).
-7. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
+7. Comparison path (after 4f): the eight methods of ``core/baselines.py``
+   at the tables' settings (``benchmarks/common.py::default_methods``:
+   static capacity 1024, full rebuild buffer 1024 k 100 every 256,
+   reservoir 256, heap-only 512 anchors capacity 100, IVF-PQ 2048 / 32
+   cells / m 8 / nprobe 8, SAKR k 100 capacity 100, streaming k 150
+   capacity 100 every 256 alpha 0.1; table 14's two-stage: depth 16,
+   nprobe 16) at d = 384 replay one NYT-like stream: 2 warmup batches of
+   256, then 24, a round of 50 queries every 4. Counts reset just before
+   each method: mips once a round for the flat-index methods and the
+   prototype-only pipelines, serve once a round two-stage, admit and
+   heavy_hitter once a batch through the pipelines, heavy_hitter once a
+   batch for heap-only, none for IVF-PQ, no plain version. Each method's
+   last round is held against the same state queried through the plain
+   versions (IVF-PQ: on the CPU) under the near-tie rule; every admit call
+   of the pipelines under the near-tie rule, every heavy-hitter call of
+   heap-only and SAKR against the plain loop, bit for bit. Printed per
+   method: ingest ms/batch (median, host clock around ``synchronize()``),
+   query ms a round, ``memory_bytes()``, Recall@10 and nDCG@10 against an
+   exact oracle over every document streamed (diagnostics, no limits);
+   the retrieval bound (``theory.check_bound``) on the streaming method's
+   final state; table 13's QA (a fact stream over the BTC-like stream, 64
+   entities, 40 batches of 128, 60 questions, each answered): EM, F1 and
+   ROUGE-L, static (capacity 1024) against streaming (k 150, capacity
+   100, every 128, alpha 0.1).
+8. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository beside it.
@@ -206,8 +236,9 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
 from repro_torch.configs.streaming_rag import paper_pipeline_config  # noqa: E402
-from repro_torch.core import heavy_hitter, pipeline  # noqa: E402
+from repro_torch.core import baselines, heavy_hitter, pipeline, theory  # noqa: E402
 from repro_torch.core import index as index_lib  # noqa: E402
+from repro_torch.data.qa import FactStream, exact_match, rouge_l, token_f1  # noqa: E402
 from repro_torch.data.streams import make_stream  # noqa: E402
 from repro_torch.engine import stages  # noqa: E402
 from repro_torch.engine.engine import (Engine, ingest_impl,  # noqa: E402
@@ -232,8 +263,9 @@ from repro_torch.kernels.prefilter.prefilter import prefilter_scores_cuda  # noq
 from repro_torch.kernels.prefilter.ref import prefilter_scores_ref  # noqa: E402
 from repro_torch.kernels.rerank.ref import rerank_topk_ref  # noqa: E402
 from repro_torch.kernels.rerank.rerank import rerank_topk_cuda  # noqa: E402
-from repro_torch.kernels.serve.ref import serve_topk_ref  # noqa: E402
-from repro_torch.kernels.serve.serve import serve_launcher, serve_topk_cuda  # noqa: E402
+from repro_torch.kernels.serve.ref import serve_routes_ref, serve_topk_ref  # noqa: E402
+from repro_torch.kernels.serve.serve import (serve_launcher, serve_routes_cuda,  # noqa: E402
+                                             serve_topk_cuda)
 from repro_torch.models import recsys  # noqa: E402
 from repro_torch.models.api import get_arch  # noqa: E402
 from repro_torch.models.testing import assert_finite, dummy_batch  # noqa: E402
@@ -263,8 +295,11 @@ SOURCES = {"admit": "src/repro/kernels/admit/admit.py:177",
            "prefilter": "src/repro/kernels/prefilter/prefilter.py:58",
            "assign": "src/repro/kernels/assign/assign.py:78",
            "bag": "src/repro/kernels/bag/bag.py:72",
+           # serve.cu's route-only entry: stage 1 of serve_topk_pallas
+           "serve_route": "src/repro/kernels/serve/serve.py:230",
            # port-side: no pallas_call; the reference's lax.scan of update_one
            "heavy_hitter": "src/repro/core/heavy_hitter.py:289"}
+CSRC_OF = {"serve_route": "serve"}   # a kernel whose source is another's file
 RECSYS_STEPS = ("serve_p99", "serve_bulk", "retrieval_cand")
 LOOP_INGEST_MS = 250.59   # fused ingest ms/batch with the per-arrival loop in place
 #                           of the heavy-hitter kernel (PERF.md; H100 80GB HBM3, 700 W)
@@ -274,6 +309,10 @@ ASYNC_PUBLISH_EVERY = 4
 # larger than the cache; 8 MB of pinned tier = 256 clusters of 25,348 B
 CACHE_ENTRIES, CACHE_POOL, CACHE_ZIPF, CACHE_IDLE_FLUSHES = 384, 512, 1.1, 16
 PIN_BUDGET_MB, HOT_CAPACITY, HOT_REFRESH = 8.0, 64, 8
+# route-checked hits on this path when the witness was the mips pass with a
+# near-tie margin (five runs, H100 80GB HBM3 at 700 W; PERF.md): serve's own
+# route pass verifies at least those
+PARENT_ROUTE_CHECKED = 59
 # the durable path (4d): checkpoint every 4 applied batches, the ingest
 # thread killed at admit hit 11 (batch seq 10)
 DURABLE_EVERY, DURABLE_CRASH_AT = 4, 11
@@ -285,6 +324,12 @@ LAUNCH_FLAGS = ("--mesh", "2,2", "--two-stage", "--async", "--cache-entries", "3
                 "--hotset", "--dim", "384", "--store-depth", "64", "--store-dtype", "int8",
                 "--batches", "16", "--batch", "256", "--qps", "64")
 LAUNCH_TIMEOUT_S = 300
+# the comparison path (7): the tables' methods at d = 384 over the NYT-like
+# stream, 2 warmup batches then 24, a round of 50 queries every 4 batches;
+# table 13's QA protocol (40 batches of 128, 60 questions, 20 topics)
+CMP_DIM, CMP_WARM, CMP_BATCHES, CMP_ROUND_EVERY, CMP_QUERIES = 384, 2, 24, 4, 50
+CMP_NPROBE = 16   # table 14's two-stage
+QA_BATCHES, QA_BATCH, QA_QUESTIONS, QA_ENTITIES, QA_TOPICS = 40, 128, 60, 64, 20
 # BERT4Rec's serve_bulk attention scores: 262144 x 2 heads x 200 x 200 fp32
 BERT4REC_BULK_SKIP = ("bert4rec serve_bulk skipped on one card: its attention "
                       "scores [262144, 2, 200, 200] fp32 alone are 84 GB (the "
@@ -422,7 +467,10 @@ def hold_admit(out_k, out_p, x, cent, alpha, store_dtype, chk: Check):
         half = (z - z.floor() - 0.5).abs() < 1e-4
         diff = v_k.int() - v_p.int()
         chk.decisions("int8 rows", diff != 0, (diff.abs() == 1) & half)
-    else:
+    elif (v_k is None) != (v_p is None):
+        chk.fail.append(f"rows: kernel gave {'none' if v_k is None else 'some'}, "
+                        f"plain {'none' if v_p is None else 'some'}")
+    elif v_p is not None:   # a store of depth 0 asks for no rows
         chk.floats("rows", v_k, v_p)
 
 
@@ -536,13 +584,12 @@ def check_serve(qr, qn, vectors, valid, labels, embs, live, scales, k, nprobe,
     return out_k
 
 
-def hold_answers(qr, qn, vectors, valid, embs, live, scales, got, want, chk: Check):
-    """Two-stage answers ``got`` = (scores, pos, routes) against ``want``
-    on the same index and rings, under the near-tie rule."""
-    nprobe = got[2].shape[1]
-    (s_k, p_k, r_k), (s_p, p_p, r_p) = got, want
-    # routes: a mismatch is allowed only after a near-tie among the plain
-    # route scores up to that probe
+def hold_routes(qr, vectors, valid, r_k, r_p, chk: Check) -> torch.Tensor:
+    """Routes ``r_k`` against ``r_p`` on the same index: a query's routes
+    may differ only after a near-tie among the plain route scores up to
+    the first probe where they do. Returns the queries whose routes
+    differ."""
+    nprobe = r_k.shape[1]
     rs = torch.sort(plain_route_scores(qr, vectors, valid), dim=1,
                     descending=True).values[:, :nprobe + 1]
     gaps = (rs[:, :-1] - rs[:, 1:]) < TIE
@@ -550,7 +597,14 @@ def hold_answers(qr, qn, vectors, valid, embs, live, scales, got, want, chk: Che
     tie_q = torch.cumsum(gaps.int(), dim=1).gather(1, first[:, None])[:, 0] > 0
     route_diff = (r_k != r_p).any(dim=1)
     chk.decisions("routes", route_diff, tie_q)
-    same = ~route_diff
+    return route_diff
+
+
+def hold_answers(qr, qn, vectors, valid, embs, live, scales, got, want, chk: Check):
+    """Two-stage answers ``got`` = (scores, pos, routes) against ``want``
+    on the same index and rings, under the near-tie rule."""
+    (s_k, p_k, r_k), (s_p, p_p, r_p) = got, want
+    same = ~hold_routes(qr, vectors, valid, r_k, r_p, chk)
     # positions: where routes agree, the pick must score (under the plain
     # scoring of that ring entry) within TIE of the reference's pick
     entry = entry_scores(qn, embs, live, scales, r_k, p_k)
@@ -566,6 +620,25 @@ def serve_bound(Q, d, cap, routes, depth, nprobe, k, itemsize, int8):
     nbytes = 2 * Q * d * 4 + cap * (d * 4 + 5) + distinct * ring + Q * (k * 8 + nprobe * 4)
     flops = 2.0 * Q * (cap + nprobe * depth) * d
     return bound(flops, nbytes)
+
+
+def check_serve_routes(qr, vectors, valid, labels, fused_routes, nprobe, chk: Check):
+    """The route-only entry against the fused kernel's routes on the same
+    index (bit for bit: one computation) and its plain version (the
+    near-tie rule)."""
+    r_k = serve_routes_cuda(qr, vectors, valid, labels, nprobe)
+    r_p = serve_routes_ref(qr, vectors, valid, labels, nprobe)
+    torch.cuda.synchronize()
+    if not torch.equal(r_k, fused_routes):
+        chk.fail.append(f"{int((r_k != fused_routes).any(dim=1).sum())} queries routed "
+                        "otherwise than the fused kernel routes them")
+    hold_routes(qr, vectors, valid, r_k, r_p, chk)
+    return r_k
+
+
+def route_bound(Q, d, cap, nprobe):
+    """Bytes: the queries, the index (rows, valid, labels) and the routes."""
+    return bound(2.0 * Q * cap * d, 4 * Q * d + cap * (4 * d + 5) + 4 * Q * nprobe)
 
 
 def synthetic_store(C, depth, d, int8, gen, fill=0.6):
@@ -1117,6 +1190,15 @@ def phase_kernels(results: dict):
     dead = int((out[2] < 0).any(dim=1).sum())
     check_serve(q, q, vectors, valid, labels, embs[:, :32], live_r[:, :32],
                 scales[:, :32], TOPK, NPROBE, chk)
+    chk_r = Check("serve_route")
+    check_serve_routes(q, vectors, valid, labels, out[2], NPROBE, chk_r)
+    chk_r.done("== fused routes, vs plain")
+    ms_r, host_r = cuda_ms(lambda: serve_routes_cuda(q, vectors, valid, labels, NPROBE))
+    plain_r, _ = cuda_ms(lambda: serve_routes_ref(q, vectors, valid, labels, NPROBE))
+    b_ms, b_by = route_bound(QUERIES, d, K, NPROBE)
+    results["serve_route"] = dict(max_abs_err=chk_r.err, ms=ms_r, plain_ms=plain_r,
+                                  bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                                  host_ms=host_r)
     ms, host = cuda_ms(lambda: serve_topk_cuda(q, q, vectors, valid, labels, embs,
                                                live_r, TOPK, NPROBE, scales))
     plain, _ = cuda_ms(lambda: serve_topk_ref(q, q, vectors, valid, labels, embs,
@@ -1135,7 +1217,7 @@ def phase_kernels(results: dict):
     chk.done(f"int8 d64 + view d32 + fp32 d16, {dead} q w/ dead routes")
     results["serve"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain,
                             bound_ms=b_ms, bound_by=b_by, library_ms=None, host_ms=host)
-    print("  admit and serve: no single PyTorch call computes the same "
+    print("  admit, serve and serve_route: no single PyTorch call computes the same "
           "function (library_ms null)")
     check_stage_kernels(results, x, st, alpha, q, vectors, valid, labels, gen)
     return stream, warm
@@ -1845,26 +1927,20 @@ def check_tier_serves(cfg, calls, chk: Check) -> int:
     return n
 
 
-def route_tie_census(cfg, snap, q) -> str:
-    """Which of the queries ``q`` the route witness leaves open on
-    ``snap``, and why: for each, the closest pair among its top NPROBE + 1
-    route scores; ties between bitwise-identical prototypes apart."""
-    _, clear = stages.route_witnessed(cfg.index, snap.index, snap.route_labels, q, NPROBE)
-    sc, slots, _ = index_lib.search(cfg.index, snap.index, q, NPROBE + 1)
+def route_witness_census(cfg, eng, snap, q) -> str:
+    """The route witness on ``snap`` for the queries ``q``: its routes must
+    equal, bit for bit, the routes the fused serve kernel serves them
+    through, near-ties among their top NPROBE + 1 route scores included
+    (how many hold one is reported)."""
+    routes = stages.route_witnessed(cfg.index, snap.index, snap.route_labels, q, NPROBE)
+    served = eng.routed_query_snapshot(snap, q, TOPK, NPROBE)[4].cpu().numpy()
+    assert np.array_equal(routes, served), \
+        f"{int((routes != served).any(axis=1).sum())} queries: witness != served routes"
+    sc, _, _ = index_lib.search(cfg.index, snap.index, q, NPROBE + 1)
     gaps = torch.where(sc[:, :-1] > NEG_INF / 2, sc[:, :-1] - sc[:, 1:], float("inf"))
-    j = torch.argmin(gaps, dim=1)
-    a = slots.gather(1, j[:, None])[:, 0].long()
-    b = slots.gather(1, j[:, None] + 1)[:, 0].long()
-    v = snap.index.vectors
-    same = (v[a] == v[b]).all(dim=1)
-    g = gaps.gather(1, j[:, None])[:, 0]
-    op = torch.from_numpy(~clear).to(g.device)
-    rest = g[op & ~same]
-    return (f"{int(op.sum())} of {q.shape[0]} left open: {int((op & same).sum())} by "
-            f"bitwise-identical prototypes (a tie every kernel breaks alike), "
-            f"{rest.numel()} by closest gaps "
-            f"{', '.join(f'{x:.2e}' for x in sorted(rest.tolist())[:6])}"
-            f"{' ...' if rest.numel() > 6 else ''}; "
+    return (f"witness == served routes for all {q.shape[0]}; "
+            f"{int((gaps < TIE).any(dim=1).sum())} hold a near-tie (gap < {TIE:g}) "
+            f"among their top {NPROBE + 1} route scores; "
             f"{int(torch.sum(snap.index.valid))} valid prototypes")
 
 
@@ -1919,7 +1995,7 @@ def phase_cached(stream, warm, batches, results):
             flush_round(rounds[r])
         before = cache.stats()
         found = dict(hit=before["hits"] - before["hits_exact"],
-                     routes_moved=cache.routes_moved, near_tie=cache.unwitnessed)
+                     routes_moved=cache.routes_moved, near_tie=server.route_near_ties)
         server.ingest(pad_batch["embedding"], pad_batch["doc_id"])
         server.sync(timeout=300)
         clean_publish = dict(eng.last_publish_info)
@@ -1937,17 +2013,25 @@ def phase_cached(stream, warm, batches, results):
           f"launches {launches}")
     assert sorted(a["ticket"] for a in answers) == sorted(asked), "a ticket lost or repeated"
     assert len(answers) == QUERIES * (len(rounds) + 1)
-    for name in ("mips", "serve", "heavy_hitter"):
+    for name in ("serve_route", "serve", "heavy_hitter"):
         assert launches[name]["kernel"] > 0, f"{name} never launched on the cached path"
-    # one route pass (mips) and one query-side counter update a flush that
-    # had pending queries, beside one counter update per ingest batch
-    assert launches["heavy_hitter"]["kernel"] == ingested + launches["mips"]["kernel"]
-    assert launches["mips"]["kernel"] == len(observed) <= len(rounds) + 1
+    # one route pass (serve's route-only entry) and one query-side counter
+    # update a flush that had pending queries, beside one counter update
+    # per ingest batch
+    assert launches["heavy_hitter"]["kernel"] == ingested + launches["serve_route"]["kernel"]
+    assert launches["serve_route"]["kernel"] == len(observed) <= len(rounds) + 1
+    assert launches["mips"]["kernel"] == 0, launches["mips"]
+    results["serve_route"]["launches"] = launches["serve_route"]["kernel"]
+    # the witness is serve's own stage 1: nothing is left unwitnessed, and
+    # every served row's routes are the pass's
+    assert server.route_near_ties == 0 and server.route_mismatches == 0, \
+        (server.route_near_ties, server.route_mismatches)
     assert launches["admit"]["kernel"] == ingested
     assert all(c["plain"] == 0 for c in launches.values()), "a plain version ran"
     assert cs["hits"] > 0 and cs["hot_served"] > 0 and cs["tier_rebuilds"] > 0, cs
     assert clean_publish["mode"] == "republish", clean_publish
-    assert rs["rekeyed"] > before["rekeyed"] and route_checked > 0, rs
+    assert rs["rekeyed"] > before["rekeyed"] and route_checked >= PARENT_ROUTE_CHECKED, \
+        (route_checked, rs)
     # every answer: its query alone on the snapshot it names, bit for bit
     for a in answers:
         snap = eng.published[a["snapshot_version"]]
@@ -1958,8 +2042,8 @@ def phase_cached(stream, warm, batches, results):
                 and np.array_equal(a["clusters"], cl[0].cpu().numpy())):
             raise AssertionError(f"ticket {a['ticket']}: not its snapshot's answer")
     answers_ok(answers, TOPK)
-    ties = route_tie_census(cfg, eng.published[max(eng.published)],
-                            torch.from_numpy(np.asarray(pool, np.float32)).cuda())
+    ties = route_witness_census(cfg, eng, eng.published[max(eng.published)],
+                                torch.from_numpy(np.asarray(pool, np.float32)).cuda())
     # the query-side counter: the kernel against its plain loop on every
     # update the path made (the state before it, its padded signatures,
     # explicit draws: MIN_EVICT at admit_prob 1 lets no draw decide)
@@ -2013,6 +2097,8 @@ def phase_cached(stream, warm, batches, results):
           f"{QUERIES}); before it, the route check met a re-keyed entry "
           f"{sum(found.values())} times: {found}")
     print(f"  route witness over the {CACHE_POOL}-query pool on the last snapshot: {ties}")
+    print(f"  route-checked hits {route_checked}, at least the {PARENT_ROUTE_CHECKED} the "
+          f"mips witness with its near-tie margin gave on this path")
     print(f"  flush ms cached: while ingest runs p50 {np.percentile(during, 50):.3f} p99 "
           f"{np.percentile(during, 99):.3f}; ingest idle p50 {np.percentile(idle, 50):.3f} "
           f"p99 {np.percentile(idle, 99):.3f}; uncached, the same idle draws on the same "
@@ -2409,6 +2495,232 @@ def phase_launcher():
           f"{first['serving cache']}; hot tier {first['hot tier']} (no query repeats)")
 
 
+# -------------------------------------------------------------- comparison
+def comparison_methods(d: int) -> dict:
+    """name -> (Method, its config) at the settings the tables compare the
+    methods at: ``benchmarks/common.py::default_methods`` and table 14's
+    two-stage config (store depth 16, nprobe 16)."""
+    cfg = paper_pipeline_config(dim=d, k=150, capacity=100, update_interval=256, alpha=0.1)
+    cfg2 = paper_pipeline_config(dim=d, k=150, capacity=100, update_interval=256,
+                                 alpha=0.1, store_depth=16)
+    ivf = index_lib.IVFPQConfig(capacity=2048, dim=d, nlist=32, m=8, nprobe=8)
+    ms = [(baselines.make_static_rag(d, capacity=1024), None),
+          (baselines.make_full_rebuild(d, buffer_size=1024, k=100, rebuild_interval=256),
+           None),
+          (baselines.make_reservoir(d, k=256), None),
+          (baselines.make_heap_only(d, n_anchors=512, capacity=100), None),
+          (baselines.make_ivfpq(d, capacity=ivf.capacity, nlist=ivf.nlist, m=ivf.m,
+                                nprobe=ivf.nprobe), ivf),
+          (baselines.make_sakr(d, k=100, capacity=100), None),
+          (baselines.make_streaming_rag(cfg), cfg),
+          (baselines.make_streaming_rag_two_stage(cfg2, nprobe=CMP_NPROBE), cfg2)]
+    return {m.name: (m, c) for m, c in ms}
+
+
+def comparison_launches(name: str, ingests: int, rounds: int) -> dict[str, int]:
+    """The kernel launches a method's run must make: mips once a round over
+    a flat index (the baselines' and the prototype-only pipelines'), serve
+    once a round two-stage, admit and heavy_hitter once a batch through the
+    pipeline, heavy_hitter once a batch for heap-only; IVF-PQ none."""
+    want = {n: 0 for n in counts.COUNTS}
+    if name in ("static_rag", "full_rebuild", "reservoir", "heap_only", "sakr",
+                "streaming_rag"):
+        want["mips"] = rounds
+    if name == "streaming_rag_2stage":
+        want["serve"] = rounds
+    if name in ("heap_only", "sakr", "streaming_rag", "streaming_rag_2stage"):
+        want["heavy_hitter"] = ingests
+    if name in ("sakr", "streaming_rag", "streaming_rag_2stage"):
+        want["admit"] = ingests
+    return want
+
+
+def plain_method_answer(name: str, cfg, st, q):
+    """The method's answer on its state through the plain versions (IVF-PQ,
+    plain PyTorch on both devices, on the CPU)."""
+    if name == "ivfpq_incremental":
+        host = st.index._replace(**{f: getattr(st.index, f).cpu()
+                                    for f in ("coarse", "codebooks", "codes", "cell",
+                                              "ids", "valid")})
+        return index_lib.ivfpq_search(cfg, host, q.cpu(), TOPK)
+    qn = l2_normalize_queries(q)
+    if name == "streaming_rag_2stage":
+        scales = st.store.scales if st.store.embs.dtype == torch.int8 else None
+        s_p, pos, routes = serve_topk_ref(qn, qn, st.index.vectors, st.index.valid,
+                                          st.route_labels, st.store.embs,
+                                          docstore.live_mask(st.store), TOPK, CMP_NPROBE,
+                                          scales)
+        return stages.decode_rerank(st.store.ids, routes, s_p, pos, cfg.store_depth,
+                                    CMP_NPROBE)[:3]
+    s_p, rows = mips_topk_ref(qn, st.index.vectors, st.index.valid, TOPK)
+    return s_p, rows, st.index.ids[rows.long()]
+
+
+def recall_ndcg(qv, doc_ids, V, T, o_ids, o_sc, k=TOPK) -> tuple[float, float]:
+    """Recall@k (topic coverage against the exact oracle's top-k) and
+    nDCG@k (graded relevance max(cos, 0) over the oracle's ideal DCG), as
+    the repo's tables define them."""
+    N = len(T)
+    rec, rels = [], np.zeros((len(qv), k))
+    for i in range(len(qv)):
+        o_t = {t for t in T[o_ids[i]] if t >= 0}
+        got = [int(d) for d in doc_ids[i] if 0 <= d < N]
+        rec.append(len(o_t & {T[d] for d in got if T[d] >= 0}) / max(len(o_t), 1))
+        for j, d in enumerate(doc_ids[i][:k]):
+            if 0 <= d < N:
+                rels[i, j] = float(qv[i] @ V[int(d)])
+    disc = 1.0 / np.log2(np.arange(2, k + 2))
+    dcg = np.sum(np.maximum(rels, 0.0) * disc, axis=1)
+    idcg = np.sum(np.maximum(o_sc, 0.0) * disc, axis=1)
+    return float(np.mean(rec)), float(np.mean(dcg / np.maximum(idcg, 1e-9)))
+
+
+def qa_run(method, d: int) -> dict:
+    """Table 13's protocol on the card: a fact stream over the BTC-like
+    stream, warmup then QA_BATCHES batches, QA_QUESTIONS questions asked
+    one at a time, summaries of the busiest topics."""
+    fs = FactStream(make_stream("btc", dim=d, seed=SEED), n_entities=QA_ENTITIES, seed=SEED)
+    warm = fs.next_batch(QA_BATCH)
+    st = method.init(SEED, warm["embedding"], device="cuda")
+    st = method.ingest(st, warm["embedding"], warm["doc_id"])
+    for _ in range(QA_BATCHES):
+        b = fs.next_batch(QA_BATCH)
+        st = method.ingest(st, b["embedding"], b["doc_id"])
+    qs = fs.qa_queries(QA_QUESTIONS)
+    assert len(qs) == QA_QUESTIONS, len(qs)
+    em, f1, rl = [], [], []
+    for q in qs:
+        ids = method.query(st, q["embedding"][None], TOPK)[2].cpu().numpy()
+        assert ids.shape == (1, TOPK) and (ids >= 0).any(), f"{q['question']} unanswered"
+        pred = fs.read(q, ids)
+        em.append(exact_match(pred, q["answer"]))
+        f1.append(token_f1(f"value is {pred}", f"value is {q['answer']}"))
+    for t in sorted({fs.entity_topic[q["entity"]] for q in qs})[:QA_TOPICS]:
+        qv = (fs.base.means[t] / np.linalg.norm(fs.base.means[t])).astype(np.float32)
+        ref = fs.summary_reference(int(t))
+        if ref:
+            rl.append(rouge_l(fs.summarize(int(t), method.query(st, qv[None], TOPK)[2]
+                                           .cpu().numpy()), ref))
+    return dict(EM=float(np.mean(em)), F1=float(np.mean(f1)),
+                ROUGE_L=float(np.mean(rl)) if rl else 0.0, questions=len(qs))
+
+
+def phase_comparison():
+    """7. The paper's comparison path: the eight methods at the tables'
+    settings, d = 384, over one replayed stream; launch counts per method;
+    answers, admit and heavy-hitter calls held against the plain versions;
+    Recall@10 / nDCG@10 against an exact oracle; table 13's QA; the
+    retrieval bound on the streaming method's final state."""
+    from repro_torch.kernels.heavy_hitter import ops as hh_ops
+
+    d = CMP_DIM
+    stream = make_stream("nyt", dim=d, seed=SEED)
+    warm = [stream.next_batch(BATCH) for _ in range(CMP_WARM)]
+    batches, rounds = [], []
+    for i in range(CMP_BATCHES):
+        batches.append(stream.next_batch(BATCH))
+        if (i + 1) % CMP_ROUND_EVERY == 0:
+            rounds.append(stream.queries(CMP_QUERIES)["embedding"])
+    arc = warm + batches
+    V_all = np.concatenate([b["embedding"] for b in arc])
+    T_all = np.concatenate([b["topic"] for b in arc])
+    assert np.array_equal(np.concatenate([b["doc_id"] for b in arc]), np.arange(len(T_all)))
+    # the exact oracle of each round over every document streamed before it
+    oracle, V_dev = [], torch.from_numpy(V_all).cuda()
+    for r, q in enumerate(rounds):
+        n = (CMP_WARM + (r + 1) * CMP_ROUND_EVERY) * BATCH
+        o_sc, o_ids = stable_topk(torch.from_numpy(q).cuda() @ V_dev[:n].T, TOPK)
+        oracle.append((n, o_ids.cpu().numpy(), o_sc.cpu().numpy()))
+    warm_x = np.concatenate([b["embedding"] for b in warm])
+    ingests = CMP_WARM + CMP_BATCHES
+    print(f"comparison path: d={d}, {CMP_WARM} warmup + {CMP_BATCHES} batches of {BATCH} "
+          f"(NYT-like), a round of {CMP_QUERIES} queries every {CMP_ROUND_EVERY} batches, "
+          f"top-{TOPK}")
+    chk_a, chk_h = Check("admit"), Check("hh")
+    states = {}
+    for name, (m, cfg) in comparison_methods(d).items():
+        admits, hhs = [], []
+        torch.cuda.synchronize()
+        counts.reset_all()
+        with recorded(stages, "admit_op", admits), recorded(hh_ops, "update_batch", hhs):
+            st = m.init(SEED, warm_x, device="cuda")
+            for b in warm:
+                st = m.ingest(st, b["embedding"], b["doc_id"])
+            ingest_ms, query_ms, outs = [], [], []
+            for i, b in enumerate(batches):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                st = m.ingest(st, b["embedding"], b["doc_id"])
+                torch.cuda.synchronize()
+                ingest_ms.append((time.perf_counter() - t) * 1e3)
+                if (i + 1) % CMP_ROUND_EVERY == 0:
+                    q = torch.from_numpy(rounds[len(outs)]).cuda()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = m.query(st, q, TOPK)
+                    torch.cuda.synchronize()
+                    query_ms.append((time.perf_counter() - t) * 1e3)
+                    outs.append(out)
+        torch.cuda.synchronize()
+        launches = counts.snapshot()
+        want = comparison_launches(name, ingests, len(rounds))
+        got = {n: c["kernel"] for n, c in launches.items()}
+        assert got == want, (name, got, want)
+        assert all(c["plain"] == 0 for c in launches.values()), (name, launches)
+        # the last round against the same state through the plain versions
+        chk = Check(name[:9])
+        held_answers(tuple(a.cpu() for a in outs[-1]),
+                     tuple(a.cpu() for a in plain_method_answer(name, cfg, st, q)),
+                     "last round", chk)
+        chk.done(f"{name}: last round vs plain")
+        for a, kw, out in admits:
+            x, _, cent, alpha, _ = a
+            hold_admit(out, admit_ref(*a, **kw), x, cent, alpha, kw["store_dtype"], chk_a)
+        if name in ("heap_only", "sakr"):
+            for i, (a, _, out) in enumerate(hhs):
+                hh_hold(out, update_batch_ref(*a), f"{name} call {i}", chk_h)
+        rec, nd = zip(*(recall_ndcg(rounds[r], o[2].cpu().numpy(), V_all[:n], T_all[:n],
+                                    o_ids, o_sc)
+                        for r, (o, (n, o_ids, o_sc)) in enumerate(zip(outs, oracle))))
+        shown = {n: c for n, c in got.items() if c}
+        print(f"  {name:21s} ingest {np.median(ingest_ms):8.3f} ms/batch (median; max "
+              f"{max(ingest_ms):.3f}), query {np.median(query_ms):.3f} ms/round, memory "
+              f"{m.memory_bytes() / 1e6:.3f} MB, Recall@10 {np.mean(rec):.4f}, nDCG@10 "
+              f"{np.mean(nd):.4f}; launches {shown or 'none'}; admit calls {len(admits)}, "
+              f"heavy_hitter calls {len(hhs)}")
+        states[name] = (st, q)
+        del admits, hhs
+    chk_a.done("sakr + streaming + 2-stage ingest")
+    chk_h.done("heap_only + sakr ingest")
+    print("  full_rebuild rebuilds every batch (interval 256 = one batch): its ingest ms "
+          "is k-means++ (100 sequential picks) and 3 Lloyd rounds over the 1024-row buffer")
+
+    # the retrieval bound on the streaming method's final state: K_t the
+    # index's valid prototypes, each document labelled by its nearest one
+    st, q = states["streaming_rag"]
+    protos, valid = st.index.vectors, st.index.valid
+    sims = torch.where(valid[None], l2_normalize(V_dev) @ l2_normalize(protos).T, NEG_INF)
+    rep = theory.check_bound(q, V_dev, protos, torch.argmax(sims, dim=1), valid)
+    print(f"  bound (streaming_rag, {int(valid.sum())} prototypes, {len(V_all)} docs, last "
+          f"round): R* {float(rep.r_star):.4f}, R(K_t) {float(rep.r_proto):.4f}, Δ "
+          f"{float(rep.delta):.4f}; R* - √Δ {float(rep.bound_sqrt):.4f} holds "
+          f"{bool(rep.holds_sqrt)}; R* - Δ {float(rep.bound_linear):.4f} holds "
+          f"{bool(rep.holds_linear)}")
+    del states
+
+    # table 13: static (capacity 1024) against streaming
+    qa_cfg = paper_pipeline_config(dim=d, k=150, capacity=100, update_interval=128,
+                                   alpha=0.1)
+    for m in (baselines.make_static_rag(d, capacity=1024),
+              baselines.make_streaming_rag(qa_cfg)):
+        t = time.perf_counter()
+        r = qa_run(m, d)
+        print(f"  QA {m.name:13s} EM {r['EM']:.4f} F1 {r['F1']:.4f} ROUGE-L "
+              f"{r['ROUGE_L']:.4f} over {r['questions']} questions, all answered "
+              f"({time.perf_counter() - t:.1f} s)")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2432,6 +2744,7 @@ def main() -> int:
     phase_durable(stream, warm, batches)
     phase_sharded(stream, warm, batches)
     phase_launcher()
+    phase_comparison()
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name:9s} kernel {r['ms']:.4f} ms device ({r['host_ms']:.4f} ms a call "
@@ -2439,7 +2752,8 @@ def main() -> int:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
               f"launches on its path {r['launches']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
-    kernels = [dict(name=n, route="cuda", source=f"src/repro_torch/csrc/{n}.cu",
+    kernels = [dict(name=n, route="cuda",
+                    source=f"src/repro_torch/csrc/{CSRC_OF.get(n, n)}.cu",
                     replaces=SOURCES[n], launches=results[n]["launches"],
                     max_abs_err=results[n]["max_abs_err"], ms=results[n]["ms"],
                     plain_ms=results[n]["plain_ms"], bound_ms=results[n]["bound_ms"],

@@ -7,12 +7,20 @@ from that, and ``state_to_numpy`` goes the other way, for leaf-for-leaf
 comparison. The reference's PRNG key is not carried: the port's state
 gets a fresh ``torch.Generator`` seeded with ``seed``.
 
+The baselines' states (``core/baselines.py``) cross the same way, by
+method name: ``baseline_state_from_numpy`` builds the port's state from
+the reference's NamedTuple state as nested dicts of numpy (host integers
+become ints, a PRNG key becomes a fresh seeded generator), and
+``state_to_numpy`` goes back for any of them.
+
 Model params cross the same way: the reference's params tree as nested
 dicts of numpy arrays (``jax.tree.map(np.asarray, params)``) becomes the
 port's nested dicts of tensors with ``params_from_numpy`` (stacked layer
 blocks keep their leading layer axis), and ``params_to_numpy`` goes back.
 """
 from __future__ import annotations
+
+import typing
 
 import numpy as np
 import torch
@@ -50,6 +58,45 @@ def state_from_numpy(tree: dict, device="cpu", seed: int = 0) -> PipelineState:
         kept=torch.from_numpy(np.array(tree["kept"])).to(dev),
         upserts=int(np.asarray(tree["upserts"])),
         gen=gen)
+
+
+def _from_tree(cls, tree: dict, dev, gen_dev, seed: int):
+    """``cls`` (a NamedTuple state) from the reference's leaves by field:
+    nested states recurse, ``int``/``bool`` fields are host values, a
+    generator field is a fresh one on ``gen_dev`` seeded with ``seed``."""
+    hints = typing.get_type_hints(cls)
+    vals = {}
+    for name in cls._fields:
+        t = hints[name]
+        if t is torch.Generator:
+            vals[name] = torch.Generator(device=gen_dev)
+            vals[name].manual_seed(seed)
+        elif isinstance(t, type) and hasattr(t, "_fields"):
+            vals[name] = _from_tree(t, tree[name], dev, gen_dev, seed)
+        elif t in (int, bool):
+            vals[name] = t(np.asarray(tree[name]))
+        else:
+            vals[name] = torch.from_numpy(np.array(tree[name])).to(dev)
+    return cls(**vals)
+
+
+def baseline_state_from_numpy(method: str, tree: dict, device="cpu",
+                              seed: int = 0):
+    """The port's state of baseline ``method`` (a ``Method.name``) from the
+    reference's state as nested dicts of numpy. The reservoir's generator
+    lives on the host, every other one on ``device``."""
+    from repro_torch.core import baselines
+
+    if method in ("sakr", "streaming_rag", "streaming_rag_2stage"):
+        return state_from_numpy(tree, device, seed)
+    cls = {"static_rag": baselines.StaticState,
+           "full_rebuild": baselines.RebuildState,
+           "reservoir": baselines.ReservoirState,
+           "heap_only": baselines.HeapOnlyState,
+           "ivfpq_incremental": baselines.IVFPQState}[method]
+    dev = torch.device(device)
+    gen_dev = torch.device("cpu") if method == "reservoir" else dev
+    return _from_tree(cls, tree, dev, gen_dev, seed)
 
 
 def state_to_numpy(state) -> dict:

@@ -43,13 +43,18 @@ def init(cfg: ClusterConfig, gen: torch.Generator) -> ClusterState:
 
 
 def kmeans_plus_plus(gen: torch.Generator, data: torch.Tensor,
-                     k: int) -> torch.Tensor:
+                     k: int, picks: torch.Tensor | None = None) -> torch.Tensor:
     """k-means++ seeding over a warmup buffer (D² sampling under cosine
-    geometry, distance ``1 - cos``), [k, d]. Once every distinct row has
-    been drawn all distances are 0 (``torch.multinomial`` refuses an
-    all-zero row), and the draw falls back to uniform."""
+    geometry, distance ``1 - cos``), [k, d]: the picked rows of the unit
+    buffer. Once every distinct row has been drawn all distances are 0
+    (``torch.multinomial`` refuses an all-zero row), and the draw falls
+    back to uniform. ``picks`` [k] (row indices, the first uniform, the
+    rest D²-sampled) may be given instead of being drawn from ``gen``."""
     n = data.shape[0]
     xn = l2_normalize(data)
+    if picks is not None:
+        return xn.index_select(0, torch.as_tensor(picks, dtype=torch.int64,
+                                                  device=data.device))
     first = torch.randint(0, n, (1,), generator=gen, device=data.device)
     picks = [xn.index_select(0, first)]
     d2 = 1.0 - xn @ picks[0][0]
@@ -127,3 +132,24 @@ def update(cfg: ClusterConfig, state: ClusterState, x, labels,
     if cfg.update_mode == "sequential":
         return update_sequential(cfg, state, x, labels, mask)
     return update_batched(cfg, state, x, labels, mask)
+
+
+def within_cluster_variance(state: ClusterState, x: torch.Tensor,
+                            labels: torch.Tensor) -> torch.Tensor:
+    """Δ estimate for the paper bound: mean squared distance to the
+    assigned centroid."""
+    d = x.to(torch.float32) - state.centroids[labels.to(torch.int64)]
+    return torch.mean(torch.sum(d * d, dim=-1))
+
+
+def merge(a: ClusterState, b: ClusterState) -> ClusterState:
+    """Count-weighted centroid merge of two data shards (same k):
+    μ = (n_a μ_a + n_b μ_b) / (n_a + n_b), exact when the shards fold
+    disjoint item sets; a cluster empty on both becomes 0.5 (μ_a + μ_b).
+    (``distributed.collectives.merge_clusters`` is the sharded engine's
+    rule, which keeps shard 0's centroid there.)"""
+    n = a.counts + b.counts
+    c = a.centroids * a.counts[:, None] + b.centroids * b.counts[:, None]
+    c = torch.where((n > 0)[:, None], c / torch.clamp(n, min=1.0)[:, None],
+                    0.5 * (a.centroids + b.centroids))
+    return ClusterState(centroids=c, counts=n)

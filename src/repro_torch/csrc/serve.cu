@@ -28,6 +28,14 @@
 // epilogue, and it reads the queries and their keys only after
 // griddepcontrol.wait.
 //
+// The route-only entry (serve_route_launch) is stage 1 alone, the serving
+// cache's route witness: the same route tiles, then route_select_kernel,
+// one block a query, which takes the top-nprobe of the query's route keys
+// with the same block_topk_keys and maps them through route_labels as
+// serve_rerank_kernel does before its rerank. So its routes are the fused
+// kernel's, in the fused kernel's order, bit for bit: one computation, not
+// two summations of the same dots.
+//
 // Bound on this card: bytes. A call must read the queries, the index
 // (6.5 MB at cap 4218) and the distinct routed rings (depth * d bytes each
 // for int8: up to 12.6 MB when 64 queries' 8 routes at depth 64, d 384 are
@@ -263,9 +271,66 @@ __global__ void __launch_bounds__(kRingThreads)
             out_pos + (size_t)qi * k);
 }
 
+// out_routes [Q, nprobe]: the top-nprobe of each query's route keys (part
+// [Q, m], as the route tiles left them) mapped through route_labels, -1
+// where the slot's score or label is dead; serve_rerank_kernel's first step.
+__global__ void __launch_bounds__(kRingThreads)
+    route_select_kernel(const key64* __restrict__ part, int m,
+                        const int* __restrict__ route_labels, int nprobe,
+                        int* __restrict__ out_routes) {
+  extern __shared__ __align__(16) unsigned char sel_smem[];
+  key64* rk = (key64*)sel_smem;  // [m]
+  key64* rlst = rk + m;          // [kRingWarps * warp_keep(m, nprobe)]
+  const int qi = blockIdx.x;
+  wait_for_previous_kernel();  // part is the route tiles'
+  for (int c = threadIdx.x; c < m; c += blockDim.x) rk[c] = part[(size_t)qi * m + c];
+  __syncthreads();
+  int* orow = out_routes + (size_t)qi * nprobe;
+  block_topk_keys(rk, m, nprobe, rlst, [&](int p, key64 key) {
+    const int lbl = route_labels[key_row(key)];
+    orow[p] = (key_score(key) > REPRO_NEG_INF / 2 && lbl >= 0) ? lbl : -1;
+  });
+}
+
+size_t route_select_smem(int m, int nprobe) {
+  return (size_t)(m + kRingWarps * warp_keep(m, nprobe)) * 8;
+}
+
+cudaError_t route_tiles(int rm, const float* qr, int Q, int d, const float* vectors, int cap,
+                        const unsigned char* valid, int kt, key64* part, cudaStream_t st) {
+  switch (rm) {
+    case 8: return launch_route_tiles<8>(qr, Q, d, vectors, cap, valid, kt, part, st);
+    case 4: return launch_route_tiles<4>(qr, Q, d, vectors, cap, valid, kt, part, st);
+    case 2: return launch_route_tiles<2>(qr, Q, d, vectors, cap, valid, kt, part, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int serve_route_cols() { return kTileCols; }
+
+extern "C" long long serve_route_smem_bytes(int m, int nprobe) {
+  return (long long)route_select_smem(m, nprobe);
+}
+
+// The route-only entry: routes [Q, nprobe] exactly as serve_launch gives
+// them: the route tiles, then the selection. rm and part as for
+// serve_launch.
+extern "C" int serve_route_launch(const float* qr, int Q, int d, const float* vectors, int cap,
+                                  const unsigned char* valid, const int* route_labels,
+                                  int nprobe, int rm, void* part, int* out_routes,
+                                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int kt = imin(nprobe, kTileCols);
+  const int m = ((cap + kTileCols - 1) / kTileCols) * kt;
+  cudaError_t err = route_tiles(rm, qr, Q, d, vectors, cap, valid, kt, (key64*)part, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_ring(route_select_kernel, Q, 1, route_select_smem(m, nprobe), st,
+                    (const key64*)part, m, route_labels, nprobe, out_routes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
 
 extern "C" long long serve_smem_bytes(int d, int m, int nprobe, int depth, int k, int cs) {
   return (long long)ring_smem(d, nprobe, depth, k, cs, m).bytes;
@@ -288,12 +353,7 @@ extern "C" int serve_launch(const float* qr, const float* qn, int Q, int d,
   if (cs < 1 || cs > kMaxCluster) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   if (phases & 1) {
-    switch (rm) {
-      case 8: err = launch_route_tiles<8>(qr, Q, d, vectors, cap, valid, kt, (key64*)part, st); break;
-      case 4: err = launch_route_tiles<4>(qr, Q, d, vectors, cap, valid, kt, (key64*)part, st); break;
-      case 2: err = launch_route_tiles<2>(qr, Q, d, vectors, cap, valid, kt, (key64*)part, st); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+    err = route_tiles(rm, qr, Q, d, vectors, cap, valid, kt, (key64*)part, st);
     if (err != cudaSuccess) return (int)err;
   }
   if (phases & 2) {

@@ -23,7 +23,9 @@ Stage map (two-stage query):
           ``serve_topk``
 
 The staged forms are the decomposition the fused kernels are held
-against; an engine composes the fused ones. ``gather_rings`` pins the
+against; an engine composes the fused ones. ``route_witnessed`` is
+``serve_topk``'s stage 1 alone (the ``serve`` kernel's route-only
+entry), the serving cache's route witness. ``gather_rings`` pins the
 hot-set serving tier (``serve.hotset``); ``delta_upsert_snapshot`` is
 the sharded engine's delta publish (``engine.sharded``).
 """
@@ -37,6 +39,7 @@ from repro_torch.kernels.admit.ops import admit as admit_op
 from repro_torch.kernels.common import (NEG_INF, host_to_device, l2_normalize,
                                         l2_normalize_queries)
 from repro_torch.kernels.rerank.ops import rerank_topk
+from repro_torch.kernels.serve.ops import serve_routes as serve_routes_op
 from repro_torch.kernels.serve.ops import serve_topk as serve_topk_op
 from repro_torch.store import docstore
 
@@ -249,38 +252,17 @@ def _route_ids(sc1, slots, route_labels) -> torch.Tensor:
 
 
 def route_witnessed(index_cfg: index_lib.IndexConfig, index, route_labels,
-                    q: torch.Tensor, nprobe: int):
-    """Stage 1 as the serving cache's witness, in one ``mips`` launch:
-    (routes [Q, nprobe] i32 as ``route`` gives them, clear [Q] bool), both
-    on the host.
-
-    The ``serve`` kernel routes by its own dot products, summed in
-    another order than ``mips``'s, so at a near-tie the two can order the
-    routes differently. ``clear`` marks the queries where no summation
-    order can: each of the top ``nprobe`` + 1 scores lies more than 4 e
-    above the next, where e = gamma_d |q| max|v| bounds how far any fp32
-    dot product of d terms lies from the exact one (gamma_d = d u /
-    (1 - d u), u = 2^-24), so two computations of one score differ by at
-    most 2 e and a pair's order survives a gap above 4 e. A normalizing
-    index holds unit or zero rows and routes unit queries, whose norms
-    ``l2_normalize`` keeps within 1 + 2 gamma_d + 4 u."""
-    k = min(nprobe + 1, index.vectors.shape[0])
-    sc, slots, _ = index_lib.search(index_cfg, index, q, k)
-    routes = _route_ids(sc[:, :nprobe], slots[:, :nprobe],
-                        route_labels).cpu().numpy()
-    sc = sc.cpu().numpy().astype(np.float64)
-    d = q.shape[1]
-    u = 2.0 ** -24
-    gamma = d * u / (1 - d * u)
-    if index_cfg.normalize:
-        qv = np.full((q.shape[0],), (1 + 2 * gamma + 4 * u) ** 2)
-    else:
-        qv = (np.linalg.norm(q.cpu().numpy().astype(np.float64), axis=1)
-              * float(torch.linalg.vector_norm(index.vectors, dim=1).max()))
-    # the factor of (1 + 2^-10) covers the rounding of the bound itself
-    wide = (sc[:, :-1] - sc[:, 1:]) > 4 * (1 + 2.0 ** -10) * gamma * qv[:, None]
-    clear = np.all(wide | (sc[:, :-1] <= NEG_INF / 2), axis=1)
-    return routes, clear
+                    q: torch.Tensor, nprobe: int) -> np.ndarray:
+    """Stage 1 as the serving cache's witness: routes [Q, nprobe] i32 on
+    the host, from the ``serve`` kernel's route-only entry. They are the
+    routes ``serve_topk`` serves ``q`` through, bit for bit and in its
+    order, near-ties included (one computation: the fused kernel's route
+    tiles and selection). On the CPU both run ``serve_routes_ref``, which
+    is ``route``'s plain mips pass."""
+    qr = (l2_normalize_queries(q) if index_cfg.normalize
+          else q.to(torch.float32).contiguous())
+    return serve_routes_op(qr, index.vectors, index.valid, route_labels,
+                           nprobe).cpu().numpy()
 
 
 def slice_rings(embs, live, scales, depth: int | None):

@@ -27,6 +27,7 @@ class CallCounts:
 COUNTS: dict[str, CallCounts] = {
     "admit": CallCounts(),
     "serve": CallCounts(),
+    "serve_route": CallCounts(),   # serve.cu's route-only entry
     "mips": CallCounts(),
     "rerank": CallCounts(),
     "prefilter": CallCounts(),

@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import check_same_device
-from repro_torch.kernels.serve.ref import serve_topk_ref
+from repro_torch.kernels.serve.ref import serve_routes_ref, serve_topk_ref
 
 
 def serve_topk(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
@@ -25,3 +25,14 @@ def serve_topk(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
                                live, k, nprobe, scales)
     return serve_topk_ref(qr, qn, vectors, valid, route_labels, embs, live,
                           k, nprobe, scales)
+
+
+def serve_routes(qr: torch.Tensor, vectors: torch.Tensor, valid: torch.Tensor,
+                 route_labels: torch.Tensor, nprobe: int) -> torch.Tensor:
+    """Stage 1 of ``serve_topk`` alone: the routes [Q, nprobe] i32 it
+    serves through, in its order (-1 where dead)."""
+    if check_same_device(qr, vectors, valid, route_labels).type == "cuda":
+        from repro_torch.kernels.serve.serve import serve_routes_cuda
+
+        return serve_routes_cuda(qr, vectors, valid, route_labels, nprobe)
+    return serve_routes_ref(qr, vectors, valid, route_labels, nprobe)

@@ -1,7 +1,9 @@
 """Plain PyTorch version of the fused serve path (the two-stage query in
 one call): ``mips_topk_ref`` over the prototype index, the slot -> cluster
 route-label map, then ``rerank.ref.routed_topk`` over the routed ring
-buffers, as the reference's ``kernels/serve/ref.py`` composes them."""
+buffers, as the reference's ``kernels/serve/ref.py`` composes them; and
+that first stage alone (``serve_routes_ref``), the route-only entry's
+plain version."""
 from __future__ import annotations
 
 import torch
@@ -22,8 +24,23 @@ def serve_topk_ref(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
     [C, depth] bool. Returns (scores [Q, k] desc, pos [Q, k] i32 =
     j * depth + slot, routes [Q, nprobe] i32; -1 for dead entries)."""
     COUNTS["serve"].plain += 1
+    routes = _routes(qr, vectors, valid, route_labels, nprobe)
+    scores, pos = routed_topk(qn, embs, live, routes, k, scales)
+    return scores, pos, routes
+
+
+def _routes(qr, vectors, valid, route_labels, nprobe):
     sc1, slots = mips_topk_ref(qr, vectors, valid, nprobe)
     labels = route_labels[slots.to(torch.int64)]
-    routes = torch.where((sc1 > NEG_INF / 2) & (labels >= 0), labels, -1)
-    scores, pos = routed_topk(qn, embs, live, routes, k, scales)
-    return scores, pos, routes.to(torch.int32)
+    return torch.where((sc1 > NEG_INF / 2) & (labels >= 0), labels,
+                       -1).to(torch.int32)
+
+
+def serve_routes_ref(qr: torch.Tensor, vectors: torch.Tensor,
+                     valid: torch.Tensor, route_labels: torch.Tensor,
+                     nprobe: int) -> torch.Tensor:
+    """Stage 1 of ``serve_topk_ref`` alone: routes [Q, nprobe] i32, the
+    top-``nprobe`` prototype slots mapped through ``route_labels`` (-1
+    where the slot's score or label is dead)."""
+    COUNTS["serve_route"].plain += 1
+    return _routes(qr, vectors, valid, route_labels, nprobe)

@@ -1,6 +1,8 @@
 """ctypes wrapper of the hand-written CUDA ``serve`` kernel
 (``repro_torch/csrc/serve.cu``): the two-stage query in two launches,
-route tiles then the routed rerank.
+route tiles then the routed rerank; and its route-only entry (the route
+tiles, then the fused kernel's route selection), which the serving
+cache's route witness launches.
 
 The ring tensors may be strided views (``embs[:, :depth]`` for a
 depth-clipped plan): their strides go to the kernel, and the store is
@@ -56,6 +58,10 @@ def _lib():
         lib.serve_smem_bytes.argtypes = [I, I, I, I, I, I]
         lib.serve_smem_bytes.restype = L
         lib.serve_route_cols.restype = I
+        lib.serve_route_launch.argtypes = [P, I, I, P, I, P, P, I, I, P, P, P]
+        lib.serve_route_launch.restype = I
+        lib.serve_route_smem_bytes.argtypes = [I, I]
+        lib.serve_route_smem_bytes.restype = L
         if lib.serve_route_cols() != ROUTE_TILE_COLS:
             raise RuntimeError("serve.cu's route tile width differs from the wrapper's")
     return lib
@@ -135,3 +141,40 @@ def serve_topk_cuda(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
     run()
     COUNTS["serve"].kernel += 1
     return scores, pos, routes
+
+
+def serve_routes_cuda(qr: torch.Tensor, vectors: torch.Tensor, valid: torch.Tensor,
+                      route_labels: torch.Tensor, nprobe: int) -> torch.Tensor:
+    """Same contract as ``ref.serve_routes_ref``; all tensors on one CUDA
+    device: the routes ``serve_topk_cuda`` serves through, bit for bit.
+    The route tiles are the fused call's whatever the plan (every dot is
+    one sum over d in order), then the fused call's selection."""
+    Q, d = qr.shape
+    cap = vectors.shape[0]
+    if not 1 <= nprobe <= cap:
+        raise ValueError(f"need 1 <= nprobe={nprobe} <= cap={cap}")
+    if vectors.shape[1] != d:
+        raise ValueError("queries and index must share d")
+    for t in (qr, vectors, valid, route_labels):
+        if not t.is_contiguous():
+            raise ValueError("queries and index must be contiguous")
+    if route_labels.dtype != torch.int32 or valid.dtype != torch.bool:
+        raise TypeError("route_labels i32 and valid bool")
+    dev = qr.device
+    routes = torch.empty((Q, nprobe), dtype=torch.int32, device=dev)
+    if Q == 0:
+        return routes
+    plan = serve_plan(Q, cap, nprobe, 1)
+    lib = _lib()
+    smem = lib.serve_route_smem_bytes(plan.m, nprobe)
+    if smem > build.SMEM_PER_BLOCK:
+        raise ValueError(f"route selection needs {smem} B of shared memory "
+                         f"(cap={cap}, nprobe={nprobe}), over the "
+                         f"{build.SMEM_PER_BLOCK} B a block has")
+    part = torch.empty((Q, plan.m), dtype=torch.int64, device=dev)   # route keys
+    build.check(lib, lib.serve_route_launch(
+        qr.data_ptr(), Q, d, vectors.data_ptr(), cap, valid.data_ptr(),
+        route_labels.data_ptr(), nprobe, plan.rm, part.data_ptr(), routes.data_ptr(),
+        build.stream_of(dev)), "serve_route_launch")
+    COUNTS["serve_route"].kernel += 1
+    return routes

@@ -77,10 +77,8 @@ class ResultCache:
         self.cleared = 0         # evicted by a no-dirty-info publish
         self.evicted_lru = 0
         self.rekeyed = 0         # survived a publish (clean routes)
-        # misses of a current entry: its query now routes elsewhere, or
-        # the route pass could not witness its route order
+        # misses of a current entry whose query now routes elsewhere
         self.routes_moved = 0
-        self.unwitnessed = 0
         self.hit_staleness_sum = 0   # publishes each hit's answer survived
 
     def __len__(self) -> int:
@@ -114,8 +112,6 @@ class ResultCache:
         """Return the cached (scores, rows, doc_ids, clusters) for this
         (query, plan bucket) iff it is exact for ``version`` and the
         freshly routed ``routes`` — else None (and a miss is counted).
-        ``routes`` None (the route pass could not witness the query's
-        route order) always misses.
         A hit marks the routes verified at ``version``, arming the
         route-free ``peek_exact`` path for subsequent flushes pinned to
         the same snapshot."""
@@ -124,16 +120,13 @@ class ResultCache:
             e = self._entries.get(key)
             if (e is not None and e.qbytes == qbytes
                     and e.plan_key == plan_key and e.version == version):
-                if routes is not None and np.array_equal(e.routes, routes):
+                if np.array_equal(e.routes, routes):
                     self._entries.move_to_end(key)
                     e.verified_version = version
                     self.hits += 1
                     self.hit_staleness_sum += e.version - e.birth_version
                     return e.answer
-                if routes is None:
-                    self.unwitnessed += 1
-                else:
-                    self.routes_moved += 1
+                self.routes_moved += 1
             self.misses += 1
             return None
 

@@ -43,20 +43,20 @@ two-stage ``AsyncServer`` only): a snapshot-versioned exact result cache
 (``serve.result_cache``) and a query-side heavy-hitter hot set whose hot
 clusters are pinned into a compact ring tier (``serve.hotset``). A cached
 flush answers route-free exact hits first, then runs ONE route pass over
-the pending queries (``stages.route_witnessed``: the ``mips`` kernel)
-that verifies survivors of a publish, tests tier coverage and feeds the
-query-side counter (the ``heavy_hitter`` kernel), then serves hot misses
-over the tier and cold misses over the snapshot (both the ``serve``
-kernel). The serve kernel answers a query the same whatever else shares
+the pending queries (``stages.route_witnessed``: the ``serve`` kernel's
+route-only entry) that verifies survivors of a publish, tests tier
+coverage and feeds the query-side counter (the ``heavy_hitter``
+kernel), then serves hot misses over the tier and cold misses over the
+snapshot (both the ``serve`` kernel). The serve kernel answers a query the same whatever else shares
 its launch, so sub-batches are served as they are: the reference's
-power-of-two padding (``_pad_pow2``) only bounds its jit shapes. The two
-kernels sum a route score in other orders, so at a near-tie they can
-order a query's routes differently. Hence every served row's own routes
-are held against the route pass's (where they differ a hot row is served
-again from the snapshot and no row is cached), and a publish's survivor
-is verified only where the pass's route scores are too far apart for any
-summation order to reorder them (elsewhere it misses). A cached or tier
-answer is thus always the snapshot's own.
+power-of-two padding (``_pad_pow2``) only bounds its jit shapes. The
+route pass is the serve kernel's own stage 1 (its route tiles and route
+selection), so its routes are the ones a serve launch goes through, bit
+for bit, near-ties included, as the reference's route pass is the one
+its fused kernel is pinned to. Every served row's own routes are still
+held against the route pass's (where they differ a hot row is served
+again from the snapshot and no row is cached). A cached or tier answer
+is thus always the snapshot's own.
 
 Durability (``AsyncServer(durability=DurabilityConfig(...))``): every
 batch is journaled (append + fsync) under the producer lock before it is
@@ -495,8 +495,9 @@ class AsyncServer(QueryFrontend):
         # rows whose served routes differed from the route pass's (see
         # the module docstring); 0 wherever the two kernels agree
         self.route_mismatches = 0
-        # pending rows whose route order a near-tie left open, so that
-        # the route pass could not verify a cached survivor
+        # pending rows whose route order a near-tie left open: always 0,
+        # since the route pass is the serve kernel's own stage 1 (kept
+        # so that the counter names stay the reference's)
         self.route_near_ties = 0
         # publish events (version, dirty-cluster array) cross from the
         # ingest thread to the query path through this deque (GIL-atomic
@@ -850,11 +851,11 @@ class AsyncServer(QueryFrontend):
            the pinned version answer immediately — an all-hit flush never
            touches the device;
         3. ONE route pass over the *pending* sub-batch
-           (``stages.route_witnessed``, the ``mips`` kernel) yields ordered
-           routes — the exactness witness for entries that survived a
-           publish (where no near-tie leaves their order open), the
-           hot-tier coverage test, and the heavy-hitter observation (one
-           ``heavy_hitter`` launch);
+           (``stages.route_witnessed``, the ``serve`` kernel's route-only
+           entry) yields ordered routes — the exactness witness for
+           entries that survived a publish, the hot-tier coverage test,
+           and the heavy-hitter observation (one ``heavy_hitter``
+           launch);
         4. remaining misses split into hot-covered (the ``serve`` kernel
            over the pinned tier) and cold (over the snapshot's store),
            served as they are (no padding: the kernel's answer for a
@@ -899,15 +900,13 @@ class AsyncServer(QueryFrontend):
                 self._pin(pub)
                 if hotset is not None:
                     hotset.sync(snap)
-                routes, clear = stages.route_witnessed(
+                routes = stages.route_witnessed(
                     self.cfg.index, snap.index, snap.route_labels,
                     self.engine._queries(q[pidx]), nprobe_eff)
-            self.route_near_ties += int(np.sum(~clear))
             miss_pos = []
             for j, i in enumerate(pend):
-                # a route order a near-tie leaves open witnesses nothing
                 ans = (cache.lookup(qbytes[i], plan_key, snap.version,
-                                    routes[j] if clear[j] else None)
+                                    routes[j])
                        if cache is not None else None)
                 if ans is not None:
                     scores[i], rows[i], ids[i], labels[i] = ans

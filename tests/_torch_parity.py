@@ -56,3 +56,48 @@ def assert_trees(ref: dict, got: dict, rtol=1e-5, atol=1e-6, path=""):
                                        err_msg=where)
         else:
             np.testing.assert_array_equal(b, a.astype(b.dtype), err_msg=where)
+
+
+def reservoir_draws(key, n: int, k: int) -> dict:
+    """The per-arrival draws the reference's reservoir makes for a batch of
+    ``n`` from its state key: ``split(rng, 3)`` per arrival -> (join
+    uniform, slot in [0, k))."""
+    def step(rng, _):
+        rng, ka, kb = jax.random.split(rng, 3)
+        return rng, (jax.random.uniform(ka), jax.random.randint(kb, (), 0, k))
+
+    _, (u, r) = jax.lax.scan(step, key, None, length=n)
+    return {"uniforms": torch.from_numpy(np.array(u)),
+            "slots": torch.from_numpy(np.array(r))}
+
+
+def kmeanspp_picks(key, data, k: int) -> np.ndarray:
+    """The rows the reference's ``clustering.kmeans_plus_plus(key, data,
+    k)`` picks, as indices into ``data``: each returned centroid is a unit
+    row of ``data``, matched to its nearest (rows equal after
+    normalization are interchangeable)."""
+    from repro.core.clustering import kmeans_plus_plus
+
+    c = np.asarray(kmeans_plus_plus(key, jax.numpy.asarray(data), k), np.float64)
+    x = np.asarray(data, np.float64)
+    xn = x / np.maximum(np.linalg.norm(x, axis=1, keepdims=True), 1e-12)
+    d2 = ((c[:, None, :] - xn[None, :, :]) ** 2).sum(-1)
+    picks = np.argmin(d2, axis=1)
+    assert np.all(d2[np.arange(k), picks] < 1e-10), "a centroid is no row"
+    return picks
+
+
+def ivfpq_train_draws(key, sample, nlist: int, m: int, nbits: int = 8) -> dict:
+    """The draws the reference's ``ivfpq_train(cfg, key, sample)`` makes:
+    the coarse k-means++ rows from ``split(key)[0]`` (over the unit
+    sample) and each subspace's codeword rows from ``split(split(key)[1],
+    m)``."""
+    from repro.kernels.common import l2_normalize
+
+    k1, k2 = jax.random.split(key)
+    x = np.asarray(sample, np.float32)
+    xs = np.asarray(l2_normalize(jax.numpy.asarray(x)))
+    choices = np.stack([np.asarray(jax.random.choice(km, x.shape[0], (2 ** nbits,),
+                                                     replace=True))
+                        for km in jax.random.split(k2, m)])
+    return {"picks": kmeanspp_picks(k1, xs, nlist), "choices": choices}

@@ -138,47 +138,65 @@ def test_result_cache_exact_peek_skips_route_verification():
 
 
 def test_route_witness_flags_near_ties():
-    """The route pass gives ``stages.route``'s routes, and marks a query
-    clear only where no two of its top nprobe + 1 scores lie within the
-    bound any fp32 summation order keeps; a lookup without a witness
-    misses even where the recorded routes match."""
+    """The route pass is the serve path's own stage 1: its routes are the
+    ones ``serve_topk`` serves through and ``stages.route`` gives, in
+    their order, near-ties and exact ties included (an exact tie goes to
+    the lowest slot), so no query is left unwitnessed; a lookup whose
+    routes moved misses and counts it."""
+    from repro_torch.kernels.common import l2_normalize_queries
+    from repro_torch.kernels.serve.ref import serve_topk_ref
+
     d, cap, nprobe = 8, 6, 2
     cfg = index_lib.IndexConfig(capacity=cap, dim=d)
     e = np.eye(d, dtype=np.float32)
     # query 0: every score apart; query 1: rows 0 and 1 score exactly alike
-    # (ranks 1 and 2); query 2: its 2nd and 3rd scores tie (the cut)
+    # (ranks 1 and 2); query 2: its 2nd and 3rd scores tie (the cut);
+    # query 3: two scores 1 ulp apart
     vecs = np.stack([e[0], e[1], e[2], e[3], e[4], e[5]])
     q = np.stack([4 * e[0] + 3 * e[1] + 2 * e[2] + e[3],
                   e[0] + e[1] + 0.5 * e[2],
-                  3 * e[0] + e[1] + e[2]]).astype(np.float32)
+                  3 * e[0] + e[1] + e[2],
+                  e[4] + np.nextafter(np.float32(1), np.float32(2)) * e[5]
+                  + 0.5 * e[0]]).astype(np.float32)
     idx = index_lib.upsert(cfg, index_lib.init(cfg, "cpu"),
                            torch.arange(cap), torch.from_numpy(vecs),
                            torch.arange(cap, dtype=torch.int32),
                            torch.ones(cap, dtype=torch.bool))
     labels = torch.arange(10, 10 + cap, dtype=torch.int32)
     qt = torch.from_numpy(q)
-    routes, clear = stages.route_witnessed(cfg, idx, labels, qt, nprobe)
+
+    def served_routes(index, icfg):
+        qn = l2_normalize_queries(qt)
+        qr = qn if icfg.normalize else qt
+        embs = torch.zeros((16, 1, d))
+        live = torch.zeros((16, 1), dtype=torch.bool)
+        return serve_topk_ref(qr, qn, index.vectors, index.valid, labels,
+                              embs, live, 1, nprobe)[2].numpy()
+
+    routes = stages.route_witnessed(cfg, idx, labels, qt, nprobe)
     np.testing.assert_array_equal(
         routes, stages.route(cfg, idx, labels, qt, nprobe).numpy())
-    assert clear.tolist() == [True, False, False]
-    # every probe dead past the valid rows: nothing left to reorder
+    np.testing.assert_array_equal(routes, served_routes(idx, cfg))
+    assert routes[:3].tolist() == [[10, 11], [10, 11], [10, 11]]
+    assert sorted(routes[3].tolist()) == [14, 15]
+    # every probe dead past the valid rows
     dead = idx._replace(valid=torch.tensor([True] + [False] * (cap - 1)))
-    r1, c1 = stages.route_witnessed(cfg, dead, labels, qt, nprobe)
-    assert r1[:, 1].tolist() == [-1, -1, -1] and c1.all()
-    # an index that does not normalize bounds by the rows' own norms
+    r1 = stages.route_witnessed(cfg, dead, labels, qt, nprobe)
+    assert r1[:, 1].tolist() == [-1, -1, -1, -1]
+    np.testing.assert_array_equal(r1, served_routes(dead, cfg))
+    # an index that does not normalize routes the raw queries
     raw_cfg = index_lib.IndexConfig(capacity=cap, dim=d, normalize=False)
     raw = idx._replace(vectors=idx.vectors * 3)
-    r2, c2 = stages.route_witnessed(raw_cfg, raw, labels, qt, nprobe)
+    r2 = stages.route_witnessed(raw_cfg, raw, labels, qt, nprobe)
     np.testing.assert_array_equal(
         r2, stages.route(raw_cfg, raw, labels, qt, nprobe).numpy())
-    assert c2.tolist() == [True, False, False]
+    np.testing.assert_array_equal(r2, served_routes(raw, raw_cfg))
 
     rc = ResultCache(4)
     rc.insert(b"q", "p", 1, np.array([10, 11], np.int32), "A")
     rc.on_publish(2, np.array([], np.int32))
-    assert rc.lookup(b"q", "p", 2, None) is None and rc.misses == 1
     assert rc.lookup(b"q", "p", 2, np.array([11, 10], np.int32)) is None
-    assert (rc.unwitnessed, rc.routes_moved, rc.misses) == (1, 1, 2)
+    assert (rc.routes_moved, rc.misses) == (1, 1)
     assert rc.lookup(b"q", "p", 2, np.array([10, 11], np.int32)) == "A"
 
 

@@ -7,6 +7,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -26,10 +27,11 @@ def test_port_and_chip_smoke_import_no_jax():
         bad = sorted(n for n in sys.modules
                      if n.split(".")[0] in ("jax", "jaxlib", "repro"))
         assert not bad, bad
-        assert len(names) >= 87, names
+        assert len(names) >= 90, names
         for name in ("repro_torch.launch.serve", "repro_torch.launch.mesh",
                      "repro_torch.distributed.collectives",
-                     "repro_torch.engine.sharded"):
+                     "repro_torch.engine.sharded", "repro_torch.core.baselines",
+                     "repro_torch.core.theory", "repro_torch.data.qa"):
             assert name in names, name
         print(len(names))
     """)
@@ -43,7 +45,7 @@ def test_entry_points_run_on_the_card_by_default():
     """Without ``device=`` the entry points take ``cuda``; where there is
     no card they raise rather than fall back to the CPU."""
     from repro_torch.configs.streaming_rag import paper_pipeline_config
-    from repro_torch.core import pipeline
+    from repro_torch.core import baselines, pipeline
     from repro_torch.engine.engine import Engine
     from repro_torch.engine.sharded import ShardedEngine
     from repro_torch.launch.mesh import make_streaming_mesh
@@ -56,7 +58,11 @@ def test_entry_points_run_on_the_card_by_default():
               lambda: Engine(cfg).state.route_labels,
               lambda: RAGServer(cfg, ServerConfig(topk=4), seed=0).state.route_labels,
               lambda: get_arch("mind", smoke=True).init()["item_emb"],
-              lambda: ShardedEngine(cfg, make_streaming_mesh(2, 2)).shards[1].route_labels)
+              lambda: ShardedEngine(cfg, make_streaming_mesh(2, 2)).shards[1].route_labels,
+              lambda: baselines.make_static_rag(16, capacity=8).init(0).index.vectors,
+              lambda: baselines.make_sakr(16, k=8, capacity=8).init(0).route_labels,
+              lambda: baselines.make_ivfpq(16, capacity=8, nlist=2, m=2).init(
+                  0, np.ones((4, 16), np.float32)).vecs)
     for make in makers:
         if torch.cuda.is_available():
             assert make().device.type == "cuda"

@@ -1481,8 +1481,9 @@ def test_cached_async_server_on_card_is_exact(cuda):
     """A cached + hot AsyncServer on the card while ingest runs: every
     ticket answered once, every answer equal, bit for bit, to its query
     served alone on a copy of the snapshot it names, route-checked hits
-    after a publish that moves no cluster included; the route pass, the
-    hot tier and the query-side counter ran on their kernels."""
+    after a publish that moves no cluster included; the route pass (serve's
+    route-only entry), the hot tier and the query-side counter ran on
+    their kernels, and no route order was left unwitnessed."""
     from repro_torch.configs.streaming_rag import paper_pipeline_config
     from repro_torch.engine.engine import Engine, ServingSnapshot
     from repro_torch.kernels import counts
@@ -1537,8 +1538,11 @@ def test_cached_async_server_on_card_is_exact(cuda):
     assert rs["hits"] - rs["hits_exact"] > before["hits"] - before["hits_exact"]
     server.close(timeout=60)
     snap = counts.snapshot()
-    assert all(snap[n]["kernel"] > 0 for n in ("mips", "serve", "heavy_hitter")), snap
+    # the route pass is serve's route-only entry, so mips never launches
+    assert all(snap[n]["kernel"] > 0 for n in ("serve_route", "serve", "heavy_hitter")), snap
+    assert snap["mips"]["kernel"] == 0, snap
     assert all(c["plain"] == 0 for c in snap.values()), snap
+    assert server.route_near_ties == 0 and server.route_mismatches == 0
     assert sorted(a["ticket"] for a in answers) == sorted(asked)
     cs = server.cache_stats()
     assert cs["hits"] > 0 and cs["hot_served"] > 0 and cs["tier_rebuilds"] > 0
@@ -1681,3 +1685,113 @@ def test_sharded_engine_on_card_matches_single_device(cuda, store_dtype):
         tie = (gap < TIE) | torch.cat([torch.zeros_like(gap[:, :1], dtype=torch.bool),
                                        gap[:, :-1] < TIE], dim=1)
         assert bool(((got[2] == want[2]) | tie).all()), name
+
+
+# ------------------------------------------------- serve's route-only entry
+def _hold_routes(q, v, valid, labels, P, embs=None, live=None):
+    """The route-only entry against the fused kernel's routes (bit for
+    bit) and its plain version (equal but after a near-tie among the plain
+    route scores). Returns its routes."""
+    from repro_torch.kernels.serve.ref import serve_routes_ref
+    from repro_torch.kernels.serve.serve import serve_routes_cuda, serve_topk_cuda
+
+    if embs is None:
+        C = int(labels.max()) + 1
+        embs = torch.zeros((C, 2, q.shape[1]), device=q.device)
+        live = torch.ones((C, 2), dtype=torch.bool, device=q.device)
+    before = COUNTS["serve_route"].kernel
+    r_k = serve_routes_cuda(q, v, valid, labels, P)
+    assert COUNTS["serve_route"].kernel == before + 1
+    fused = serve_topk_cuda(q, q, v, valid, labels, embs, live, 1, P)[2]
+    assert torch.equal(r_k, fused)
+    r_p = serve_routes_ref(q, v, valid, labels, P)
+    rs = torch.sort(torch.where(valid[None], q @ v.T, NEG_INF), dim=1,
+                    descending=True).values[:, :P + 1]
+    tie = ((rs[:, :-1] - rs[:, 1:]) < TIE).any(dim=1)
+    assert bool(((r_k == r_p).all(dim=1) | tie).all())
+    return r_k
+
+
+@pytest.mark.parametrize("Q,cap,P", [(64, 4218, 8), (1, 4218, 8), (50, 100, 16),
+                                     (33, 500, 64), (7, 65, 3)])
+def test_serve_route_entry_is_the_fused_kernels_stage_one(cuda, Q, cap, P):
+    """At the main path's shape, one query, the two-stage comparison
+    method's (100 prototypes, nprobe 16), nprobe 64 (one route tile's
+    width) and a tile edge: 10% invalid slots, 10% dead labels."""
+    g = torch.Generator(device=cuda).manual_seed(Q + cap)
+    d = 384
+    v = l2_normalize(torch.randn((cap, d), generator=g, device=cuda))
+    valid = torch.rand((cap,), generator=g, device=cuda) < 0.9
+    labels = torch.randperm(cap, generator=g, device=cuda).to(torch.int32)
+    labels[torch.rand((cap,), generator=g, device=cuda) < 0.1] = -1
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
+    r = _hold_routes(q, v, valid, labels, P)
+    assert r.shape == (Q, P) and r.dtype == torch.int32
+
+
+def test_serve_route_entry_one_ulp_apart(cuda):
+    """Two index rows whose dots with a query differ by one ulp (and a
+    pair that ties exactly, lowest slot first): the route-only entry
+    orders them as the fused kernel does, bit for bit."""
+    d, cap, P = 64, 200, 4
+    g = torch.Generator(device=cuda).manual_seed(7)
+    v = 0.01 * l2_normalize(torch.randn((cap, d), generator=g, device=cuda))
+    q = torch.zeros((2, d), device=cuda)
+    q[:, 0] = 1.0
+    one = torch.tensor(1.0, device=cuda)
+    v[17], v[150] = 0.0, 0.0
+    v[17, 0] = one                                   # dot 1
+    v[150, 0] = torch.nextafter(one, torch.tensor(2.0, device=cuda))   # 1 + ulp
+    v[90], v[30] = v[17], v[17]                      # exact ties with row 17
+    valid = torch.ones((cap,), dtype=torch.bool, device=cuda)
+    labels = torch.arange(cap, dtype=torch.int32, device=cuda)
+    r = _hold_routes(q, v, valid, labels, P)
+    assert r[0].tolist() == [150, 17, 30, 90]
+
+
+@pytest.mark.parametrize("Q,N", [(50, 1024), (50, 100), (50, 256), (1, 1024), (1, 100)])
+def test_mips_kernel_at_the_baselines_shapes(cuda, Q, N):
+    """The comparison methods' flat indexes (static 1024, full rebuild and
+    the counters 100, reservoir 256) at d = 384, k = 10: rounds of 50
+    queries and the QA's single questions; a third of the rows invalid."""
+    g = torch.Generator(device=cuda).manual_seed(N)
+    index = l2_normalize(torch.randn((N, 384), generator=g, device=cuda))
+    valid = torch.rand((N,), generator=g, device=cuda) < 0.66
+    q = l2_normalize(torch.randn((Q, 384), generator=g, device=cuda))
+    _hold_mips(q, index, valid, 10)
+
+
+@pytest.mark.parametrize("n,K,alpha", [(1, 100, 0.0), (5, 150, 0.1)])
+def test_admit_kernel_at_the_baselines_shapes(cuda, n, K, alpha):
+    """SAKR's admission (one basis vector, K = 100, alpha 0) and the
+    streaming methods' (5 vectors, K = 150, alpha 0.1), 256 rows of
+    d = 384, fp32 rows (SAKR's depth-0 store asks for none) and int8."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((256, 384), generator=g, device=cuda) + 0.5
+    basis = l2_normalize(torch.randn((n, 384), generator=g, device=cuda))
+    cent = l2_normalize(torch.randn((K, 384), generator=g, device=cuda))
+    for store_dtype in ("fp32", "int8"):
+        _hold_admit(x, basis, cent, alpha, None, store_dtype)
+
+
+@pytest.mark.parametrize("method", ["heap_only", "sakr", "streaming"])
+def test_heavy_hitter_kernel_at_the_baselines_options(cuda, method):
+    """Heap-only (MIN_EVICT, capacity 100, u 0.05, labels over 512
+    anchors), SAKR (SPACE_SAVING, capacity 100, u 1.0, over 100 clusters)
+    and the streaming method (MIN_EVICT, capacity 100, u 0.05, over 150
+    clusters, a fifth dropped): six batches of 256 from an empty counter,
+    every leaf and info entry equal to the plain loop's."""
+    from repro_torch.core import heavy_hitter as hh
+
+    policy, u, clusters, drop = {"heap_only": (1, 0.05, 512, 0.0),
+                                 "sakr": (2, 1.0, 100, 0.0),
+                                 "streaming": (1, 0.05, 150, 0.2)}[method]
+    cfg = hh.HHConfig(capacity=100, admit_prob=u, policy=hh.Policy(policy))
+    rng = np.random.default_rng(policy)
+    batches = []
+    for _ in range(6):
+        lab = (rng.zipf(1.2, size=256) - 1) % clusters
+        lab[rng.random(256) < drop] = -1
+        batches.append(lab)
+    st, infos = _hh_run(cfg, hh.init(cfg, cuda), batches, cuda)
+    assert int(hh.active_mask(st).sum()) > 0

@@ -7,7 +7,8 @@ repository, measured in turns on one CUDA card.
 NAME is one of ``serve`` (the default: the two-stage flush, 64 queries
 against 4218 x 384 prototypes, nprobe 8, int8 rings of depth 64, k = 10;
 where the checkout's wrapper exposes them, its two launches are timed
-apart too, as ``serve.stage1`` and ``serve.stage2``; a checkout whose
+apart too, as ``serve.stage1`` and ``serve.stage2``, and its route-only
+entry, the serving cache's route witness, as ``serve.route``; a checkout whose
 serve starts with ``topk.cuh``'s rows_topk_kernel times that launch as
 ``serve.stage1``, through mips's blocked select at k = nprobe, which is
 the same launch), ``mips10`` (the
@@ -90,6 +91,9 @@ embs, live, scales = cs.synthetic_store(K, 64, d, True, g)
 fns = {"serve": lambda: serve_topk_cuda(q, q, vectors, valid, labels, embs, live,
                                         cs.TOPK, cs.NPROBE, scales)}
 from repro_torch.kernels.serve import serve as serve_mod
+if hasattr(serve_mod, "serve_routes_cuda"):   # the route-only entry
+    fns["serve.route"] = lambda: serve_mod.serve_routes_cuda(q, vectors, valid, labels,
+                                                             cs.NPROBE)
 if hasattr(serve_mod, "serve_launcher"):   # the two launches apart
     run = serve_mod.serve_launcher(q, q, vectors, valid, labels, embs, live, cs.TOPK,
                                    cs.NPROBE, scales)[-1]
