@@ -212,7 +212,48 @@
    entities, 40 batches of 128, 60 questions, each answered): EM, F1 and
    ROUGE-L, static (capacity 1024) against streaming (k 150, capacity
    100, every 128, alpha 0.1).
-8. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
+8. Training path (after 7, its state freed): the bag backward kernel
+   (``csrc/bag_backward.cu``, port-side: the reference cannot
+   differentiate its Pallas bag) against its plain version on the card at
+   MIND's train shape (65,536 histories of 50: 3,276,800 entries into the
+   1,000,000 x 64 item table, Zipf ids, padding at row 0 with weight 0)
+   in mean and sum, weights None, the train launcher's batch (every entry
+   on row 0, weight 1), a bf16 table, int64 ids, weights requiring grad
+   (d_w), d = 18, B = 1, and unsorted segments with empty bags (also
+   through ``ops.embedding_bag``'s autograd node): each element within
+   1e-5 of the sum of its own terms' magnitudes + 1e-6 (bf16: half a bf16
+   ulp more, the kernel's f32 sum rounded once), untouched rows zero, two
+   calls bit-equal. Timed: device ms beside its stable sort alone, plain,
+   library (autograd of ``F.embedding_bag(..., per_sample_weights=w)`` +
+   divide, timed only) and bound. The row gathers' backward
+   (``gather_backward``: the same kernel, one entry a bag, for the
+   gradient of ``item_emb[ids]``) likewise at MIND's history gather, every
+   id on row 0, int64 ids and the target gather, its library yardstick
+   PyTorch's own backward of ``table[ids]``. Then one MIND train step
+   through the kernels against the same step through the plain bag and
+   gather backward on the card, from the same state and draws (gradients
+   within rtol 1e-5 and an atol of 1e-6 + 1e-5 x the magnitude of the
+   element's own bag and gather terms; params after ``apply`` within rtol
+   1e-5 / atol 1e-6); ``apply``'s device ms; one step with the gathers'
+   backward by PyTorch's own indexing beside one by the kernel; one step
+   under torch.profiler, its device time by kernel and its idle share.
+   Then the slice's path: a ``Trainer`` with MIND's optimizer
+   (``configs/mind.py``: AdamW, lr 1e-3, clip 1.0) takes 6 steps of
+   65,536 on seeded Zipf batches with a checkpoint every 3, counts reset
+   just before: bag and bag_backward launch once a step, gather_backward
+   4 times (history, target twice, negatives), nothing else, no plain
+   version; losses finite, the params move; a second ``Trainer`` on
+   the same directory resumes at 6 and reaches 8. Printed: step ms (host
+   clock around ``synchronize()``), steps/s, the bag's device ms a step,
+   ``apply`` ms, peak memory, checkpoint MB and a blocking write's ms.
+   FM, DIEN and BERT4Rec then take 2 steps each at full width, at 65,536
+   rows where a step fits in three quarters of the card's memory (a
+   memory-fraction cap; an OutOfMemoryError halves the batch), else at
+   the largest power of two that does, the cut printed with its reason. Last, the train launcher
+   (``python -m repro_torch.launch.train --arch mind --full --steps 4
+   --ckpt-interval 2``) in its own process, then again to 6 on the same
+   directory, which must resume at 4.
+9. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository beside it.
@@ -248,10 +289,13 @@ from repro_torch.kernels.admit.admit import admit_cuda, admit_launcher  # noqa: 
 from repro_torch.kernels.admit.ref import admit_ref  # noqa: E402
 from repro_torch.kernels.assign.assign import assign_cuda  # noqa: E402
 from repro_torch.kernels.assign.ref import assign_ref  # noqa: E402
-from repro_torch.kernels.bag.bag import (embedding_bag_cuda,  # noqa: E402
-                                         embedding_bag_sorted_cuda)
-from repro_torch.kernels.bag.ref import (embedding_bag_ref,  # noqa: E402
-                                         embedding_bag_sorted_ref)
+from repro_torch.kernels.bag import ops as bag_ops  # noqa: E402
+from repro_torch.kernels.bag.bag import (embedding_bag_backward_cuda,  # noqa: E402
+                                         embedding_bag_cuda, embedding_bag_sorted_cuda,
+                                         gather_backward_cuda)
+from repro_torch.kernels.bag.ref import (embedding_bag_backward_ref,  # noqa: E402
+                                         embedding_bag_ref, embedding_bag_sorted_ref,
+                                         gather_backward_ref)
 from repro_torch.kernels.common import (NEG_INF, l2_normalize,  # noqa: E402
                                         l2_normalize_queries, require_full_fp32,
                                         stable_topk)
@@ -277,6 +321,8 @@ from repro_torch.serve.server import RAGServer, ServerConfig  # noqa: E402
 from repro_torch.store import docstore, quant  # noqa: E402
 from repro_torch.testing import faults  # noqa: E402
 from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.train import optimizer as opt_lib  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 PEAK_FP32 = 67e12      # H100 SXM fp32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
@@ -298,8 +344,14 @@ SOURCES = {"admit": "src/repro/kernels/admit/admit.py:177",
            # serve.cu's route-only entry: stage 1 of serve_topk_pallas
            "serve_route": "src/repro/kernels/serve/serve.py:230",
            # port-side: no pallas_call; the reference's lax.scan of update_one
-           "heavy_hitter": "src/repro/core/heavy_hitter.py:289"}
-CSRC_OF = {"serve_route": "serve"}   # a kernel whose source is another's file
+           "heavy_hitter": "src/repro/core/heavy_hitter.py:289",
+           "bag_backward": ("port-side: no pallas_call; autodiff of "
+                            "src/repro/kernels/bag/ref.py:13 embedding_bag_ref"),
+           # bag_backward.cu's gather entry: one entry a bag, no segments
+           "gather_backward": ("port-side: no pallas_call; the transpose of "
+                               "src/repro/models/recsys.py:198's row gather (jnp.take)")}
+# a kernel whose source is another's file
+CSRC_OF = {"serve_route": "serve", "gather_backward": "bag_backward"}
 RECSYS_STEPS = ("serve_p99", "serve_bulk", "retrieval_cand")
 LOOP_INGEST_MS = 250.59   # fused ingest ms/batch with the per-arrival loop in place
 #                           of the heavy-hitter kernel (PERF.md; H100 80GB HBM3, 700 W)
@@ -330,6 +382,24 @@ LAUNCH_TIMEOUT_S = 300
 CMP_DIM, CMP_WARM, CMP_BATCHES, CMP_ROUND_EVERY, CMP_QUERIES = 384, 2, 24, 4, 50
 CMP_NPROBE = 16   # table 14's two-stage
 QA_BATCHES, QA_BATCH, QA_QUESTIONS, QA_ENTITIES, QA_TOPICS = 40, 128, 60, 64, 20
+# the training path (8): MIND at full width, a checkpoint every 3 of 6 steps,
+# then a resume to 8 (4 row gathers a step: history, target twice,
+# negatives); FM, DIEN and BERT4Rec a few steps each under a cap of three
+# quarters of the card's memory, at 65,536 where a step fits under it, else
+# at the largest power of two that does (an OutOfMemoryError fails the run);
+# the train launcher
+TRAIN_STEPS, TRAIN_CKPT_EVERY, OTHER_TRAIN_STEPS, MIND_GATHERS = 6, 3, 3, 4
+TRAIN_BATCH, TRAIN_MEMORY_FRACTION = 65_536, 0.75
+# FM peaks near 17-27 GB and DIEN near 59 GB (of a 63.8 GB cap) at 65,536;
+# BERT4Rec's attention scores [B, 2, 200, 200] fp32, kept for the backward
+# in each of 2 blocks with their softmax, put 8,192 rows near 32 GB, so a
+# step at 16,384 or more does not fit under the cap
+OTHER_TRAIN_BATCH = {"fm": 65_536, "dien": 65_536, "bert4rec": 8_192}
+BERT4REC_TRAIN_CUT = ("bert4rec's train batch cut 65536 -> 8192: a step takes ~4 MB a "
+                      "row (its attention scores [B, 2, 200, 200] fp32 and their softmax, "
+                      "kept for the backward in each of its 2 blocks, are 1.28 MB of it), "
+                      "so one at 16384 or more does not fit under the cap")
+TRAIN_LAUNCH_FLAGS = ("--arch", "mind", "--full", "--ckpt-interval", "2")
 # BERT4Rec's serve_bulk attention scores: 262144 x 2 heads x 200 x 200 fp32
 BERT4REC_BULK_SKIP = ("bert4rec serve_bulk skipped on one card: its attention "
                       "scores [262144, 2, 200, 200] fp32 alone are 84 GB (the "
@@ -2445,22 +2515,30 @@ def phase_sharded(stream, warm, batches):
     torch.cuda.empty_cache()
 
 
-def launcher_run(flags, tmp: str, root: str) -> dict[str, str]:
-    """One run of the launcher in its own process: its output echoed, a
-    non-zero exit raised; returns its summary lines, label -> value."""
+def run_module(module: str, args, root: str, label: str) -> list[str]:
+    """``python -m module args`` in its own process from ``root``, its
+    output echoed, a non-zero exit raised; returns its stdout lines."""
     env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *flags, "--checkpoint-dir", tmp]
+    cmd = [sys.executable, "-m", module, *args]
     t = time.perf_counter()
     out = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
                          timeout=LAUNCH_TIMEOUT_S)
-    print(f"launcher: {' '.join(cmd[1:])} (exit {out.returncode}, "
+    print(f"{label}: {' '.join(cmd[1:])} (exit {out.returncode}, "
           f"{time.perf_counter() - t:.1f} s)")
     for line in out.stdout.splitlines():
         print(f"  | {line}")
     if out.returncode != 0:
-        raise AssertionError(f"the launcher failed:\n{out.stderr[-4000:]}")
+        raise AssertionError(f"{module} failed:\n{out.stderr[-4000:]}")
+    return out.stdout.splitlines()
+
+
+def launcher_run(flags, tmp: str, root: str) -> dict[str, str]:
+    """One run of the serving launcher; returns its summary lines, label
+    -> value."""
+    lines = run_module("repro_torch.launch.serve", [*flags, "--checkpoint-dir", tmp], root,
+                       "launcher")
     return {ln.split(":", 1)[0].strip(): ln.split(":", 1)[1].strip()
-            for ln in out.stdout.splitlines() if " : " in ln}
+            for ln in lines if " : " in ln}
 
 
 def phase_launcher():
@@ -2721,6 +2799,489 @@ def phase_comparison():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- training
+def train_batch(arch, B: int, rng, key: int) -> dict:
+    """A seeded train batch of B rows on the card: Zipf ids (p ~ 1/r^1.2),
+    for histories a valid prefix of length uniform in [1, S] (padding at
+    row 0), labels in {0, 1}, and the key the losses draw from."""
+    labels = torch.from_numpy(rng.integers(0, 2, B).astype(np.float32)).cuda()
+    if hasattr(arch.cfg, "n_fields"):
+        f = zipf_ids(rng, arch.cfg.rows_per_field, (B, arch.cfg.n_fields))
+        return {"fields": torch.from_numpy(f).cuda(), "labels": labels}
+    S, n = arch.hist_len, arch.cfg.n_items
+    mask = np.arange(S)[None, :] < rng.integers(1, S + 1, (B, 1))
+    return {"hist": torch.from_numpy(np.where(mask, zipf_ids(rng, n, (B, S)), 0)
+                                     .astype(np.int32)).cuda(),
+            "hist_mask": torch.from_numpy(mask).cuda(),
+            "target": torch.from_numpy(zipf_ids(rng, n, (B,))).cuda(),
+            "labels": labels,
+            "rng": torch.tensor([SEED, key], dtype=torch.uint32, device="cuda")}
+
+
+def check_bag_backward(table, idx, seg, bags, w, grad, mode, chk: Check,
+                       weights_grad=False):
+    """The kernel twice (bit-equal) against the plain version on the card:
+    each element within 1e-5 of the sum of its own terms' magnitudes (the
+    plain version on |table|, |grad|, |w|) + 1e-6, the sums taken in
+    another order; a bf16 gradient, the kernel's f32 sum rounded once,
+    within half a bf16 ulp more of the plain f32 sum (a row whose terms
+    cancel can differ by more than one bf16 ulp of its small sum after
+    rounding); d_w within rtol 1e-5 + 1e-5 of its terms' magnitudes +
+    1e-6; rows no entry touches exactly zero."""
+    got_t, got_w = embedding_bag_backward_cuda(table, idx, seg, bags, grad, w, mode,
+                                               weights_grad)
+    again_t, again_w = embedding_bag_backward_cuda(table, idx, seg, bags, grad, w, mode,
+                                                   weights_grad)
+    t32 = table.float()
+    want_t, want_w = embedding_bag_backward_ref(t32, idx, seg, bags, grad, w, mode,
+                                                weights_grad)
+    mag_t, mag_w = embedding_bag_backward_ref(t32.abs(), idx, seg, bags, grad.abs(),
+                                              None if w is None else w.abs(), mode,
+                                              weights_grad)
+    torch.cuda.synchronize()
+    what = f"{mode} d{table.shape[1]} {table.dtype} L={idx.numel()}"
+    if not (torch.equal(got_t, again_t) and (got_w is None or torch.equal(got_w, again_w))):
+        chk.fail.append(f"{what}: two calls differ")
+    tol = 1e-5 * mag_t + ATOL
+    if table.dtype == torch.bfloat16:   # its f32 sum rounded once: half a bf16 ulp more
+        got32 = got_t.float()
+        tol = tol + torch.maximum(got32.abs(), want_t.abs()) * 2.0 ** -8
+    else:
+        got32 = got_t
+    bad = (got32 - want_t).abs() > tol
+    chk.err = max(chk.err, max_err(got32, want_t))
+    if int(bad.sum()):
+        i = int(torch.argmax(((got32 - want_t).abs() - tol).flatten()))
+        chk.fail.append(f"{what}: {int(bad.sum())} d_table values off (worst: kernel "
+                        f"{float(got32.flatten()[i]):.6g}, plain {float(want_t.flatten()[i]):.6g}, "
+                        f"terms' magnitude {float(mag_t.flatten()[i]):.6g})")
+    if weights_grad:
+        chk.err = max(chk.err, max_err(got_w, want_w))
+        if bool(((got_w - want_w).abs() > RTOL * want_w.abs() + 1e-5 * mag_w + ATOL).any()):
+            chk.fail.append(f"{what}: d_w off")
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device="cuda")
+    touched[idx.long()] = True
+    if not bool((got_t[~touched] == 0).all()):
+        chk.fail.append(f"{what}: an untouched row is not zero")
+    del want_t, mag_t, again_t
+
+
+def bag_backward_bound(table, idx, seg, bags, w, weights_grad=False):
+    """Bytes: the dense d_table written once, grad_out and each entry's
+    (index, segment, weight) read once; with d_w, each distinct row read
+    and d_w written."""
+    V, d = table.shape
+    L, es = idx.numel(), table.element_size()
+    nbytes = (V * d * es + bags * d * 4
+              + L * (idx.element_size() + seg.element_size() + (4 if w is not None else 0)))
+    if weights_grad:
+        nbytes += int(torch.unique(idx).numel()) * d * es + L * 4
+    return bound(3.0 * L * d, nbytes)
+
+
+def time_bag_backward(table, idx, seg, bags, w, grad, mode):
+    """Device ms of the kernel's call (its zero fill, counts and sort
+    included), its stable sort alone, plain, library (autograd of
+    F.embedding_bag(..., per_sample_weights=w) + divide: the backward
+    alone, timed, never called by the port) and the bound."""
+    ms, host = cuda_ms(lambda: embedding_bag_backward_cuda(table, idx, seg, bags, grad, w,
+                                                           mode))
+    sort_ms, _ = cuda_ms(lambda: torch.sort(idx, stable=True))
+    plain, plain_how = device_ms(lambda: embedding_bag_backward_ref(table, idx, seg, bags,
+                                                                    grad, w, mode), iters=5)
+    offsets = torch.searchsorted(seg, torch.arange(bags, device="cuda", dtype=seg.dtype),
+                                 out_int32=True)
+    cnt = torch.diff(offsets, append=torch.tensor([idx.numel()], device="cuda",
+                                                  dtype=torch.int32))
+    denom = torch.clamp(cnt.float(), min=1.0)[:, None]
+    tbl = table.detach().clone().requires_grad_(True)
+    out = torch.nn.functional.embedding_bag(idx, tbl, offsets, mode="sum",
+                                            per_sample_weights=w) / denom
+    lib_err = max_err(torch.autograd.grad(out, tbl, grad, retain_graph=True)[0],
+                      embedding_bag_backward_ref(table, idx, seg, bags, grad, w, mode)[0])
+    lib, lib_how = device_ms(lambda: torch.autograd.grad(out, tbl, grad, retain_graph=True))
+    b_ms, b_by = bag_backward_bound(table, idx, seg, bags, w)
+    print(f"  bag_backward at MIND's train shape: L={idx.numel()} bags={bags} V={table.shape[0]}"
+          f" d={table.shape[1]}: {ms:.4f} ms device ({host:.4f} ms a call from the host; "
+          f"its stable sort alone {sort_ms:.4f} ms), plain {plain:.4f} ms ({plain_how}), "
+          f"library {lib:.4f} ms (autograd of F.embedding_bag + divide, the backward alone; "
+          f"{lib_how}; max|d| vs plain {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
+    del out, tbl
+    return dict(ms=ms, host_ms=host, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, sort_ms=sort_ms)
+
+
+def check_gather_backward(table, ids, grad, chk: Check):
+    """The gather's backward twice (bit-equal) against its plain version on
+    the card: each element within 1e-5 of the sum of its own terms'
+    magnitudes + 1e-6; rows no id touches exactly zero."""
+    got = gather_backward_cuda(table, ids, grad)
+    again = gather_backward_cuda(table, ids, grad)
+    want = gather_backward_ref(table, ids, grad)
+    mag = gather_backward_ref(table, ids, grad.abs())
+    torch.cuda.synchronize()
+    what = f"ids {tuple(ids.shape)} {ids.dtype}"
+    if not torch.equal(got, again):
+        chk.fail.append(f"{what}: two calls differ")
+    chk.err = max(chk.err, max_err(got, want))
+    bad = int(((got - want).abs() > 1e-5 * mag + ATOL).sum())
+    if bad:
+        chk.fail.append(f"{what}: {bad} values off")
+    touched = torch.zeros(table.shape[0], dtype=torch.bool, device="cuda")
+    touched[ids.reshape(-1).long()] = True
+    if not bool((got[~touched] == 0).all()):
+        chk.fail.append(f"{what}: an untouched row is not zero")
+
+
+def time_gather_backward(table, ids, grad):
+    """Device ms of the gather's backward (its zero fill and sort
+    included), plain (``index_add_``), library (PyTorch's own backward of
+    ``table[ids]``, timed only) and the bound: the dense gradient written,
+    grad_out and the ids read once."""
+    ms, host = cuda_ms(lambda: gather_backward_cuda(table, ids, grad))
+    plain, plain_how = device_ms(lambda: gather_backward_ref(table, ids, grad), iters=5)
+    tbl = table.detach().clone().requires_grad_(True)
+    out = tbl[ids.long()]
+    lib, lib_how = device_ms(lambda: torch.autograd.grad(out, tbl, grad, retain_graph=True),
+                             iters=2)
+    V, d = table.shape
+    b_ms, b_by = bound(float(ids.numel() * d), V * d * table.element_size()
+                       + grad.numel() * 4 + ids.numel() * ids.element_size())
+    print(f"  gather_backward at MIND's history gather: ids {tuple(ids.shape)} into "
+          f"{V} x {d}: {ms:.4f} ms device ({host:.4f} ms a call from the host), plain "
+          f"{plain:.4f} ms ({plain_how}), library {lib:.4f} ms (PyTorch's backward of "
+          f"table[ids]; {lib_how}), bound {b_ms:.4f} ms ({b_by})")
+    del out, tbl
+    return dict(ms=ms, host_ms=host, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+@contextlib.contextmanager
+def train_route(kernel: bool, seen: list):
+    """MIND's profile bag and its row gathers as autograd nodes whose
+    backward is the kernels (``kernel``) or the plain versions, on the
+    card; each call's inputs and output gradient are recorded in ``seen``
+    as (kind, inputs, {"grad": ...})."""
+    saved = recsys.embedding_bag_sorted, recsys._rows
+
+    def record(out, kind, inputs):
+        rec = {}
+        seen.append((kind, inputs, rec))
+        if out.requires_grad:
+            out.register_hook(lambda g: rec.__setitem__("grad", g))
+        return out
+
+    def bag(table, idx, seg, bags, w, mode):
+        return record(bag_ops.bag_apply(table, idx, seg, bags, w, mode, True, kernel),
+                      "bag", (idx, seg, bags, w, mode))
+
+    def rows(table, ids):
+        return record(bag_ops.gather_apply(table, ids, kernel), "gather", (ids,))
+
+    recsys.embedding_bag_sorted, recsys._rows = bag, rows
+    try:
+        yield
+    finally:
+        recsys.embedding_bag_sorted, recsys._rows = saved
+
+
+def hold_train_step(arch, state, batch):
+    """One MIND train step through the bag and gather-backward kernels
+    against the same step through their plain versions, on the card, from
+    the same state and draws: gradients within rtol 1e-5 and an atol of
+    1e-6 + 1e-5 x the magnitude of the element's own terms (item_emb: the
+    bag's and the row gathers' terms, summed in the kernels' order, not
+    index_add_'s); params after ``apply`` within rtol 1e-5 / atol 1e-6."""
+    chk = Check("mind-step")
+    seen_k, seen_p = [], []
+    counts.reset_all()
+    with train_route(True, seen_k):
+        loss_k, _, g_k = arch.loss_and_grads(state.params, batch)
+    with train_route(False, seen_p):
+        loss_p, _, g_p = arch.loss_and_grads(state.params, batch)
+    torch.cuda.synchronize()
+    snap = counts.snapshot()
+    assert snap["bag"] == snap["bag_backward"] == {"kernel": 1, "plain": 1}, snap
+    assert snap["gather_backward"] == {"kernel": MIND_GATHERS, "plain": MIND_GATHERS}, snap
+    table = state.params["item_emb"]
+    mag = torch.zeros_like(table)
+    for kind, inputs, rec in seen_p:   # the item_emb gradient's terms, in magnitude
+        if kind == "bag":
+            idx, seg, bags, w, mode = inputs
+            mag += embedding_bag_backward_ref(table.abs(), idx, seg, bags, rec["grad"].abs(),
+                                              w.abs(), mode)[0]
+        else:
+            mag += gather_backward_ref(table, inputs[0], rec["grad"].abs())
+    chk.floats("loss", loss_k[None], loss_p[None])
+    for name in g_p:
+        k, p = g_k[name], g_p[name]
+        atol = ATOL + (1e-5 * mag if name == "item_emb" else 0.0)
+        bad = (k - p).abs() > RTOL * p.abs() + atol
+        chk.err = max(chk.err, max_err(k, p))
+        if int(bad.sum()):
+            chk.fail.append(f"grad {name}: {int(bad.sum())} values off")
+    new_k = opt_lib.apply(arch.optimizer, state.params, g_k, state.opt)[0]
+    new_p = opt_lib.apply(arch.optimizer, state.params, g_p, state.opt)[0]
+    for name in new_p:
+        chk.floats(f"params {name} after apply", new_k[name], new_p[name])
+    chk.done("kernel step vs plain step")
+    return g_k
+
+
+def host_step_ms(fn) -> float:
+    """Host ms of one warm call of ``fn`` between synchronizes."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def step_breakdown(fn, top: int = 8):
+    """One warm call of ``fn`` under torch.profiler: the device time by
+    kernel name (the top ``top``), their sum against the host clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            rec = by_name.setdefault(e.name[:60], [0.0, 0])
+            rec[0] += e.device_time_total / 1e3 if hasattr(e, "device_time_total") \
+                else e.cuda_time_total / 1e3
+            rec[1] += 1
+    total = sum(v[0] for v in by_name.values())
+    # unclipped: kernel time past the wall (overlapping streams, an event
+    # counted twice) shows as a negative share and is flagged
+    idle = 1 - total / wall
+    flag = "; KERNEL TIME EXCEEDS THE WALL: the count is suspect" if idle < 0 else ""
+    print(f"  one mind train step under torch.profiler: {wall:.2f} ms host clock, "
+          f"{total:.2f} ms of kernels ({sum(v[1] for v in by_name.values())} launches; "
+          f"device idle share {idle:.3f}{flag}); by device time:")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"    {ms:9.3f} ms  x{n:4d}  {name}")
+
+
+def train_a_few(name: str):
+    """``name`` at full width, a few train steps at its OTHER_TRAIN_BATCH
+    rows under a cap of TRAIN_MEMORY_FRACTION of the card's memory (an
+    OutOfMemoryError under the cap fails the run); a cut printed with its
+    reason."""
+    arch = get_arch(name)
+    rng = np.random.default_rng(SEED)
+    state = arch.init_train_state(SEED)
+    step = arch.step("train_batch").fn
+    B = OTHER_TRAIN_BATCH[name]
+    cap_gb = TRAIN_MEMORY_FRACTION * torch.cuda.get_device_properties(0).total_memory / 1e9
+    batches = [train_batch(arch, B, rng, i + 1) for i in range(OTHER_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset_all()
+    ms, losses = [], []
+    torch.cuda.set_per_process_memory_fraction(TRAIN_MEMORY_FRACTION)
+    try:
+        for b in batches:
+            t = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    snap = counts.snapshot()
+    assert all(c["plain"] == 0 for c in snap.values()), (name, snap)
+    assert all(c["kernel"] == 0 for n, c in snap.items() if n != "gather_backward"), snap
+    assert all(np.isfinite(losses)) and int(state.opt.step) == OTHER_TRAIN_STEPS, losses
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reason = f"; {BERT4REC_TRAIN_CUT}" if B < TRAIN_BATCH else ""
+    print(f"  {name:8s} train B={B}: {OTHER_TRAIN_STEPS} steps, ms "
+          f"{', '.join(f'{x:.1f}' for x in ms)} (host clock around synchronize(); the first "
+          f"cold), losses {', '.join(f'{x:.4f}' for x in losses)}, peak {peak:.2f} GB under a "
+          f"{cap_gb:.1f} GB cap ({TRAIN_MEMORY_FRACTION} of the card), gather_backward "
+          f"launches {snap['gather_backward']['kernel']}{reason}")
+    del state, batches
+    torch.cuda.empty_cache()
+
+
+def phase_training(results):
+    """8. The training path: the bag backward kernel against its plain
+    version at MIND's train shape and edge cases; MIND at full width
+    through ``Trainer.fit`` (counts reset just before), one step held
+    against the plain bag step, a resume; FM, DIEN and BERT4Rec a few
+    steps; the train launcher in its own process, twice."""
+    arch = get_arch("mind")
+    rng = np.random.default_rng(SEED)
+    state = arch.init_train_state(SEED)
+    batches = [train_batch(arch, TRAIN_BATCH, rng, i) for i in range(TRAIN_STEPS + 2)]
+    table = state.params["item_emb"]
+    print(f"training path: MIND {arch.cfg}, optimizer {arch.optimizer}; train batch "
+          f"{TRAIN_BATCH}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    idx, seg, w, B = mind_bag_inputs(batches[0])
+    grad = torch.randn((B, table.shape[1]), generator=gen, device="cuda") * 1e-4
+    chk = Check("bag_bwd")
+    for mode in ("mean", "sum"):
+        check_bag_backward(table, idx, seg, B, w, grad, mode, chk)
+        check_bag_backward(table, idx, seg, B, None, grad, mode, chk)       # weights=None
+    check_bag_backward(table, torch.zeros_like(idx), seg, B, torch.ones_like(w), grad,
+                       "mean", chk)                         # the launcher's batch: all on row 0
+    check_bag_backward(table.to(torch.bfloat16), idx, seg, B, w, grad, "mean", chk)
+    check_bag_backward(table, idx.long(), seg.long(), B, w, grad, "mean", chk)   # int64 ids
+    check_bag_backward(table, idx, seg, B, w, grad, "mean", chk, weights_grad=True)
+    t18 = torch.randn((table.shape[0], 18), generator=gen, device="cuda") * 0.02
+    S, b18 = idx.numel() // B, min(4096, B)   # DIEN's width on 4096 of the histories
+    check_bag_backward(t18, idx[: b18 * S], seg[: b18 * S], b18, w[: b18 * S],
+                       torch.randn((b18, 18), generator=gen, device="cuda"), "mean", chk)
+    del t18
+    check_bag_backward(table, idx[:S], seg[:S], 1, w[:S], grad[:1], "mean", chk)   # B = 1
+    # unsorted segments with empty bags, through the autograd node of
+    # ``embedding_bag`` (the forward's sort, then the backward kernel)
+    i40 = torch.randint(0, 1000, (400,), generator=gen, device="cuda", dtype=torch.int32)
+    s40 = torch.randint(0, 37, (400,), generator=gen, device="cuda", dtype=torch.int32)
+    w40 = torch.rand((400,), generator=gen, device="cuda")
+    g40 = torch.randn((40, table.shape[1]), generator=gen, device="cuda")
+    check_bag_backward(table, i40, s40, 40, w40, g40, "mean", chk)
+    tl = table.detach().clone().requires_grad_(True)
+    counts.reset_all()
+    out = bag_ops.embedding_bag(tl, i40, s40, 40, w40, "mean")
+    d_t = torch.autograd.grad(out, tl, g40)[0]
+    assert counts.snapshot()["bag_backward"] == {"kernel": 1, "plain": 0}
+    if not torch.equal(d_t, embedding_bag_backward_cuda(table, i40, s40, 40, g40, w40,
+                                                        "mean")[0]):
+        chk.fail.append("autograd through embedding_bag != the backward kernel's call")
+    del tl, out, d_t
+    chk.done("MIND train shape + zeros, bf16, i64, None, d_w, d18, B=1, unsorted")
+    timed = time_bag_backward(table, idx, seg, B, w, grad, "mean")
+    fwd_ms, _ = cuda_ms(lambda: embedding_bag_sorted_cuda(table, idx, seg, B, w, "mean"))
+    print(f"  bag forward at the same shape: {fwd_ms:.4f} ms device")
+    results["bag_backward"] = dict(max_abs_err=chk.err, **timed)
+    # the row gathers' backward: MIND's history gather, the launcher's, int64
+    hist = batches[0]["hist"]
+    ghist = torch.randn((*hist.shape, table.shape[1]), generator=gen, device="cuda") * 1e-4
+    chk = Check("gath_bwd")
+    check_gather_backward(table, hist, ghist, chk)
+    check_gather_backward(table, torch.zeros_like(hist), ghist, chk)
+    check_gather_backward(table, hist.long(), ghist, chk)
+    check_gather_backward(table, batches[0]["target"], ghist[:, 0].contiguous(), chk)
+    chk.done("history, zeros, int64, target")
+    results["gather_backward"] = dict(max_abs_err=chk.err,
+                                      **time_gather_backward(table, hist, ghist))
+    del ghist
+
+    # one step through the kernels against the plain bag step
+    g_k = hold_train_step(arch, state, batches[0])
+    apply_ms, apply_how = device_ms(lambda: opt_lib.apply(arch.optimizer, state.params, g_k,
+                                                          state.opt), iters=5)
+    print(f"  apply (AdamW over {table.numel():,} + the other leaves, plain PyTorch): "
+          f"{apply_ms:.3f} ms device ({apply_how})")
+    del g_k
+    step = arch.make_train_step()
+    ms_kernel = host_step_ms(lambda: step(state, batches[1]))
+    with contextlib.ExitStack() as stack:   # the row gathers' backward by PyTorch's indexing
+        stack.callback(setattr, recsys, "_rows", recsys._rows)
+        recsys._rows = lambda table, ids: table[ids.long()]
+        ms_torch = host_step_ms(lambda: step(state, batches[1]))
+    print(f"  mind train step, the row gathers' backward by PyTorch's own indexing "
+          f"backward: {ms_torch:.2f} ms; by the gather_backward kernel: {ms_kernel:.2f} ms "
+          f"(host clock around synchronize(), one warm step each)")
+    step_breakdown(lambda: step(state, batches[1]))
+    del state
+    torch.cuda.empty_cache()
+
+    # MIND's path: Trainer.fit at full width, counts reset just before
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        tr = Trainer(arch, TrainerConfig(total_steps=TRAIN_STEPS, ckpt_dir=tmp,
+                                         ckpt_interval=TRAIN_CKPT_EVERY, log_interval=1))
+        state = tr.init_state(SEED)
+        p0 = state.params["item_emb"].clone()
+        step_ms, base = [], tr.step_fn
+
+        def timed_step(st, b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = base(st, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        tr.step_fn = timed_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset_all()
+        t = time.perf_counter()
+        state, hist = tr.fit(iter(batches[:TRAIN_STEPS]), state=state)
+        fit_s = time.perf_counter() - t
+        launches = counts.snapshot()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"  mind Trainer.fit: {TRAIN_STEPS} steps of {TRAIN_BATCH}, launches {launches}")
+        assert launches["bag"]["kernel"] == launches["bag_backward"]["kernel"] == TRAIN_STEPS
+        assert launches["gather_backward"]["kernel"] == MIND_GATHERS * TRAIN_STEPS, launches
+        assert all(c["plain"] == 0 for c in launches.values()), "a plain version ran"
+        assert all(c["kernel"] == 0 for n, c in launches.items()
+                   if n not in ("bag", "bag_backward", "gather_backward")), launches
+        for n in ("bag_backward", "gather_backward"):
+            results[n]["launches"] = launches[n]["kernel"]
+        losses = [m["loss"] for _, m in hist]
+        assert [s for s, _ in hist] == list(range(1, TRAIN_STEPS + 1)) and np.all(
+            np.isfinite(losses)), hist
+        assert not torch.equal(state.params["item_emb"], p0), "the params did not move"
+        assert tr.ckpt.all_steps() == list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS + 1,
+                                                 TRAIN_CKPT_EVERY)), tr.ckpt.all_steps()
+        ck = os.path.join(tmp, f"step_{TRAIN_STEPS:012d}", "arrays.npz")
+        ck_mb = os.path.getsize(ck) / 1e6
+        t = time.perf_counter()   # one blocking save of the same state, apart
+        ckpt_lib.CheckpointManager(os.path.join(tmp, "timed")).save(TRAIN_STEPS, state)
+        write_ms = (time.perf_counter() - t) * 1e3
+        warm = step_ms[1:]
+        print(f"  mind train step: {np.median(warm):.2f} ms median (host clock around "
+              f"synchronize(); steps 2..{TRAIN_STEPS}: {', '.join(f'{x:.2f}' for x in warm)}; "
+              f"first {step_ms[0]:.2f}), {1e3 / np.median(warm):.2f} steps/s; fit "
+              f"{fit_s:.2f} s with {TRAIN_STEPS // TRAIN_CKPT_EVERY} async checkpoints; bag "
+              f"forward {fwd_ms:.4f} + backward {timed['ms']:.4f} ms device a step; apply "
+              f"{apply_ms:.3f} ms; peak {peak:.2f} GB; checkpoint {ck_mb:.1f} MB, a blocking "
+              f"write {write_ms:.1f} ms; losses {', '.join(f'{x:.4f}' for x in losses)}")
+        del state, p0
+        torch.cuda.empty_cache()
+        # resume: a second trainer on the same directory goes on to TRAIN_STEPS + 2
+        tr2 = Trainer(arch, TrainerConfig(total_steps=TRAIN_STEPS + 2, ckpt_dir=tmp,
+                                          ckpt_interval=TRAIN_CKPT_EVERY, log_interval=1))
+        state2, hist2 = tr2.fit(iter(batches[TRAIN_STEPS:]))
+        assert [s for s, _ in hist2] == [TRAIN_STEPS + 1, TRAIN_STEPS + 2], hist2
+        assert int(state2.opt.step) == TRAIN_STEPS + 2
+        print(f"  resumed at step {TRAIN_STEPS}: steps {[s for s, _ in hist2]}, opt.step "
+              f"{int(state2.opt.step)}, losses {[round(m['loss'], 4) for _, m in hist2]}")
+        del state2, tr, tr2
+    del batches
+    torch.cuda.empty_cache()
+
+    for name in ("fm", "dien", "bert4rec"):
+        train_a_few(name)
+
+    # the train launcher at MIND's full width, then a resume on its directory
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_launch_") as tmp:
+        first = run_module("repro_torch.launch.train", [*TRAIN_LAUNCH_FLAGS, "--steps", "4",
+                                                        "--ckpt-dir", tmp], root, "  train launcher")
+        assert first[-1] == "final checkpoint: 4" and first[-2].startswith("step 4: loss="), first
+        saved = {n: os.stat(os.path.join(tmp, n)).st_mtime_ns for n in os.listdir(tmp)}
+        second = run_module("repro_torch.launch.train", [*TRAIN_LAUNCH_FLAGS, "--steps", "6",
+                                                         "--ckpt-dir", tmp], root, "  train launcher")
+        steps = [ln.split(":")[0] for ln in second if ln.startswith("step ")]
+        after = {n: os.stat(os.path.join(tmp, n)).st_mtime_ns for n in os.listdir(tmp)}
+        assert steps == ["step 6"] and second[-1] == "final checkpoint: 6", second
+        assert all(after.get(n) == m for n, m in saved.items()), (saved, after)
+        print("  train launcher: 4 steps, then resumed at 4 to 6 (steps 2 and 4 untouched)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2745,6 +3306,7 @@ def main() -> int:
     phase_sharded(stream, warm, batches)
     phase_launcher()
     phase_comparison()
+    phase_training(results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name:9s} kernel {r['ms']:.4f} ms device ({r['host_ms']:.4f} ms a call "

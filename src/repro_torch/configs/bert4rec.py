@@ -15,7 +15,7 @@ CONFIG = BERT4RecConfig(
     n_items=1_000_000,
 )
 
-# the reference config's optimizer, kept for training (ROADMAP A10); serving reads none of it
+# the train step's optimizer, passed to the arch in both branches as the reference does
 OPT = OptimizerConfig(kind="adamw", lr=1e-3, clip_norm=1.0)
 
 
@@ -24,7 +24,7 @@ def make(smoke: bool = False):
     if smoke:
         arch = BERT4Rec(BERT4RecConfig(name="bert4rec-smoke", embed_dim=16,
                                        n_blocks=1, n_heads=2, seq_len=8,
-                                       n_items=1000))
+                                       n_items=1000), optimizer=OPT)
         arch.shapes = dict(SMOKE_RS_SHAPES)
         return arch
-    return BERT4Rec(CONFIG)
+    return BERT4Rec(CONFIG, optimizer=OPT)

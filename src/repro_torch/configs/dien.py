@@ -15,7 +15,7 @@ CONFIG = DIENConfig(
     n_items=1_000_000,
 )
 
-# the reference config's optimizer, kept for training (ROADMAP A10); serving reads none of it
+# the train step's optimizer, passed to the arch in both branches as the reference does
 OPT = OptimizerConfig(kind="adamw", lr=1e-3, clip_norm=1.0)
 
 
@@ -23,7 +23,7 @@ OPT = OptimizerConfig(kind="adamw", lr=1e-3, clip_norm=1.0)
 def make(smoke: bool = False):
     if smoke:
         arch = DIEN(DIENConfig(name="dien-smoke", embed_dim=8, seq_len=8,
-                               gru_dim=16, mlp_dims=(16, 8), n_items=1000))
+                               gru_dim=16, mlp_dims=(16, 8), n_items=1000), optimizer=OPT)
         arch.shapes = dict(SMOKE_RS_SHAPES)
         return arch
-    return DIEN(CONFIG)
+    return DIEN(CONFIG, optimizer=OPT)

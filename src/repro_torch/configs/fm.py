@@ -13,7 +13,7 @@ CONFIG = FMConfig(
     rows_per_field=1_000_000,   # Criteo-scale hashed vocab per field
 )
 
-# the reference config's optimizer, kept for training (ROADMAP A10); serving reads none of it
+# the train step's optimizer, passed to the arch in both branches as the reference does
 OPT = OptimizerConfig(kind="adamw", lr=1e-3, clip_norm=1.0)
 
 
@@ -21,7 +21,7 @@ OPT = OptimizerConfig(kind="adamw", lr=1e-3, clip_norm=1.0)
 def make(smoke: bool = False):
     if smoke:
         arch = FM(FMConfig(name="fm-smoke", n_fields=39, embed_dim=10,
-                           rows_per_field=1000))
+                           rows_per_field=1000), optimizer=OPT)
         arch.shapes = dict(SMOKE_RS_SHAPES)
         return arch
-    return FM(CONFIG)
+    return FM(CONFIG, optimizer=OPT)

@@ -15,7 +15,7 @@ CONFIG = MINDConfig(
     n_items=1_000_000,
 )
 
-# the reference config's optimizer, kept for training (ROADMAP A10); serving reads none of it
+# the train step's optimizer, passed to the arch in both branches as the reference does
 OPT = OptimizerConfig(kind="adamw", lr=1e-3, clip_norm=1.0)
 
 
@@ -23,7 +23,7 @@ OPT = OptimizerConfig(kind="adamw", lr=1e-3, clip_norm=1.0)
 def make(smoke: bool = False):
     if smoke:
         arch = MIND(MINDConfig(name="mind-smoke", embed_dim=16, n_interests=2,
-                               capsule_iters=2, hist_len=8, n_items=1000))
+                               capsule_iters=2, hist_len=8, n_items=1000), optimizer=OPT)
         arch.shapes = dict(SMOKE_RS_SHAPES)
         return arch
-    return MIND(CONFIG)
+    return MIND(CONFIG, optimizer=OPT)

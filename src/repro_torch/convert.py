@@ -17,6 +17,12 @@ Model params cross the same way: the reference's params tree as nested
 dicts of numpy arrays (``jax.tree.map(np.asarray, params)``) becomes the
 port's nested dicts of tensors with ``params_from_numpy`` (stacked layer
 blocks keep their leading layer axis), and ``params_to_numpy`` goes back.
+
+Optimizer and train states cross as ``{"step", "mu", "nu"}`` and
+``{"params", "opt"}`` nested dicts of numpy arrays: ``mu`` / ``nu`` are
+param-shaped dicts or ``None``, and Adafactor's factored ``(row, col)``
+leaves stay tuples (``opt_state_from_numpy``, ``train_state_from_numpy``
+and their ``_to_numpy`` inverses).
 """
 from __future__ import annotations
 
@@ -128,3 +134,52 @@ def params_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     return tree.detach().cpu().numpy()
+
+
+def _moments_from_numpy(tree, dev):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _moments_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_moments_from_numpy(v, dev) for v in tree)
+    return torch.from_numpy(np.array(tree)).to(dev)
+
+
+def _moments_to_numpy(tree):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _moments_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_moments_to_numpy(v) for v in tree)
+    return tree.detach().cpu().numpy()
+
+
+def opt_state_from_numpy(tree: dict, device="cpu"):
+    """``{"step", "mu", "nu"}`` of numpy (the reference's ``OptState``) ->
+    the port's ``OptState`` on ``device``; the step a 0-d int32 tensor."""
+    from repro_torch.train.optimizer import OptState
+
+    dev = torch.device(device)
+    step = torch.from_numpy(np.array(tree["step"], np.int32)).to(dev)
+    return OptState(step, _moments_from_numpy(tree["mu"], dev),
+                    _moments_from_numpy(tree["nu"], dev))
+
+
+def opt_state_to_numpy(state) -> dict:
+    return {"step": np.asarray(state.step.detach().cpu().numpy(), np.int32),
+            "mu": _moments_to_numpy(state.mu), "nu": _moments_to_numpy(state.nu)}
+
+
+def train_state_from_numpy(tree: dict, device="cpu"):
+    """``{"params", "opt"}`` of numpy -> the port's ``TrainState``."""
+    from repro_torch.models.api import TrainState
+
+    return TrainState(params_from_numpy(tree["params"], device),
+                      opt_state_from_numpy(tree["opt"], device))
+
+
+def train_state_to_numpy(state) -> dict:
+    return {"params": params_to_numpy(state.params),
+            "opt": opt_state_to_numpy(state.opt)}

@@ -1,6 +1,7 @@
-"""Plain PyTorch version of the ``bag`` kernel: EmbeddingBag, a weighted
+"""Plain PyTorch versions of the ``bag`` kernels: EmbeddingBag, a weighted
 row gather summed into bags, optionally averaged over each bag's entry
-count."""
+count; its gradient (``bag_backward``); and the gradient of a row gather
+``table[ids]`` (``gather_backward``), the same sum with one entry a bag."""
 from __future__ import annotations
 
 import torch
@@ -43,3 +44,50 @@ def embedding_bag_sorted_ref(table: torch.Tensor, indices: torch.Tensor,
     if segment_ids.numel() > 1 and bool((segment_ids[1:] < segment_ids[:-1]).any()):
         raise ValueError("embedding_bag_sorted: segment_ids must be non-decreasing")
     return embedding_bag_ref(table, indices, segment_ids, num_bags, weights, mode)
+
+
+def embedding_bag_backward_ref(table: torch.Tensor, indices: torch.Tensor,
+                               segment_ids: torch.Tensor, num_bags: int,
+                               grad_out: torch.Tensor,
+                               weights: torch.Tensor | None = None, mode: str = "sum",
+                               weights_grad: bool = False):
+    """The gradient of ``embedding_bag_ref`` given ``grad_out`` [num_bags,
+    d], as the reference's autodiff of its ``embedding_bag_ref`` computes
+    it, op for op: g = grad_out / max(c, 1) per bag (c its entry count;
+    mean mode only), then
+
+        d_table[v] = sum_{i: indices[i] = v} g[seg[i]] * w[i]   (dense [V, d],
+                     summed in f32, returned in the table's dtype)
+        d_w[i]     = <table[indices[i]], g[seg[i]]>            (f32 [L], only
+                     when ``weights_grad``; else None)
+
+    Rows no entry touches are zero."""
+    COUNTS["bag_backward"].plain += 1
+    seg = segment_ids.long()
+    g = grad_out.to(torch.float32)
+    if mode == "mean":
+        cnt = torch.zeros((num_bags,), dtype=torch.float32,
+                          device=g.device).index_add_(
+                              0, seg, torch.ones(seg.shape, dtype=torch.float32,
+                                                 device=g.device))
+        g = g / torch.clamp(cnt, min=1.0)[:, None]
+    gi = g[seg]                                            # [L, d]
+    d_w = None
+    if weights_grad:
+        d_w = torch.sum(table[indices.long()].to(torch.float32) * gi, dim=1)
+    rows = gi if weights is None else gi * weights[:, None].to(torch.float32)
+    d_table = torch.zeros(table.shape, dtype=torch.float32,
+                          device=table.device).index_add_(0, indices.long(), rows)
+    return d_table.to(table.dtype), d_w
+
+
+def gather_backward_ref(table: torch.Tensor, ids: torch.Tensor,
+                        grad_out: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``table[ids]`` given ``grad_out`` [*ids.shape, d]:
+    d_table[v] = sum_{i: ids[i] = v} grad_out[i], dense [V, d] in the
+    table's dtype, summed in f32 (the transpose of the reference's
+    ``jnp.take`` row gathers)."""
+    COUNTS["gather_backward"].plain += 1
+    d = table.shape[1]
+    return torch.zeros(table.shape, dtype=torch.float32, device=table.device).index_add_(
+        0, ids.reshape(-1).long(), grad_out.reshape(-1, d).to(torch.float32)).to(table.dtype)

@@ -26,7 +26,7 @@ from pathlib import Path
 
 # the kernels, and an empty kernel that chip_smoke.py times as the launch floor
 SOURCES = ("admit", "serve", "mips", "rerank", "prefilter", "assign", "bag",
-           "heavy_hitter", "launch_floor")
+           "bag_backward", "heavy_hitter", "launch_floor")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SMEM_PER_BLOCK = 232_448   # bytes of shared memory one block can use on Hopper

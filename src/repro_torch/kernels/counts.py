@@ -33,6 +33,8 @@ COUNTS: dict[str, CallCounts] = {
     "prefilter": CallCounts(),
     "assign": CallCounts(),
     "bag": CallCounts(),
+    "bag_backward": CallCounts(),   # bag's gradient (port-side: no pallas_call)
+    "gather_backward": CallCounts(),   # bag_backward.cu's gather transpose
     "heavy_hitter": CallCounts(),
 }
 

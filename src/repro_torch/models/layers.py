@@ -1,4 +1,5 @@
-"""Shared model-building blocks, as far as recsys serving needs them.
+"""Shared model-building blocks, as far as the recsys archs need them to
+serve and train.
 
 Parameters are plain nested dicts of tensors. ``Builder`` draws them from
 one explicit ``torch.Generator`` with the reference's shapes and stddev
@@ -69,11 +70,44 @@ def layer(stacked: Params, i: int) -> Params:
             for k, v in stacked.items()}
 
 
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm with the reference's custom VJP: math in fp32, cotangents
+    emitted in the input dtype (``dx`` in x's, ``dscale`` in scale's)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        x32 = x.to(torch.float32)
+        r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, scale, r)
+        return (x32 * r * scale.to(torch.float32)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, r = ctx.saved_tensors
+        x32 = x.to(torch.float32)
+        gw = g.to(torch.float32) * scale.to(torch.float32)
+        xhat = x32 * r
+        dx = r * (gw - xhat * torch.mean(gw * xhat, dim=-1, keepdim=True))
+        dscale = torch.sum((g.to(torch.float32) * xhat).reshape(-1, x.shape[-1]), dim=0)
+        return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm forward: math in fp32, output in the input dtype."""
-    x32 = x.to(torch.float32)
-    r = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
-    return (x32 * r * scale.to(torch.float32)).to(x.dtype)
+    """RMSNorm: math in fp32, output in the input dtype; its gradient is
+    the reference's custom VJP (``_RMSNorm``)."""
+    return _RMSNorm.apply(x, scale, eps)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean CE in fp32; labels == -100 are ignored."""
+    logits = logits.to(torch.float32)
+    valid = labels >= 0 if mask is None else mask
+    safe = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0] - logz
+    n = torch.clamp(torch.sum(valid), min=1)
+    return -torch.sum(torch.where(valid, ll, 0.0)) / n
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype) -> Params:

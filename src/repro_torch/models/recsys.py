@@ -1,13 +1,21 @@
-"""RecSys architecture family, the serving path: MIND, BERT4Rec, DIEN, FM.
+"""RecSys architecture family: MIND, BERT4Rec, DIEN, FM.
 
 The hot path is the huge sparse embedding table (10^6–10^7 rows): lookups
-are gathers and EmbeddingBag (``kernels/bag``); ``retrieval_cand`` (1
-query x 1,000,000 candidates) is exact MIPS over the full item table
-(``kernels/mips``), the same retrieval op as the streaming-RAG index.
+are gathers and EmbeddingBag (``kernels/bag``, differentiable: its
+backward is a kernel too); ``retrieval_cand`` (1 query x 1,000,000
+candidates) is exact MIPS over the full item table (``kernels/mips``), the
+same retrieval op as the streaming-RAG index.
 
-Every function mirrors the reference's ``models/recsys.py`` op for op,
-its quirks included. Training (losses, sampled softmax, the train step)
-waits for ROADMAP A10; a ``train`` shape raises.
+Training losses: CTR BCE (FM, DIEN) and sampled softmax (BERT4Rec, MIND)
+with N_NEG shared negatives. Every function mirrors the reference's
+``models/recsys.py`` op for op, its quirks included.
+
+Random draws are explicit: a train batch may carry its sampled negatives
+(``negatives``, [N_NEG] item ids) and, for BERT4Rec, its mask uniforms
+(``mask_u``, [B, S] in [0, 1)); what it does not carry is drawn from a
+``torch.Generator`` on the batch's device seeded from ``batch["rng"]``.
+The numbers differ from ``jax.random``'s for the same key, so the tests
+hand both packages the reference's own draws.
 """
 from __future__ import annotations
 
@@ -16,11 +24,12 @@ import math
 
 import torch
 
-from repro_torch.kernels.bag.ops import embedding_bag_sorted
+from repro_torch.kernels.bag.ops import embedding_bag_sorted, gather_rows
 from repro_torch.kernels.common import resolve_device, stable_topk
 from repro_torch.kernels.mips.ops import mips_topk
 from repro_torch.models import layers as L
 from repro_torch.models.api import Arch, ShapeDef, StepSpec, spec
+from repro_torch.train.optimizer import OptimizerConfig
 
 RECSYS_SHAPES = {
     "train_batch": ShapeDef("train_batch", "train", (("batch", 65536),)),
@@ -31,9 +40,7 @@ RECSYS_SHAPES = {
 }
 
 N_ITEMS = 1_000_000          # item vocabulary (huge-embedding regime)
-TRAIN_WAITS = ("training is not ported yet (ROADMAP A10): the port serves "
-               "the recsys archs; loss, sampled softmax and the train step "
-               "come with the optimizer and trainer")
+N_NEG = 512                  # sampled-softmax negatives
 
 
 def _mlp_tower(gen, dims, dtype, prefix="mlp"):
@@ -53,7 +60,33 @@ def _mlp_run(p, x, n, prefix="mlp", final_act=False):
 
 
 def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids.long()]
+    """``table[ids]`` (the reference's ``jnp.take``); its gradient, where
+    the table requires one, is the ``gather_backward`` kernel on the card."""
+    return gather_rows(table, ids)
+
+
+def _generator(batch, device) -> torch.Generator:
+    """A generator on ``device`` seeded from the batch's two uint32 key
+    words."""
+    hi, lo = (int(x) for x in batch["rng"].tolist())
+    gen = torch.Generator(device=device)
+    gen.manual_seed((hi << 32) | lo)
+    return gen
+
+
+def _sampled_softmax(user_vec, target, item_table, negs):
+    """Shared-negative sampled softmax: own positive + N shared negatives
+    (``negs``: [N] row ids of ``item_table``)."""
+    pos = torch.sum(user_vec * _rows(item_table, target), dim=-1, keepdim=True)
+    neg = user_vec @ _rows(item_table, negs).T         # [B, N]
+    logits = torch.cat([pos, neg], dim=1)               # [B, 1+N]
+    labels = torch.zeros((logits.shape[0],), dtype=torch.int32, device=logits.device)
+    return L.cross_entropy(logits[None], labels[None])
+
+
+def _bce(logits, y):
+    return torch.mean(torch.clamp(logits, min=0) - logits * y
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 class RecSysArch(Arch):
@@ -62,8 +95,10 @@ class RecSysArch(Arch):
     hist_len: int = 50
     embed_dim: int = 64
 
-    def __init__(self):
+    def __init__(self, optimizer: OptimizerConfig | None = None):
         self.shapes = dict(RECSYS_SHAPES)
+        if optimizer is not None:
+            self.optimizer = optimizer
 
     def init(self, seed: int = 0, device=None):
         gen = torch.Generator(device=resolve_device(device))
@@ -71,7 +106,7 @@ class RecSysArch(Arch):
         return self._init(gen)
 
     # subclasses implement: _init(gen), user_vectors(params, batch) -> [B, I, d],
-    # score(params, batch) -> [B] logits
+    # score(params, batch) -> [B] logits, loss(params, batch)
     def user_vectors(self, params, batch):
         raise NotImplementedError
 
@@ -102,7 +137,7 @@ class RecSysArch(Arch):
         sh = self.shapes[shape_name]
         B = sh.dim("batch")
         if sh.kind == "train":
-            raise NotImplementedError(TRAIN_WAITS)
+            return StepSpec(self.make_train_step(), self._hist_specs(B), "train")
         if sh.kind == "retrieval":
             def fn(params, batch):
                 return self.retrieve(params, batch)
@@ -130,12 +165,12 @@ class MINDConfig:
 
 
 class MIND(RecSysArch):
-    def __init__(self, cfg: MINDConfig = MINDConfig()):
+    def __init__(self, cfg: MINDConfig = MINDConfig(), **kw):
         self.cfg = cfg
         self.name = cfg.name
         self.hist_len = cfg.hist_len
         self.embed_dim = cfg.embed_dim
-        super().__init__()
+        super().__init__(**kw)
 
     def _init(self, gen):
         cfg = self.cfg
@@ -192,6 +227,19 @@ class MIND(RecSysArch):
         t = _rows(params["item_emb"], batch["target"])      # [B,d]
         return torch.max(torch.einsum("bid,bd->bi", u, t), dim=1).values
 
+    def loss(self, params, batch):
+        u = self.user_vectors(params, batch)                # [B,I,d]
+        t = _rows(params["item_emb"], batch["target"])
+        # label-aware attention (pow 2) combines interests per target
+        att = torch.softmax(torch.einsum("bid,bd->bi", u, t) * 2.0, dim=1)
+        uv = torch.einsum("bi,bid->bd", att, u)
+        negs = batch.get("negatives")
+        if negs is None:
+            negs = torch.randint(0, params["item_emb"].shape[0], (N_NEG,),
+                                 generator=_generator(batch, u.device), device=u.device)
+        ce = _sampled_softmax(uv, batch["target"], params["item_emb"], negs)
+        return ce, {"ce": ce}
+
 
 # -----------------------------------------------------------------------------
 # BERT4Rec — bidirectional seq model (Sun et al., arXiv:1904.06690)
@@ -209,12 +257,12 @@ class BERT4RecConfig:
 
 
 class BERT4Rec(RecSysArch):
-    def __init__(self, cfg: BERT4RecConfig = BERT4RecConfig()):
+    def __init__(self, cfg: BERT4RecConfig = BERT4RecConfig(), **kw):
         self.cfg = cfg
         self.name = cfg.name
         self.hist_len = cfg.seq_len
         self.embed_dim = cfg.embed_dim
-        super().__init__()
+        super().__init__(**kw)
 
     def _init(self, gen):
         cfg = self.cfg
@@ -264,6 +312,30 @@ class BERT4Rec(RecSysArch):
         u = self.user_vectors(params, batch)[:, 0]
         return torch.sum(u * _rows(params["item_emb"], batch["target"]), dim=-1)
 
+    def loss(self, params, batch):
+        """Cloze objective: mask random positions, predict them (sampled)."""
+        cfg = self.cfg
+        hist, hmask = batch["hist"], batch["hist_mask"]
+        B, S = hist.shape
+        mask_u, negs = batch.get("mask_u"), batch.get("negatives")
+        if mask_u is None or negs is None:
+            gen = _generator(batch, hist.device)
+            if mask_u is None:
+                mask_u = torch.rand((B, S), generator=gen, device=hist.device)
+            if negs is None:
+                negs = torch.randint(0, cfg.n_items, (N_NEG,), generator=gen,
+                                     device=hist.device)
+        mask_pos = (mask_u < cfg.mask_frac) & hmask
+        masked = torch.where(mask_pos, cfg.n_items, hist)    # [MASK] id
+        h = self.encode(params, masked, hmask)
+        # gather one masked position per row (first masked, else position 0)
+        idx = torch.argmax(mask_pos.to(torch.int8), dim=1)
+        rows = torch.arange(B, device=hist.device)
+        uv = h[rows, idx]
+        tgt = hist[rows, idx]
+        ce = _sampled_softmax(uv, tgt, params["item_emb"][: cfg.n_items], negs)
+        return ce, {"ce": ce}
+
 
 # -----------------------------------------------------------------------------
 # DIEN — interest evolution w/ AUGRU (Zhou et al., arXiv:1809.03672)
@@ -298,12 +370,12 @@ def _gru_cell(p, prefix, x, h):
 
 
 class DIEN(RecSysArch):
-    def __init__(self, cfg: DIENConfig = DIENConfig()):
+    def __init__(self, cfg: DIENConfig = DIENConfig(), **kw):
         self.cfg = cfg
         self.name = cfg.name
         self.hist_len = cfg.seq_len
         self.embed_dim = cfg.embed_dim
-        super().__init__()
+        super().__init__(**kw)
 
     def _init(self, gen):
         cfg = self.cfg
@@ -351,6 +423,10 @@ class DIEN(RecSysArch):
         z = torch.cat([hT, tgt], dim=-1)
         return _mlp_run(params["mlp"], z, len(self.cfg.mlp_dims) + 1)[:, 0]
 
+    def loss(self, params, batch):
+        bce = _bce(self.score(params, batch), batch["labels"])
+        return bce, {"bce": bce}
+
     def user_vectors(self, params, batch):
         """Retrieval approximation: project the mean interest state to item
         space (two-stage deployment standard)."""
@@ -373,11 +449,11 @@ class FMConfig:
 
 
 class FM(RecSysArch):
-    def __init__(self, cfg: FMConfig = FMConfig()):
+    def __init__(self, cfg: FMConfig = FMConfig(), **kw):
         self.cfg = cfg
         self.name = cfg.name
         self.embed_dim = cfg.embed_dim
-        super().__init__()
+        super().__init__(**kw)
 
     @property
     def vocab(self):
@@ -405,6 +481,10 @@ class FM(RecSysArch):
         pair = 0.5 * torch.sum(s * s - torch.sum(v * v, dim=1), dim=-1)
         return lin + pair
 
+    def loss(self, params, batch):
+        bce = _bce(self.score(params, batch), batch["labels"])
+        return bce, {"bce": bce}
+
     def retrieve(self, params, batch, k: int = 100):
         """Candidate scoring reduces to MIPS: score(c) = const + w_c + <Σv, v_c>.
         Query = [Σ_user v ; 1]; item rows = [v_c ; w_c] over field 0, a
@@ -431,7 +511,7 @@ class FM(RecSysArch):
         sh = self.shapes[shape_name]
         B = sh.dim("batch")
         if sh.kind == "train":
-            raise NotImplementedError(TRAIN_WAITS)
+            return StepSpec(self.make_train_step(), self._fm_specs(B), "train")
         if sh.kind == "retrieval":
             def fn(params, batch):
                 return self.retrieve(params, batch)

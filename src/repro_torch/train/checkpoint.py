@@ -11,7 +11,8 @@ Guarantees:
                  offsets, counter state) alongside the state tree.
 
 Trees are the port's state types: NamedTuples, dicts, tuples and lists
-of tensors, Python ints and ``torch.Generator``s. ``flatten_tree`` names
+of tensors, Python ints and ``torch.Generator``s; a ``None`` is an empty
+subtree (no leaf is saved for it, and it restores as ``None``). ``flatten_tree`` names
 each leaf by the reference's keystr form (``.clus.centroids``,
 ``.store.embs``, ``['w']``, ``[0]``), so paths read the same in both
 packages. A Python int leaf (the host counters ``arrivals``,
@@ -45,6 +46,10 @@ def _items(tree):
 
 
 def _walk(tree, prefix: str = ""):
+    """(keystr path, leaf) pairs; a ``None`` is no leaf (an empty subtree,
+    as the reference's tree flatten drops it: Adafactor's and SGD's ``mu``)."""
+    if tree is None:
+        return
     items = _items(tree)
     if items is None:
         yield prefix, tree
@@ -93,6 +98,8 @@ def _leaf_in(abstract, arr):
 
 
 def _rebuild(tree, leaves):
+    if tree is None:
+        return None
     if hasattr(tree, "_fields"):
         return type(tree)(*(_rebuild(v, leaves) for v in tree))
     if isinstance(tree, dict):

@@ -101,3 +101,35 @@ def ivfpq_train_draws(key, sample, nlist: int, m: int, nbits: int = 8) -> dict:
                                                      replace=True))
                         for km in jax.random.split(k2, m)])
     return {"picks": kmeanspp_picks(k1, xs, nlist), "choices": choices}
+
+
+def recsys_draws(name: str, rng: np.ndarray, B: int, S: int, n_items: int,
+                 n_neg: int = 512) -> dict:
+    """The draws the reference's recsys losses make from a batch's ``rng``
+    key data, as the numpy entries a port batch carries: MIND's sampled
+    negatives ``randint(key, (n_neg,), 0, n_items)`` (``recsys.py:61``);
+    BERT4Rec's ``split(key)`` -> (mask uniforms [B, S], negatives)
+    (``recsys.py:310-312``); none for DIEN and FM."""
+    key = jax.random.wrap_key_data(jax.numpy.asarray(rng, jax.numpy.uint32))
+    if name.startswith("mind"):
+        return {"negatives": np.asarray(jax.random.randint(key, (n_neg,), 0, n_items))}
+    if name.startswith("bert4rec"):
+        k1, k2 = jax.random.split(key)
+        return {"mask_u": np.asarray(jax.random.uniform(k1, (B, S))),
+                "negatives": np.asarray(jax.random.randint(k2, (n_neg,), 0, n_items))}
+    return {}
+
+
+def opt_tree(state) -> dict:
+    """A reference ``OptState`` as ``{step, mu, nu}`` of numpy (``None``
+    kept, Adafactor's (row, col) tuples kept as tuples)."""
+    def conv(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(conv(v) for v in t)
+        return np.asarray(t)
+
+    return {"step": np.asarray(state.step), "mu": conv(state.mu), "nu": conv(state.nu)}

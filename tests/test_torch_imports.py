@@ -31,7 +31,9 @@ def test_port_and_chip_smoke_import_no_jax():
         for name in ("repro_torch.launch.serve", "repro_torch.launch.mesh",
                      "repro_torch.distributed.collectives",
                      "repro_torch.engine.sharded", "repro_torch.core.baselines",
-                     "repro_torch.core.theory", "repro_torch.data.qa"):
+                     "repro_torch.core.theory", "repro_torch.data.qa",
+                     "repro_torch.train.trainer", "repro_torch.train.optimizer",
+                     "repro_torch.data.pipeline", "repro_torch.launch.train"):
             assert name in names, name
         print(len(names))
     """)
@@ -103,3 +105,29 @@ def test_unported_server_options_raise(tmp_path):
     srv = RAGServer(cfg, ServerConfig(topk=4, two_stage=True, nprobe=2,
                                       adaptive=True), seed=0, device="cpu")
     assert srv.plan_space is not None and srv._controller is not None
+
+
+def test_training_entry_points_run_on_the_card_by_default(tmp_path):
+    """``init_train_state``, ``abstract_train_state``, the ``Trainer`` and
+    the train launcher take ``cuda`` unless told otherwise; without a card
+    they raise rather than fall back to the CPU."""
+    from repro_torch.launch.train import main as launch_train
+    from repro_torch.models.api import get_arch
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    arch = get_arch("fm", smoke=True)
+    cfg = TrainerConfig(ckpt_dir=str(tmp_path))
+    makers = (lambda: arch.init_train_state().params["v"],
+              lambda: arch.abstract_train_state().opt.mu["v"],
+              lambda: Trainer(arch, cfg).init_state().params["v"])
+    for make in makers:
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launch_train(["--arch", "fm", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    assert arch.init_train_state(device="cpu").opt.step.device.type == "cpu"
+    assert Trainer(arch, cfg, device="cpu").init_state().params["w"].device.type == "cpu"

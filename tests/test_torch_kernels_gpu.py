@@ -1795,3 +1795,158 @@ def test_heavy_hitter_kernel_at_the_baselines_options(cuda, method):
         batches.append(lab)
     st, infos = _hh_run(cfg, hh.init(cfg, cuda), batches, cuda)
     assert int(hh.active_mask(st).sum()) > 0
+
+
+# ----------------------------------------------------------- bag backward
+def _bag_bwd_inputs(case, cuda):
+    """(table, idx, seg, bags, w, grad_out): MIND's profile bag at a cut
+    batch (Zipf-like ids, a valid prefix, padding at row 0 with weight 0),
+    every id on row 0 (the train launcher's dummy batch), or N(0, 1) rows
+    with other shapes."""
+    g = torch.Generator(device=cuda).manual_seed(len(case))
+    V, d, L, bags = 5000, 64, 3000, 60
+    if case in ("mind", "zeros"):
+        V, bags, S = 1_000_000, 4096, 50
+        rng = np.random.default_rng(0)
+        mask = np.arange(S)[None] < rng.integers(1, S + 1, (bags, 1))
+        ids = (rng.zipf(1.2, (bags, S)) - 1) % V
+        idx = torch.from_numpy(np.where(mask, ids, 0).astype(np.int32)).to(cuda).reshape(-1)
+        w = torch.from_numpy(mask.astype(np.float32)).to(cuda).reshape(-1)
+        if case == "zeros":
+            idx, w = torch.zeros_like(idx), torch.ones_like(w)
+        seg = torch.arange(bags, dtype=torch.int32, device=cuda).repeat_interleave(S)
+        table = torch.randn((V, 64), generator=g, device=cuda) * 0.02
+    else:
+        if case == "d18":
+            d = 18
+        if case == "d200":
+            d = 200
+        if case == "one_bag":
+            bags = 1
+        table = torch.randn((V, d), generator=g, device=cuda)
+        idx = torch.randint(0, 40, (L,), generator=g, device=cuda, dtype=torch.int32)
+        seg = torch.sort(torch.randint(0, bags, (L,), generator=g, device=cuda)).values.int()
+        w = torch.rand((L,), generator=g, device=cuda)
+        if case == "unsorted":   # any order, the last 5 bags empty
+            seg = torch.randint(0, bags - 5, (L,), generator=g, device=cuda, dtype=torch.int32)
+        if case == "int64":
+            idx, seg = idx.long(), seg.long()
+        if case == "bf16":
+            table = table.to(torch.bfloat16)
+        if case == "none":
+            w = None
+    grad = torch.randn((bags, table.shape[1]), generator=g, device=cuda)
+    return table, idx, seg, bags, w, grad
+
+
+def _hold_bag_bwd(table, idx, seg, bags, w, grad, mode, d_t, d_w):
+    """Against the plain version on CPU copies (in entry order): each
+    element within 1e-5 of the sum of its own terms' magnitudes, + 1e-6;
+    a bf16 gradient (the kernel's f32 sum rounded once) within half a
+    bf16 ulp more; d_w within rtol 1e-5 + 1e-5 of its terms'
+    magnitudes."""
+    from repro_torch.kernels.bag.ref import embedding_bag_backward_ref
+
+    cpu = [t.cpu() if t is not None else None for t in (table, idx, seg, w, grad)]
+    t32 = cpu[0].float()
+    want_t, want_w = embedding_bag_backward_ref(t32, cpu[1], cpu[2], bags, cpu[4], cpu[3],
+                                                mode, weights_grad=d_w is not None)
+    mag_t, mag_w = embedding_bag_backward_ref(
+        t32.abs(), cpu[1], cpu[2], bags, cpu[4].abs(), None if w is None else cpu[3].abs(),
+        mode, weights_grad=d_w is not None)
+    got = d_t.cpu().float()
+    tol = 1e-5 * mag_t + 1e-6
+    if table.dtype == torch.bfloat16:   # the kernel's f32 sum rounded once
+        tol = tol + torch.maximum(got.abs(), want_t.abs()) * 2.0 ** -8
+    assert bool(((got - want_t).abs() <= tol).all())
+    if d_w is not None:
+        assert bool(((d_w.cpu() - want_w).abs()
+                     <= 1e-5 * want_w.abs() + 1e-5 * mag_w + 1e-6).all())
+    untouched = torch.ones(table.shape[0], dtype=torch.bool)
+    untouched[cpu[1].long()] = False
+    assert bool((got[untouched] == 0).all())
+
+
+@pytest.mark.parametrize("case", ["mind", "zeros", "unsorted", "bf16", "int64", "none", "dw",
+                                  "d18", "d200", "one_bag"])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_bag_backward_kernel_matches_plain_and_is_deterministic(cuda, case, mode):
+    from repro_torch.kernels.bag.bag import embedding_bag_backward_cuda
+
+    table, idx, seg, bags, w, grad = _bag_bwd_inputs(case, cuda)
+    before = COUNTS["bag_backward"].kernel
+    d_t, d_w = embedding_bag_backward_cuda(table, idx, seg, bags, grad, w, mode,
+                                           weights_grad=case == "dw")
+    d_t2, d_w2 = embedding_bag_backward_cuda(table, idx, seg, bags, grad, w, mode,
+                                             weights_grad=case == "dw")
+    torch.cuda.synchronize()
+    assert COUNTS["bag_backward"].kernel == before + 2
+    assert d_t.dtype == table.dtype and d_t.shape == table.shape
+    assert torch.equal(d_t, d_t2)          # the same bits from call to call
+    if case == "dw":
+        assert d_w.shape == idx.shape and torch.equal(d_w, d_w2)
+    else:
+        assert d_w is None
+    _hold_bag_bwd(table, idx, seg, bags, w, grad, mode, d_t, d_w)
+
+
+def test_bag_autograd_on_card_launches_forward_and_backward(cuda):
+    from repro_torch.kernels.bag import ops as bag_ops
+
+    table, idx, seg, bags, w, grad = _bag_bwd_inputs("mind", cuda)
+    t = table.clone().requires_grad_(True)
+    ww = w.clone().requires_grad_(True)
+    f, b = COUNTS["bag"].kernel, COUNTS["bag_backward"].kernel
+    out = bag_ops.embedding_bag_sorted(t, idx, seg, bags, ww, "mean")
+    d_t, d_w = torch.autograd.grad(out, (t, ww), grad)
+    assert (COUNTS["bag"].kernel - f, COUNTS["bag_backward"].kernel - b) == (1, 1)
+    _hold_bag_bwd(table, idx, seg, bags, w, grad, "mean", d_t, d_w)
+
+
+@pytest.mark.parametrize("name", ["mind", "fm"])
+def test_train_step_on_card(cuda, name):
+    """A smoke train step on the card: MIND's launches the bag forward and
+    backward kernels once each, the gather backward once per row gather,
+    and no plain version; the loss is finite and the params move."""
+    from repro_torch.kernels import counts
+    from repro_torch.models.api import get_arch
+    from repro_torch.models.testing import dummy_batch
+
+    arch = get_arch(name, smoke=True)
+    state = arch.init_train_state(0)
+    batch = dummy_batch(arch.step("train_batch").input_specs, seed=1)
+    counts.reset_all()
+    new, m = arch.step("train_batch").fn(state, batch)
+    torch.cuda.synchronize()
+    snap = counts.snapshot()
+    if name == "mind":
+        assert snap["bag"]["kernel"] == snap["bag_backward"]["kernel"] == 1, snap
+        assert snap["gather_backward"]["kernel"] == 4, snap   # hist, target x2, negatives
+    assert all(c["plain"] == 0 for c in snap.values()), snap
+    assert np.isfinite(float(m["loss"])) and int(new.opt.step) == 1
+    key = "item_emb" if name == "mind" else "v"
+    assert not torch.equal(new.params[key], state.params[key])
+
+
+@pytest.mark.parametrize("case", ["mind", "zeros", "d18", "int64"])
+def test_gather_backward_kernel_matches_plain_and_is_deterministic(cuda, case):
+    """The gradient of ``table[ids]`` (one entry a bag): MIND's history
+    gather at a cut batch, every id on row 0, DIEN's width, int64 ids."""
+    from repro_torch.kernels.bag.bag import gather_backward_cuda
+    from repro_torch.kernels.bag.ref import gather_backward_ref
+
+    table, idx, _, _, _, _ = _bag_bwd_inputs("zeros" if case == "zeros" else "mind", cuda)
+    if case == "d18":
+        table = torch.randn((table.shape[0], 18), device=cuda)
+    if case == "int64":
+        idx = idx.long()
+    ids = idx.view(-1, 50)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    grad = torch.randn((*ids.shape, table.shape[1]), generator=g, device=cuda) * 1e-3
+    before = COUNTS["gather_backward"].kernel
+    got, again = (gather_backward_cuda(table, ids, grad) for _ in range(2))
+    torch.cuda.synchronize()
+    assert COUNTS["gather_backward"].kernel == before + 2 and torch.equal(got, again)
+    want = gather_backward_ref(table.cpu(), ids.cpu(), grad.cpu())
+    mag = gather_backward_ref(table.cpu(), ids.cpu(), grad.abs().cpu())
+    assert bool(((got.cpu() - want).abs() <= 1e-5 * mag + 1e-6).all())

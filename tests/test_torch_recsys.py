@@ -9,7 +9,8 @@ other orders; capsule routing, attention and the GRU scans are not
 bit-equal); retrieved ids exact, except where the reference's own scores
 hold a near-tie (neighbours within 1e-5) at that position. Then every
 serve/retrieval smoke cell of ``step()`` runs finite and shaped as the
-reference's, and a train cell raises.
+reference's, and each arch's train cell is a train ``StepSpec`` with the
+reference's input shapes (``test_torch_train.py`` holds the step itself).
 """
 import jax
 import jax.numpy as jnp
@@ -164,7 +165,10 @@ def test_step_cells_finite_and_shaped(name, shape):
 def test_registry_and_train_cells():
     assert list_archs() == sorted(ARCHS)
     for name in ARCHS:
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            get_arch(name, smoke=True).step("train_batch")
+        spec = get_arch(name, smoke=True).step("train_batch")
+        jspec = j_get_arch(name, smoke=True).step("train_batch")
+        assert spec.kind == jspec.kind == "train" and callable(spec.fn)
+        assert {k: tuple(v.shape) for k, v in spec.input_specs.items()} == \
+            {k: tuple(v.shape) for k, v in jspec.input_specs.items()}
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("qwen2-1.5b")

@@ -19,7 +19,9 @@ top-8 routes with 10% dead labels, int8 rings of depth 64, k = 10),
 ``bag`` (MIND's profile bag through the entry its user_vectors calls in
 that checkout, at serve_p99, 512 x 50, and serve_bulk, 262,144 x 50, Zipf
 ids over 1,000,000 x 64, beside ``F.embedding_bag`` + divide as
-``bag.*.library``), ``assign`` and ``admit`` (a 256-row batch against
+``bag.*.library``; and, where the checkout has it, the bag's backward
+kernel at MIND's train shape, 65,536 x 50, as ``bag.bwd``, its stable
+sort alone as ``bag.bwd.sort``), ``assign`` and ``admit`` (a 256-row batch against
 4218 x 384 centroids; admit with int8 rows, with 10% of the rows dead and
 with ``live=None`` as ``admit.live_none``), ``prefilter`` (the same
 256 x 384 rows against a 5 x 384 basis), ``heavy_hitter`` (the counter's
@@ -214,6 +216,21 @@ for label, B, S in (("bag.p99", 512, 50), ("bag.bulk", 262_144, 50)):
     fns[label + ".library"] = lambda idx=idx, w=w, o=offsets, S=S: (
         torch.nn.functional.embedding_bag(idx, table, o, mode="sum",
                                           per_sample_weights=w) / S)
+# the backward at MIND's train shape (65,536 x 50), where the checkout has it
+try:
+    from repro_torch.kernels.bag.bag import embedding_bag_backward_cuda
+except ImportError:
+    embedding_bag_backward_cuda = None
+if embedding_bag_backward_cuda is not None:
+    B, S = 65_536, 50
+    mask = np.arange(S)[None, :] < rng.integers(1, S + 1, (B, 1))
+    idx = torch.from_numpy(np.where(mask, cs.zipf_ids(rng, 1_000_000, (B, S)), 0)
+                           .astype(np.int32)).cuda().reshape(-1)
+    seg = torch.arange(B, dtype=torch.int32, device="cuda")[:, None].expand(B, S).reshape(-1)
+    w = torch.from_numpy(mask).cuda().float().reshape(-1)
+    grad = torch.randn((B, 64), generator=g, device="cuda") * 1e-4
+    fns["bag.bwd"] = lambda: embedding_bag_backward_cuda(table, idx, seg, B, grad, w, "mean")
+    fns["bag.bwd.sort"] = lambda: torch.sort(idx, stable=True)
 """,
 }
 TIME = r"""
