@@ -223,13 +223,18 @@
    through ``ops.embedding_bag``'s autograd node): each element within
    1e-5 of the sum of its own terms' magnitudes + 1e-6 (bf16: half a bf16
    ulp more, the kernel's f32 sum rounded once), untouched rows zero, two
-   calls bit-equal. Timed: device ms beside its stable sort alone, plain,
+   calls bit-equal. Timed: device ms beside a stable ``torch.sort`` of
+   the ids (the library yardstick of the kernel's own sort), plain,
    library (autograd of ``F.embedding_bag(..., per_sample_weights=w)`` +
-   divide, timed only) and bound. The row gathers' backward
-   (``gather_backward``: the same kernel, one entry a bag, for the
-   gradient of ``item_emb[ids]``) likewise at MIND's history gather, every
-   id on row 0, int64 ids and the target gather, its library yardstick
-   PyTorch's own backward of ``table[ids]``. Then one MIND train step
+   divide, timed only) and bound; one call split by launch under
+   torch.profiler into the kernel's parts (sort, clear, counts, offsets +
+   chunk sums + hot-row partials, level 2, spanning rows, dense pass; a
+   launch outside the kernel fails the run). The row gathers' backward (``gather_backward``: the
+   same kernel, one entry a bag, for the gradient of ``item_emb[ids]``)
+   likewise at MIND's history gather, every id on row 0, int64 ids and
+   the target gather, its library yardstick PyTorch's own backward of
+   ``table[ids]``, its split, and each of a step's four row gathers timed
+   at its own shape (history, target twice, 512 negatives). Then one MIND train step
    through the kernels against the same step through the plain bag and
    gather backward on the card, from the same state and draws (gradients
    within rtol 1e-5 and an atol of 1e-6 + 1e-5 x the magnitude of the
@@ -2880,8 +2885,9 @@ def bag_backward_bound(table, idx, seg, bags, w, weights_grad=False):
 
 
 def time_bag_backward(table, idx, seg, bags, w, grad, mode):
-    """Device ms of the kernel's call (its zero fill, counts and sort
-    included), its stable sort alone, plain, library (autograd of
+    """Device ms of the kernel's call (its sort, counts and dense pass
+    included), a stable torch.sort of the ids (the library yardstick of
+    the kernel's sort), plain, library (autograd of
     F.embedding_bag(..., per_sample_weights=w) + divide: the backward
     alone, timed, never called by the port) and the bound."""
     ms, host = cuda_ms(lambda: embedding_bag_backward_cuda(table, idx, seg, bags, grad, w,
@@ -2903,7 +2909,7 @@ def time_bag_backward(table, idx, seg, bags, w, grad, mode):
     b_ms, b_by = bag_backward_bound(table, idx, seg, bags, w)
     print(f"  bag_backward at MIND's train shape: L={idx.numel()} bags={bags} V={table.shape[0]}"
           f" d={table.shape[1]}: {ms:.4f} ms device ({host:.4f} ms a call from the host; "
-          f"its stable sort alone {sort_ms:.4f} ms), plain {plain:.4f} ms ({plain_how}), "
+          f"torch.sort of its ids {sort_ms:.4f} ms), plain {plain:.4f} ms ({plain_how}), "
           f"library {lib:.4f} ms (autograd of F.embedding_bag + divide, the backward alone; "
           f"{lib_how}; max|d| vs plain {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
     del out, tbl
@@ -2934,7 +2940,7 @@ def check_gather_backward(table, ids, grad, chk: Check):
 
 
 def time_gather_backward(table, ids, grad):
-    """Device ms of the gather's backward (its zero fill and sort
+    """Device ms of the gather's backward (its sort and dense pass
     included), plain (``index_add_``), library (PyTorch's own backward of
     ``table[ids]``, timed only) and the bound: the dense gradient written,
     grad_out and the ids read once."""
@@ -3038,26 +3044,68 @@ def host_step_ms(fn) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
-def step_breakdown(fn, top: int = 8):
-    """One warm call of ``fn`` under torch.profiler: the device time by
-    kernel name (the top ``top``), their sum against the host clock."""
+def profiled_launches(fn) -> tuple[float, list[tuple[str, float]]]:
+    """One warm call of ``fn`` under torch.profiler: its host-clock ms and
+    each device launch (name, device ms) in launch order. The profiler can
+    drop a session's first kernels (seen in this script's own process),
+    so ``fn`` runs twice in the session, each call behind a spinning
+    kernel, and the launches after the last spin are the second call's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3
+        for spin in (SPIN_CYCLES // 20, SPIN_CYCLES // 100):
+            torch.cuda._sleep(spin)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    last_spin = max((i for i, e in enumerate(evs) if "spin" in e.name), default=-1)
+    return wall, [(e.name, (e.device_time_total if hasattr(e, "device_time_total")
+                            else e.cuda_time_total) / 1e3) for e in evs[last_spin + 1:]]
+
+
+# bag_backward.cu's launches by the part of the design each does
+BWD_PARTS = (("hist_kernel", "sort"), ("scan_kernel", "sort"), ("scatter_kernel", "sort"),
+             ("Memset", "clear"), ("scale_kernel", "counts"),
+             ("chunk_kernel", "offsets + chunk sums + hot-row partials"),
+             ("group_kernel", "level 2"), ("finish_kernel", "spanning rows"),
+             ("dense_kernel", "dense pass"), ("dw_kernel", "d_w"))
+
+
+def backward_split(what: str, fn) -> dict[str, float]:
+    """Print one warm call of a backward entry by launch (torch.profiler)
+    and by part: sort, clear, counts, offsets + chunk sums + hot-row
+    partials, level 2, spanning rows, dense pass; fails on a launch that
+    is none of bag_backward.cu's (a library sort or fill)."""
+    _, launches = profiled_launches(fn)
+    parts: dict[str, float] = {}
+    for name, ms in launches:
+        part = next((p for k, p in BWD_PARTS if k.lower() in name.lower()), None)
+        assert part is not None, f"{what}: a launch outside bag_backward.cu: {name}"
+        parts[part] = parts.get(part, 0.0) + ms
+    print(f"  {what} by launch (torch.profiler, one warm call): "
+          + ", ".join(f"{next(p for k, p in BWD_PARTS if k.lower() in n.lower())} {ms:.4f}"
+                      for n, ms in launches))
+    print(f"  {what} by part: " + ", ".join(f"{p} {ms:.4f}" for p, ms in parts.items())
+          + f"; sum {sum(parts.values()):.4f} ms over {len(launches)} launches")
+    return parts
+
+
+def step_breakdown(fn, top: int = 8):
+    """One warm call of ``fn`` under torch.profiler: the device time by
+    kernel name (the top ``top``), their sum against the host clock."""
+    wall, launches = profiled_launches(fn)
     by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            rec = by_name.setdefault(e.name[:60], [0.0, 0])
-            rec[0] += e.device_time_total / 1e3 if hasattr(e, "device_time_total") \
-                else e.cuda_time_total / 1e3
-            rec[1] += 1
+    for name, ms in launches:
+        rec = by_name.setdefault(name[:60], [0.0, 0])
+        rec[0] += ms
+        rec[1] += 1
     total = sum(v[0] for v in by_name.values())
     # unclipped: kernel time past the wall (overlapping streams, an event
     # counted twice) shows as a negative share and is flagged
@@ -3161,6 +3209,8 @@ def phase_training(results):
     del tl, out, d_t
     chk.done("MIND train shape + zeros, bf16, i64, None, d_w, d18, B=1, unsorted")
     timed = time_bag_backward(table, idx, seg, B, w, grad, "mean")
+    backward_split("bag_backward at MIND's train shape",
+                   lambda: embedding_bag_backward_cuda(table, idx, seg, B, grad, w, "mean"))
     fwd_ms, _ = cuda_ms(lambda: embedding_bag_sorted_cuda(table, idx, seg, B, w, "mean"))
     print(f"  bag forward at the same shape: {fwd_ms:.4f} ms device")
     results["bag_backward"] = dict(max_abs_err=chk.err, **timed)
@@ -3175,6 +3225,22 @@ def phase_training(results):
     chk.done("history, zeros, int64, target")
     results["gather_backward"] = dict(max_abs_err=chk.err,
                                       **time_gather_backward(table, hist, ghist))
+    backward_split("gather_backward at the history gather",
+                   lambda: gather_backward_cuda(table, hist, ghist))
+    # the step's four row gathers, each at its own shape: the history, the
+    # target twice (attention and the sampled softmax's positive) and the
+    # 512 shared negatives
+    negs = torch.randint(0, table.shape[0], (512,), generator=gen, device="cuda")
+    shapes = (("history", hist, ghist), ("target", batches[0]["target"], ghist[:, 0]),
+              ("target again", batches[0]["target"], ghist[:, 1]),
+              ("negatives", negs, ghist[:512, 2]))
+    timed_gathers = []
+    for what, ids, g in shapes:
+        g = g.contiguous()
+        ms = cuda_ms(lambda: gather_backward_cuda(table, ids, g))[0]
+        timed_gathers.append(f"{what} {tuple(ids.shape)} {ms:.4f} ms")
+    print("  gather_backward, the four row gathers of a MIND step at their own shapes: "
+          + "; ".join(timed_gathers) + " device")
     del ghist
 
     # one step through the kernels against the plain bag step

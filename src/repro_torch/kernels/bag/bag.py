@@ -1,9 +1,12 @@
 """ctypes wrappers of the hand-written CUDA ``bag`` kernels: EmbeddingBag
 (``repro_torch/csrc/bag.cu``: one warp per bag over entries sorted by
-bag) and its gradient (``repro_torch/csrc/bag_backward.cu``: runs of equal
-row id summed in fixed chunks, then chunk partials in chunk order), whose
-entry also takes a row gather's gradient (``gather_backward_cuda``)."""
+bag) and its gradient (``repro_torch/csrc/bag_backward.cu``: a stable
+radix sort of the entries by row, runs that span chunks summed into
+pieces, and one dense pass that writes every row once), whose entry also
+takes a row gather's gradient (``gather_backward_cuda``)."""
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -80,7 +83,58 @@ def embedding_bag_sorted_cuda(table: torch.Tensor, indices: torch.Tensor,
     return out
 
 
-BWD_CHUNK = 256   # entries a warp sums per level of bag_backward.cu (its kChunk)
+BWD_CHUNK = 256        # sorted entries a warp sums into a piece (bag_backward.cu's kChunk)
+BWD_GROUP = 64         # chunks a level-2 sum covers (kGroup)
+BWD_TILE = 4096        # entries a sort block ranks in a pass (kTile)
+BWD_MAX_DIGIT = 11     # bits a sort pass takes at most (its radix at most 2048)
+_ALIGN = 256           # bytes each scratch region starts on
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+    """How ``bag_backward.cu`` runs on V rows and L entries: the stable
+    LSD sort's digit passes (bits each, lowest digit first: together the
+    ceil(log2 V) bits a row id has, at least 1) and the scratch regions
+    (name, bytes) in the order they lie in one buffer, each on a 256-byte
+    boundary."""
+
+    widths: tuple[int, ...]
+    regions: tuple[tuple[str, int], ...]
+
+    def offsets(self) -> dict[str, int]:
+        out, at = {}, 0
+        for name, nbytes in self.regions:
+            out[name] = at
+            at += cdiv(nbytes, _ALIGN) * _ALIGN
+        return out
+
+    @property
+    def scratch_bytes(self) -> int:
+        return sum(cdiv(nbytes, _ALIGN) * _ALIGN for _, nbytes in self.regions)
+
+
+def backward_plan(V: int, L: int, d: int, num_bags: int, weighted: bool,
+                  mean: bool) -> BackwardPlan:
+    """The plan of one call (``weighted``: weights given; ``mean``: mean
+    mode). The passes split the row id's bits as evenly as passes of at
+    most 11 bits allow: 20 bits at V = 10^6 take 10 + 10, 23 bits (V =
+    2^22 + 3) 8 + 8 + 7. Tile counts are kept for the widest pass's radix;
+    pieces are two a chunk of 256 sorted entries, level-2 sums one a full
+    group of 64 chunks."""
+    bits = max(1, (V - 1).bit_length())
+    npasses = cdiv(bits, BWD_MAX_DIGIT)
+    base, extra = divmod(bits, npasses)
+    widths = tuple(base + (p < extra) for p in range(npasses))
+    radix, tiles = 1 << max(widths), cdiv(L, BWD_TILE)
+    chunks, groups = cdiv(L, BWD_CHUNK), L // (BWD_GROUP * BWD_CHUNK)
+    w_bytes = 4 * L if weighted else 0
+    regions = (("keys_a", 4 * L), ("keys_b", 4 * L), ("bags_a", 4 * L), ("bags_b", 4 * L),
+               ("w_a", w_bytes), ("w_b", w_bytes),
+               ("counts_a", 4 * radix * tiles), ("counts_b", 4 * radix * tiles * (npasses > 1)),
+               ("totals", 4 * radix), ("touched", V), ("row_start", 4 * V),
+               ("pieces", 4 * 2 * chunks * d), ("level2", 4 * groups * d),
+               ("cnt", 4 * num_bags if mean else 0), ("gs", 4 * num_bags * d if mean else 0))
+    return BackwardPlan(widths, regions)
 
 
 def _bwd_fn():
@@ -88,30 +142,29 @@ def _bwd_fn():
     fn = lib.bag_backward_launch
     if fn.argtypes is None:
         P, I = build.P, build.I
-        fn.argtypes = [P, I, I, P, I, P, P, P, I, P, P, P, I, P, P, P, P, P, P, P]
+        fn.argtypes = [P, I, I, I, P, I, P, I, P, P, I, I, I, P, P, I, I, I, I, I,
+                       *[P] * 15, P]
         fn.restype = I
     return lib, fn
 
 
-def _backward_launch(table, indices, segment_ids, grad_out, weights, cnt, d_table, d_w):
-    """Sort the entries by row (stable) and launch ``bag_backward.cu``
-    (``segment_ids`` None: a gather's transpose, entry i is bag i)."""
-    dev, d, L = table.device, table.shape[1], indices.shape[0]
-    keys, perm = torch.sort(indices.to(torch.int32), stable=True)
-    n1 = 2 * cdiv(L, BWD_CHUNK)
-    n2 = 2 * cdiv(n1, BWD_CHUNK)
-    keys_a = torch.empty((n1,), dtype=torch.int32, device=dev)
-    vecs_a = torch.empty((n1, d), dtype=torch.float32, device=dev)
-    keys_b = torch.empty((n2,), dtype=torch.int32, device=dev)
-    vecs_b = torch.empty((n2, d), dtype=torch.float32, device=dev)
+def _backward_launch(table, indices, segment_ids, grad_out, weights, mean, num_bags,
+                     d_table, d_w):
+    """Plan the call and launch ``bag_backward.cu`` (``segment_ids``
+    None: a gather's transpose, entry i is bag i)."""
+    dev, (V, d), L = table.device, table.shape, indices.shape[0]
+    plan = backward_plan(V, L, d, num_bags, weights is not None, mean)
+    buf = torch.empty((plan.scratch_bytes,), dtype=torch.uint8, device=dev)
+    at = plan.offsets()
+    regions = [buf.data_ptr() + at[name] if nbytes else None for name, nbytes in plan.regions]
+    widths = (*plan.widths, 0, 0)[:3]
     lib, fn = _bwd_fn()
-    err = fn(table.data_ptr(), int(table.dtype == torch.bfloat16), d, indices.data_ptr(),
-             int(indices.dtype == torch.int64), keys.data_ptr(), perm.data_ptr(),
-             build.ptr(segment_ids),
+    err = fn(table.data_ptr(), int(table.dtype == torch.bfloat16), V, d, indices.data_ptr(),
+             int(indices.dtype == torch.int64), build.ptr(segment_ids),
              int(segment_ids is not None and segment_ids.dtype == torch.int64),
-             build.ptr(weights), build.ptr(cnt), grad_out.data_ptr(), L,
-             d_table.data_ptr(), build.ptr(d_w), keys_a.data_ptr(), vecs_a.data_ptr(),
-             keys_b.data_ptr(), vecs_b.data_ptr(), build.stream_of(dev))
+             build.ptr(weights), grad_out.data_ptr(), int(mean), num_bags, L,
+             d_table.data_ptr(), build.ptr(d_w), len(plan.widths), *widths, SMS, *regions,
+             build.stream_of(dev))
     build.check(lib, err, "bag_backward_launch")
 
 
@@ -129,12 +182,12 @@ def embedding_bag_backward_cuda(table: torch.Tensor, indices: torch.Tensor,
                                 weights_grad: bool = False):
     """Same function as ``ref.embedding_bag_backward_ref``: (d_table [V, d]
     in the table's dtype, d_w [L] f32 or None); every tensor on one CUDA
-    device, segment ids in any order. Around the launch: d_table is
-    allocated by ``torch.zeros`` (the rows no entry touches), each bag's
-    entry count (mean mode) is an ``index_add_`` of ones, and the entries
-    are sorted by row id with a stable ``torch.sort`` (so each row keeps
-    its entries' order). The result is the same bit for bit from call to
-    call."""
+    device, segment ids in any order. One call of ``bag_backward.cu``
+    (its own stable sort of the entries by row, each bag's entry count in
+    mean mode, the row sums and the dense pass) writes every row of
+    d_table, allocated by ``torch.empty``, once; scratch is one buffer
+    laid out by ``backward_plan``. The result is the same bit for bit from
+    call to call."""
     _check_table(table, "bag_backward")
     V, d = table.shape
     L = indices.shape[0]
@@ -152,16 +205,12 @@ def embedding_bag_backward_cuda(table: torch.Tensor, indices: torch.Tensor,
     if mode not in ("sum", "mean"):
         raise ValueError(f"mode {mode!r}")
     dev = table.device
-    d_table = torch.zeros((V, d), dtype=table.dtype, device=dev)
+    d_table = torch.empty((V, d), dtype=table.dtype, device=dev)
     d_w = torch.zeros((L,), dtype=torch.float32, device=dev) if weights_grad else None
-    if L == 0 or d == 0:
+    if V == 0 or d == 0:
         return d_table, d_w
-    cnt = None
-    if mode == "mean":
-        cnt = torch.zeros((num_bags,), dtype=torch.float32, device=dev).index_add_(
-            0, segment_ids, torch.ones((1,), dtype=torch.float32, device=dev).expand(L))
-        cnt = torch.clamp(cnt, min=1.0)
-    _backward_launch(table, indices, segment_ids, grad_out, weights, cnt, d_table, d_w)
+    _backward_launch(table, indices, segment_ids, grad_out, weights, mode == "mean",
+                     num_bags, d_table, d_w)
     COUNTS["bag_backward"].kernel += 1
     return d_table, d_w
 
@@ -170,8 +219,9 @@ def gather_backward_cuda(table: torch.Tensor, ids: torch.Tensor,
                          grad_out: torch.Tensor) -> torch.Tensor:
     """Same function as ``ref.gather_backward_ref``: the dense gradient of
     ``table[ids]`` ([V, d] in the table's dtype), by ``bag_backward.cu``
-    with one entry a bag (no segments, every weight 1); ``grad_out``
-    [*ids.shape, d], widened to f32. The same bits every call."""
+    with one entry a bag (no segments, every weight 1: the sort carries
+    each id's position); ``grad_out`` [*ids.shape, d], widened to f32. The
+    same bits every call."""
     _check_table(table, "gather_backward")
     V, d = table.shape
     flat = ids.reshape(-1)
@@ -182,9 +232,9 @@ def gather_backward_cuda(table: torch.Tensor, ids: torch.Tensor,
     g = grad_out.reshape(L, d).to(torch.float32).contiguous()
     if L >= 2**31 or V >= 2**31:
         raise ValueError("gather_backward counts entries and rows in 32 bits")
-    d_table = torch.zeros((V, d), dtype=table.dtype, device=table.device)
-    if L == 0 or d == 0:
+    d_table = torch.empty((V, d), dtype=table.dtype, device=table.device)
+    if V == 0 or d == 0:
         return d_table
-    _backward_launch(table, flat, None, g, None, None, d_table, None)
+    _backward_launch(table, flat, None, g, None, False, L, d_table, None)
     COUNTS["gather_backward"].kernel += 1
     return d_table

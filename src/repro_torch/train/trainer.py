@@ -112,11 +112,11 @@ class Trainer:
                     attempt += 1
                     log.warning("step %d failed (attempt %d): %s", step, attempt, e)
                     if attempt > cfg.max_retries:
-                        # fatal: restore the last checkpoint, re-raise if none
-                        latest = self.ckpt.latest_step()
-                        if latest is None:
-                            raise
+                        # fatal: restore the last checkpoint, re-raise if none;
+                        # a save still being written counts, so wait for it first
                         self.ckpt.wait()
+                        if self.ckpt.latest_step() is None:
+                            raise
                         state, meta = self._restore()
                         step = int(meta["step"])
                         log.warning("rolled back to checkpoint step %d", step)

@@ -7,8 +7,10 @@ mean, weights None and given, empty bags, unsorted segments, int64 ids
 and a bf16 table; and ``embedding_bag_backward_ref`` against PyTorch's own
 autograd of ``embedding_bag_ref``; and ``ops.gather_rows`` (``table[ids]``,
 whose backward is ``gather_backward``) against ``jax.grad`` of the
-reference's ``table[ids]``. The kernels themselves are held against their
-plain versions on the card (``test_torch_kernels_gpu.py``).
+reference's ``table[ids]``; and the kernel wrapper's host-side plan
+(``bag.backward_plan``: the sort's digit passes and the scratch regions
+from V and L). The kernels themselves are held against their plain
+versions on the card (``test_torch_kernels_gpu.py``).
 
 Tolerance: rtol 1e-5 / atol 1e-6 in f32 (sums in another order). A bf16
 table's gradient is bf16 in both packages, but the reference rounds each
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 from repro.kernels.bag.ref import embedding_bag_ref as j_bag
+from repro_torch.kernels.bag import bag as bag_kernel
 from repro_torch.kernels.bag import ops as bag_ops
 from repro_torch.kernels.bag.ref import (embedding_bag_backward_ref, embedding_bag_ref,
                                          gather_backward_ref)
@@ -172,3 +175,42 @@ def test_gather_rows_gradient_matches_jax_grad_of_take(ids_dtype):
     assert torch.equal(direct, got)
     # no grad wanted: the plain indexing, no node
     assert bag_ops.gather_rows(t.detach(), torch.from_numpy(ids)).grad_fn is None
+
+
+@pytest.mark.parametrize("V,widths", [(1, (1,)), (40, (6,)), (10**6, (10, 10)),
+                                      (2**22 + 3, (8, 8, 7)), (39 * 10**6, (9, 9, 8))])
+@pytest.mark.parametrize("L", [0, 1, 4097, 3_276_800])
+def test_backward_plan_digit_passes_and_scratch(V, widths, L):
+    """The sort covers a row id's bits (at least one) in as few passes of
+    at most 11 bits as it can, split evenly, lowest digit first; each
+    scratch region holds what bag_backward.cu's entry point says it
+    takes, on a 256-byte boundary, none overlapping."""
+    d, bags = 64, 65_536
+    plan = bag_kernel.backward_plan(V, L, d, bags, weighted=True, mean=True)
+    bits = max(1, (V - 1).bit_length())
+    assert plan.widths == widths and sum(widths) == bits and max(widths) <= 11
+    assert len(widths) == -(-bits // 11) and max(widths) - min(widths) <= 1
+    assert V <= 1 << sum(widths)
+    radix, tiles, chunks = 1 << max(widths), -(-L // 4096), -(-L // 256)
+    want = {"keys_a": 4 * L, "keys_b": 4 * L, "bags_a": 4 * L, "bags_b": 4 * L,
+            "w_a": 4 * L, "w_b": 4 * L, "counts_a": 4 * radix * tiles,
+            "counts_b": 4 * radix * tiles if len(widths) > 1 else 0,
+            "totals": 4 * radix, "touched": V, "row_start": 4 * V,
+            "pieces": 8 * chunks * d, "level2": 4 * (L // (64 * 256)) * d,
+            "cnt": 4 * bags, "gs": 4 * bags * d}
+    assert dict(plan.regions) == want
+    at = plan.offsets()
+    ends = sorted((at[name], at[name] + nbytes) for name, nbytes in plan.regions)
+    assert all(a % 256 == 0 for a, _ in ends)
+    assert all(e <= a2 for (_, e), (a2, _) in zip(ends, ends[1:]))
+    assert ends[-1][1] <= plan.scratch_bytes < ends[-1][1] + 256 * len(ends)
+
+
+def test_backward_plan_without_weights_or_mean_takes_no_payload_or_counts():
+    """A gather's transpose (no weights, sum mode) carries no weight
+    through the sort and keeps no counts or divided rows."""
+    plan = bag_kernel.backward_plan(10**6, 3_276_800, 64, 3_276_800, weighted=False,
+                                    mean=False)
+    sizes = dict(plan.regions)
+    assert sizes["w_a"] == sizes["w_b"] == sizes["cnt"] == sizes["gs"] == 0
+    assert plan.widths == (10, 10) and sizes["level2"] == 4 * 200 * 64

@@ -1798,14 +1798,50 @@ def test_heavy_hitter_kernel_at_the_baselines_options(cuda, method):
 
 
 # ----------------------------------------------------------- bag backward
+def _bwd_run_lengths(L):
+    """Run lengths whose sorted runs end on, one before and one after each
+    chunk boundary (256 entries) up to 8192, then one run over two whole
+    level-2 groups (16,384 entries each) that starts and ends inside a
+    chunk, then ends on and around sort-tile boundaries (4096)."""
+    cuts = sorted({256 * m + o for m in range(1, 32) for o in (-1, 0, 1)} | {8193, 49153}
+                  | {4096 * m + o for m in range(13, 17) for o in (-1, 0, 1)})
+    return np.diff([0, *cuts, L])
+
+
 def _bag_bwd_inputs(case, cuda):
     """(table, idx, seg, bags, w, grad_out): MIND's profile bag at a cut
     batch (Zipf-like ids, a valid prefix, padding at row 0 with weight 0),
-    every id on row 0 (the train launcher's dummy batch), or N(0, 1) rows
-    with other shapes."""
+    every id on row 0 (the train launcher's dummy batch), Zipf 1.2 ids over
+    all of 10^6 rows (most rows untouched), runs crossing each chunk, tile
+    and level-2 group boundary (in the caller's order, so runs cross the
+    sort's tiles too; every other row untouched), V = 1, V = 2^22 + 3 at
+    d = 8 (three digit passes; ids at V - 1), L = 0, or N(0, 1) rows with
+    other shapes."""
     g = torch.Generator(device=cuda).manual_seed(len(case))
     V, d, L, bags = 5000, 64, 3000, 60
-    if case in ("mind", "zeros"):
+    if case in ("zipf_v", "runs", "v1", "three_pass", "empty"):
+        rng = np.random.default_rng(1)
+        if case == "zipf_v":
+            V, bags = 1_000_000, 4096
+            ids = (rng.zipf(1.2, bags * 50) - 1) % V
+        elif case == "runs":
+            lens = _bwd_run_lengths(70_000)
+            ids = np.repeat(2 * np.arange(len(lens)), lens)
+            V, bags = 2 * len(lens) + 1, 500
+        elif case == "v1":
+            V, ids = 1, np.zeros(L, np.int64)
+        elif case == "three_pass":
+            V, d = 2**22 + 3, 8
+            ids = rng.integers(0, V, L)
+            ids[rng.random(L) < 0.05] = V - 1
+        else:
+            ids = np.zeros(0, np.int64)
+        L = len(ids)
+        idx = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+        seg = torch.from_numpy(np.sort(rng.integers(0, bags, L)).astype(np.int32)).to(cuda)
+        w = torch.from_numpy(rng.random(L).astype(np.float32)).to(cuda)
+        table = torch.randn((V, d), generator=g, device=cuda)
+    elif case in ("mind", "zeros"):
         V, bags, S = 1_000_000, 4096, 50
         rng = np.random.default_rng(0)
         mask = np.arange(S)[None] < rng.integers(1, S + 1, (bags, 1))
@@ -1868,7 +1904,8 @@ def _hold_bag_bwd(table, idx, seg, bags, w, grad, mode, d_t, d_w):
 
 
 @pytest.mark.parametrize("case", ["mind", "zeros", "unsorted", "bf16", "int64", "none", "dw",
-                                  "d18", "d200", "one_bag"])
+                                  "d18", "d200", "one_bag", "zipf_v", "runs", "v1",
+                                  "three_pass", "empty"])
 @pytest.mark.parametrize("mode", ["sum", "mean"])
 def test_bag_backward_kernel_matches_plain_and_is_deterministic(cuda, case, mode):
     from repro_torch.kernels.bag.bag import embedding_bag_backward_cuda
@@ -1928,14 +1965,18 @@ def test_train_step_on_card(cuda, name):
     assert not torch.equal(new.params[key], state.params[key])
 
 
-@pytest.mark.parametrize("case", ["mind", "zeros", "d18", "int64"])
+@pytest.mark.parametrize("case", ["mind", "zeros", "d18", "int64", "zipf_v", "runs", "v1",
+                                  "three_pass", "empty"])
 def test_gather_backward_kernel_matches_plain_and_is_deterministic(cuda, case):
     """The gradient of ``table[ids]`` (one entry a bag): MIND's history
-    gather at a cut batch, every id on row 0, DIEN's width, int64 ids."""
+    gather at a cut batch, every id on row 0, DIEN's width, int64 ids, and
+    the bag's new edge cases (``_bag_bwd_inputs``); rows no id touches
+    exactly zero."""
     from repro_torch.kernels.bag.bag import gather_backward_cuda
     from repro_torch.kernels.bag.ref import gather_backward_ref
 
-    table, idx, _, _, _, _ = _bag_bwd_inputs("zeros" if case == "zeros" else "mind", cuda)
+    table, idx, _, _, _, _ = _bag_bwd_inputs("mind" if case in ("d18", "int64") else case,
+                                             cuda)
     if case == "d18":
         table = torch.randn((table.shape[0], 18), device=cuda)
     if case == "int64":
@@ -1950,3 +1991,6 @@ def test_gather_backward_kernel_matches_plain_and_is_deterministic(cuda, case):
     want = gather_backward_ref(table.cpu(), ids.cpu(), grad.cpu())
     mag = gather_backward_ref(table.cpu(), ids.cpu(), grad.abs().cpu())
     assert bool(((got.cpu() - want).abs() <= 1e-5 * mag + 1e-6).all())
+    untouched = torch.ones(table.shape[0], dtype=torch.bool)
+    untouched[ids.reshape(-1).long().cpu()] = False
+    assert bool((got.cpu()[untouched] == 0).all())

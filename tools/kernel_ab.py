@@ -2,7 +2,7 @@
 """Device times of the port's kernels in two checkouts of this
 repository, measured in turns on one CUDA card.
 
-    python3 tools/kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [--kernel NAME ...]
+    python3 tools/kernel_ab.py OLD_CHECKOUT NEW_CHECKOUT [--kernel NAME ...] [--split]
 
 NAME is one of ``serve`` (the default: the two-stage flush, 64 queries
 against 4218 x 384 prototypes, nprobe 8, int8 rings of depth 64, k = 10;
@@ -20,8 +20,12 @@ top-8 routes with 10% dead labels, int8 rings of depth 64, k = 10),
 that checkout, at serve_p99, 512 x 50, and serve_bulk, 262,144 x 50, Zipf
 ids over 1,000,000 x 64, beside ``F.embedding_bag`` + divide as
 ``bag.*.library``; and, where the checkout has it, the bag's backward
-kernel at MIND's train shape, 65,536 x 50, as ``bag.bwd``, its stable
-sort alone as ``bag.bwd.sort``), ``assign`` and ``admit`` (a 256-row batch against
+kernel at MIND's train shape, 65,536 x 50, as ``bag.bwd``, a stable
+``torch.sort`` of its ids as ``bag.bwd.sort`` (the library yardstick of
+the kernel's own sort), and the row gathers' backward of a MIND step: the
+history gather, the same ids as [65,536, 50], as ``bag.gather``, a target
+gather, 65,536 Zipf ids, as ``bag.gather.small``, the 512 negatives as
+``bag.gather.neg``), ``assign`` and ``admit`` (a 256-row batch against
 4218 x 384 centroids; admit with int8 rows, with 10% of the rows dead and
 with ``live=None`` as ``admit.live_none``), ``prefilter`` (the same
 256 x 384 rows against a 5 x 384 basis), ``heavy_hitter`` (the counter's
@@ -40,7 +44,9 @@ idle), and beside its plain loop, ``.plain``, timed on the host clock
 between synchronizes, since it is host-bound; a checkout without the
 kernel times its loop alone, so ``tools/kernel_ab.py . . --kernel
 heavy_hitter`` compares the kernel with the loop); several may be
-given. Each
+given. ``--split`` also prints, for every timed call in every turn, its
+launches under torch.profiler (one warm call: each kernel's name and
+device ms, in launch order). Each
 turn (A B B A, twice) is a fresh process that imports that checkout's
 ``chip_smoke.py`` (and with it that checkout's
 ``src/repro_torch``), builds the kernels from its sources into the
@@ -69,6 +75,30 @@ from repro_torch.kernels.common import l2_normalize
 g = torch.Generator(device="cuda"); g.manual_seed(0)
 host_fns = {{}}   # host-bound calls, timed on the host clock
 host_too = set()   # kernels whose wrapper's host ms a call is reported too
+
+
+def launches(fn):
+    # one warm call of fn under torch.profiler: [kernel name, device ms]
+    # for each launch, in launch order; the profiler can drop a session's
+    # first kernels, so fn runs twice, each call behind a spinning kernel,
+    # and the launches after the last spin are kept (chip_smoke.py's
+    # profiled_launches does the same; a parent checkout's may not)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for spin in (cs.SPIN_CYCLES // 20, cs.SPIN_CYCLES // 100):
+            torch.cuda._sleep(spin)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    last_spin = max((i for i, e in enumerate(evs) if "spin" in e.name), default=-1)
+    return [[e.name[:48], (e.device_time_total if hasattr(e, "device_time_total")
+                           else e.cuda_time_total) / 1e3] for e in evs[last_spin + 1:]]
 
 
 def host_ms(fn, iters=2):
@@ -230,13 +260,29 @@ if embedding_bag_backward_cuda is not None:
     w = torch.from_numpy(mask).cuda().float().reshape(-1)
     grad = torch.randn((B, 64), generator=g, device="cuda") * 1e-4
     fns["bag.bwd"] = lambda: embedding_bag_backward_cuda(table, idx, seg, B, grad, w, "mean")
+    # the library yardstick: a stable torch.sort of the same ids (the
+    # parent's wrapper called it; the redesign sorts by hand)
     fns["bag.bwd.sort"] = lambda: torch.sort(idx, stable=True)
+    # the row gathers' backward of a MIND step: the history (the same ids,
+    # [B, S]), a target gather (B Zipf ids; twice a step) and the negatives
+    # (512 uniform ids)
+    from repro_torch.kernels.bag.bag import gather_backward_cuda
+    ghist = torch.randn((B, S, 64), generator=g, device="cuda") * 1e-4
+    tgt = torch.from_numpy(cs.zipf_ids(rng, 1_000_000, (B,))).cuda()
+    gtgt = torch.randn((B, 64), generator=g, device="cuda") * 1e-4
+    negs = torch.randint(0, 1_000_000, (512,), generator=g, device="cuda")
+    gneg = torch.randn((512, 64), generator=g, device="cuda") * 1e-4
+    fns["bag.gather"] = lambda: gather_backward_cuda(table, idx.view(B, S), ghist)
+    fns["bag.gather.small"] = lambda: gather_backward_cuda(table, tgt, gtgt)
+    fns["bag.gather.neg"] = lambda: gather_backward_cuda(table, negs, gneg)
 """,
 }
 TIME = r"""
 for name, fn in fns.items():
     runs = sorted(cs.cuda_ms(fn) for _ in range(5))
     out[name] = runs[2][0]
+    if SPLIT:
+        splits[name] = launches(fn)
     if name in host_too:
         out[name + ".host"] = sorted(r[1] for r in runs)[2]
 for name, fn in host_fns.items():
@@ -246,16 +292,20 @@ host_fns = {}
 ROUNDS = 2
 
 
-def turn(root: str, kernels: list[str]) -> dict[str, float]:
-    code = PRELUDE.format(root=os.path.abspath(root)) + "out = {}\n"
+def turn(root: str, kernels: list[str], split: bool) -> tuple[dict, dict]:
+    """One process in ``root``: {name: device ms} and, with ``split``,
+    {name: [[kernel, device ms], ...]} from one profiled call."""
+    code = (PRELUDE.format(root=os.path.abspath(root))
+            + f"out, splits, SPLIT = {{}}, {{}}, {split}\n")
     for kernel in kernels:
         code += SETUP[kernel] + TIME
-    code += "print(json.dumps(out))\n"
+    code += "print(json.dumps(splits))\nprint(json.dumps(out))\n"
     out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
                          text=True, timeout=900)
     if out.returncode != 0:
         raise RuntimeError(f"turn in {root} failed:\n{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    lines = out.stdout.strip().splitlines()
+    return json.loads(lines[-1]), json.loads(lines[-2])
 
 
 def main() -> int:
@@ -263,11 +313,16 @@ def main() -> int:
     ap.add_argument("old")
     ap.add_argument("new")
     ap.add_argument("--kernel", nargs="+", choices=sorted(SETUP), default=["serve"])
+    ap.add_argument("--split", action="store_true",
+                    help="also print each timed call's launches under torch.profiler")
     args = ap.parse_args()
     times: dict[str, dict[str, list[float]]] = {}
     for _ in range(ROUNDS):
         for side in ("old", "new", "new", "old"):
-            got = turn(getattr(args, side), args.kernel)
+            got, splits = turn(getattr(args, side), args.kernel, args.split)
+            for name, ks in splits.items():
+                print(f"{side} {name} split: " + ", ".join(f"{k} {ms:.4f}" for k, ms in ks)
+                      + f" (sum {sum(ms for _, ms in ks):.4f} ms)")
             for name, ms in got.items():
                 times.setdefault(name, {"old": [], "new": []})[side].append(ms)
             print(f"{side}: " + ", ".join(f"{k} {ms:.4f}" for k, ms in got.items())
