@@ -258,7 +258,37 @@
    (``python -m repro_torch.launch.train --arch mind --full --steps 4
    --ckpt-interval 2``) in its own process, then again to 6 on the same
    directory, which must resume at 4.
-9. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
+9. Models path (last, after ``empty_cache()``; no kernel of the port is on
+   it, and counts reset just before must read 0). The checks run on
+   params from ``init`` with the attention projections rescaled to the
+   usual fan-in over d_model (``conditioned``): at the init's own scale
+   (the reference's Builder takes the heads axis as fan-in) the scores
+   are nearly one-hot and a random model past a few layers is chaotic,
+   fp32 rounding alone moving its logits by O(1); that yardstick is
+   printed (fp32 vs a float64 run, at 2 layers and at full depth).
+   (a) The paper's embedder (``streaming-rag-embedder``) at full width
+   embeds 512 x 128 seeded token ids under padding masks of varied
+   lengths with one all-padding row; the card's result equals the same
+   module's on the CPU with the same params within max abs err 1e-4 (at
+   the init's own scale printed too), the all-padding row is exactly
+   zero, the rest unit norm; then a ``Trainer`` takes 3 steps of
+   ``train_pairs`` (256 x 128) from ``init``, losses finite. (b)
+   qwen2-1.5b at full width (bf16, flash, QKV bias, tied): ``prefill`` 4
+   x 1024 with budget S + 32, 32 greedy ``decode_step``s, then the
+   reference's decode-vs-forward check: the last decode's logits against
+   ``hidden`` + ``logits`` over the whole sequence, within 5e-2 of max
+   |logit| in bf16 and 1e-3 in fp32 (the same params upcast), the argmax
+   equal in every row but at a near-tie (a top-2 gap under that max abs
+   err); on the fp32 prefill the flash path against the q-chunked exact
+   path (``use_flash=False``), logits and cache k / v within 1e-4 of
+   their max |value|, each beside the exact path's distance from a
+   float64 run. (c) h2o-danube-1.8b at full width (bf16, window 4096):
+   ``prefill`` 1 x 4608, past the window, so every cache slot holds
+   position p at slot p % 4096 (the last 4096 positions); 16 decode
+   steps; the same check over 4624 tokens. Printed: device ms and
+   sequences/s (encoder), step ms, prefill ms, decode ms a token and
+   tokens/s, peak memory, each beside the card's name and power limit.
+10. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository beside it.
@@ -266,6 +296,7 @@ rest of the repository beside it.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -317,6 +348,7 @@ from repro_torch.kernels.serve.serve import (serve_launcher, serve_routes_cuda, 
                                              serve_topk_cuda)
 from repro_torch.models import recsys  # noqa: E402
 from repro_torch.models.api import get_arch  # noqa: E402
+from repro_torch.models.transformer import TransformerLM  # noqa: E402
 from repro_torch.models.testing import assert_finite, dummy_batch  # noqa: E402
 from repro_torch.obs import kern  # noqa: E402
 from repro_torch.serve.durability import CheckpointStore, DurabilityConfig  # noqa: E402
@@ -405,6 +437,15 @@ BERT4REC_TRAIN_CUT = ("bert4rec's train batch cut 65536 -> 8192: a step takes ~4
                       "kept for the backward in each of its 2 blocks, are 1.28 MB of it), "
                       "so one at 16384 or more does not fit under the cap")
 TRAIN_LAUNCH_FLAGS = ("--arch", "mind", "--full", "--ckpt-interval", "2")
+# the models path (9): the paper's embedder at its embed and train_pairs
+# shapes; qwen2-1.5b's prefill and greedy decode within its budget; a
+# danube prefill past its 4096 window, so the ring wraps by 512
+EMBED_SHAPE, EMBED_TOL, ENCODER_TRAIN_STEPS = (512, 128), 1e-4, 3
+QWEN_SHAPE, QWEN_DECODE = (4, 1024), 32
+DANUBE_SHAPE, DANUBE_DECODE = (1, 4608), 16
+# decode-vs-forward relative to max |logit| (fp32; bf16); flash vs exact on the
+# fp32 prefill, relative to each compared tensor's max |value| (PERF.md)
+LM_FP32_TOL, LM_BF16_TOL, FLASH_EXACT_TOL = 1e-3, 5e-2, 1e-4
 # BERT4Rec's serve_bulk attention scores: 262144 x 2 heads x 200 x 200 fp32
 BERT4REC_BULK_SKIP = ("bert4rec serve_bulk skipped on one card: its attention "
                       "scores [262144, 2, 200, 200] fp32 alone are 84 GB (the "
@@ -446,9 +487,10 @@ def cuda_ms(fn, iters: int = 20) -> tuple[float, float]:
 
 def device_ms(fn, iters: int = 20) -> tuple[float, str]:
     """``cuda_ms``'s device time where the call never waits for the card;
-    for a plain or library call that synchronizes inside (a large sort),
-    CUDA events around ``iters`` warm calls, which then hold the host's
-    share too. Returns (ms, how it was taken)."""
+    for a call that does (a plain or library call that synchronizes
+    inside, such as a large sort, or one whose thousands of launches fill
+    the launch queue), CUDA events around ``iters`` warm calls, which then
+    hold the host's share too. Returns (ms, how it was taken)."""
     try:
         return cuda_ms(fn, iters)[0], "queued"
     except RuntimeError:
@@ -458,7 +500,8 @@ def device_ms(fn, iters: int = 20) -> tuple[float, str]:
             fn()
         ev[1].record()
         torch.cuda.synchronize()
-        return ev[0].elapsed_time(ev[1]) / iters, "events around calls: it synchronizes"
+        return ev[0].elapsed_time(ev[1]) / iters, ("events around calls: the calls do not "
+                                                   "queue ahead of the card")
 
 
 def launch_floor_ms() -> float:
@@ -3348,6 +3391,285 @@ def phase_training(results):
         print("  train launcher: 4 steps, then resumed at 4 to 6 (steps 2 and 4 untouched)")
 
 
+def padded_tokens(rng, B: int, S: int, vocab: int):
+    """Seeded token ids [B, S] and a padding mask of lengths uniform in
+    [1, S], on the card."""
+    mask = np.arange(S)[None, :] < rng.integers(1, S + 1, (B, 1))
+    toks = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    return torch.from_numpy(toks).cuda(), torch.from_numpy(mask).cuda()
+
+
+def float64_twin(arch, params):
+    """``arch`` and its params with float64 params and activations (its
+    attention scores stay fp32, as the reference computes them): the
+    yardstick of how far fp32 rounding alone moves a result."""
+    cfg64 = dataclasses.replace(arch.cfg, param_dtype=torch.float64)
+    if hasattr(cfg64, "act_dtype"):
+        cfg64 = dataclasses.replace(cfg64, act_dtype=torch.float64)
+    return type(arch)(cfg64), opt_lib.tree_map(lambda t: t.double(), params)
+
+
+def conditioned(params, layers: str, d_model: int):
+    """The params with the attention projections redrawn to the usual
+    fan-in over d_model: ``init`` (as the reference's Builder) takes the
+    heads axis as fan-in of wq/wk/wv [d, h, hd] and head_dim as wo's, so
+    q and k come out with std ~8-28 and the scores are nearly one-hot;
+    past a few layers a random model is then chaotic, and fp32 rounding
+    alone moves its logits by O(1) (printed beside). wq/wk/wv are scaled
+    to std 1/sqrt(d_model), wo to 1/sqrt(h * hd); nothing else changes."""
+    out = dict(params)
+    attn = dict(params[layers]["attn"])
+    for name in ("wq", "wk", "wv"):
+        attn[name] = attn[name] * (attn[name].shape[2] / d_model) ** 0.5
+    attn["wo"] = attn["wo"] / attn["wo"].shape[1] ** 0.5
+    out[layers] = {**params[layers], "attn": attn}
+    return out
+
+
+def embed_on_card_and_cpu(arch, params, toks, mask) -> tuple:
+    """(card result, max |card - CPU|, max |card - float64|, max |CPU -
+    float64|) of ``embed`` on the same params."""
+    emb = arch.embed(params, toks, mask)
+    on_cpu = arch.embed(opt_lib.tree_map(lambda t: t.cpu(), params), toks.cpu(), mask.cpu())
+    a64, p64 = float64_twin(arch, params)
+    e64 = a64.embed(p64, toks, mask)
+    return (emb, max_err(emb.cpu(), on_cpu), max_err(emb.double(), e64),
+            max_err(on_cpu.double(), e64.cpu()))
+
+
+def phase_encoder(smi: str, fails: list):
+    """9a. The paper's embedder at full width: the card against the CPU
+    on the same params, an all-padding row, then 3 Trainer steps."""
+    arch = get_arch("streaming-rag-embedder")
+    rng = np.random.default_rng(SEED)
+    params = arch.init(SEED)
+    B, S = EMBED_SHAPE
+    toks, mask = padded_tokens(rng, B, S, arch.cfg.vocab)
+    mask[B // 2] = False                        # one all-padding row
+    with torch.no_grad():
+        _, ref_err, ref_64, ref_cpu_64 = embed_on_card_and_cpu(arch, params, toks, mask)
+        params = conditioned(params, "layers", arch.cfg.d_model)
+        emb, err, card_64, cpu_64 = embed_on_card_and_cpu(arch, params, toks, mask)
+    norms = torch.linalg.vector_norm(emb, dim=-1)
+    keep = torch.arange(B, device="cuda") != B // 2
+    print(f"  embedder {arch.cfg}: {sum(t.numel() for t in opt_lib.leaves(params)):,} params; "
+          f"embed {B} x {S}, conditioned params: card vs CPU max |d| {err:.4g} (limit "
+          f"{EMBED_TOL}), against a float64 run card {card_64:.4g}, CPU {cpu_64:.4g}; at the "
+          f"init's own scale: card vs CPU {ref_err:.4g}, against float64 card {ref_64:.4g}, "
+          f"CPU {ref_cpu_64:.4g}; all-padding row max |x| {float(emb[B // 2].abs().max())}, "
+          f"other norms in [{float(norms[keep].min()):.6f}, {float(norms[keep].max()):.6f}]")
+    if err > EMBED_TOL:
+        fails.append(f"embedder: card vs CPU max |d| {err:.4g} > {EMBED_TOL}")
+    assert bool((emb[B // 2] == 0).all()), "the all-padding row is not zero"
+    assert bool(torch.isfinite(emb).all()) and float((norms[keep] - 1).abs().max()) < 1e-5
+    with torch.no_grad():
+        ms, how = device_ms(lambda: arch.embed(params, toks, mask), iters=5)
+    print(f"  embedder embed {B} x {S}: {ms:.3f} ms device per batch ({how}), "
+          f"{B / ms * 1e3:.0f} sequences/s [{smi}]")
+
+    B, S = arch.shapes["train_pairs"].dim("batch"), arch.shapes["train_pairs"].dim("seq")
+    batches = []
+    for _ in range(ENCODER_TRAIN_STEPS):
+        a, am = padded_tokens(rng, B, S, arch.cfg.vocab)
+        p, pm = padded_tokens(rng, B, S, arch.cfg.vocab)
+        batches.append({"anchor": a, "anchor_mask": am, "positive": p, "positive_mask": pm})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_embedder_") as tmp:
+        tr = Trainer(arch, TrainerConfig(total_steps=ENCODER_TRAIN_STEPS, ckpt_dir=tmp,
+                                         ckpt_interval=ENCODER_TRAIN_STEPS + 1, log_interval=1))
+        state = tr.init_state(SEED)
+        step_ms, base = [], tr.step_fn
+
+        def timed_step(st, b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = base(st, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        tr.step_fn = timed_step
+        torch.cuda.reset_peak_memory_stats()
+        state, hist = tr.fit(iter(batches), state=state)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"] for _, m in hist]
+    assert [s for s, _ in hist] == list(range(1, ENCODER_TRAIN_STEPS + 1)) and np.all(
+        np.isfinite(losses)), hist
+    assert int(state.opt.step) == ENCODER_TRAIN_STEPS
+    print(f"  embedder Trainer.fit: {ENCODER_TRAIN_STEPS} steps of train_pairs {B} x {S}, ms "
+          f"{', '.join(f'{x:.2f}' for x in step_ms)} (host clock around synchronize(); the "
+          f"first cold), losses {', '.join(f'{x:.4f}' for x in losses)}, alignment "
+          f"{hist[-1][1]['alignment']:.4f}, peak {peak:.2f} GB [{smi}]")
+    del params, state, batches, emb
+    torch.cuda.empty_cache()
+
+
+def greedy(arch, params, toks, steps: int, budget):
+    """prefill, then ``steps`` greedy decode steps: (the last decode's
+    logits, the tokens fed, the cache after prefill, the first token fed)."""
+    lp, cache = arch.prefill(params, toks, budget=budget)
+    nxt = torch.argmax(lp, -1).to(torch.int32)
+    first, c0, fed = nxt, cache, []
+    for _ in range(steps):
+        fed.append(nxt)
+        ld, cache = arch.decode_step(params, cache, nxt)
+        nxt = torch.argmax(ld, -1).to(torch.int32)
+    return ld, torch.cat([toks, torch.stack(fed, 1)], 1), c0, first
+
+
+def decode_vs_forward(arch, params, toks, steps: int, budget) -> dict:
+    """The reference's decode consistency check: the last of ``steps``
+    greedy decode steps against ``hidden`` + ``logits`` over the whole
+    sequence."""
+    ld, seq, cache, first = greedy(arch, params, toks, steps, budget)
+    pos = torch.arange(seq.shape[1], dtype=torch.int32, device="cuda").expand(seq.shape)
+    h, _ = arch.hidden(params, seq, pos)
+    full = arch.logits(params, h[:, -1:])[:, 0]
+    ld32, full32 = ld.float(), full.float()
+    top2 = torch.topk(full32, 2, dim=-1).values
+    return dict(err=max_err(ld32, full32), scale=float(full32.abs().max()),
+                moved=(torch.argmax(ld32, -1) != torch.argmax(full32, -1)).cpu(),
+                gaps=(top2[:, 0] - top2[:, 1]).cpu(), cache=cache, first=first,
+                seq_len=seq.shape[1])
+
+
+def time_lm(arch, params, toks, budget, cache, first, smi: str) -> str:
+    """Prefill and decode times of ``arch`` (device ms by ``device_ms``),
+    and the chained decode loop on the host clock."""
+    B = toks.shape[0]
+    pre_ms, pre_how = device_ms(lambda: arch.prefill(params, toks, budget=budget), iters=3)
+    dec_ms, dec_how = device_ms(lambda: arch.decode_step(params, cache, first), iters=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy(arch, params, toks, 8, budget)
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    split = []
+    for what, fn in (("prefill", lambda: arch.prefill(params, toks, budget=budget)),
+                     ("decode", lambda: arch.decode_step(params, cache, first))):
+        wall, launches = profiled_launches(fn)
+        busy = sum(ms for _, ms in launches)
+        split.append(f"{what} {len(launches)} launches, {busy:.2f} ms of kernels in {wall:.2f} "
+                     f"ms host (idle share {1 - busy / wall:.3f})")
+    return (f"prefill {tuple(toks.shape)} {pre_ms:.2f} ms ({pre_how}), "
+            f"{B * toks.shape[1] / pre_ms * 1e3:.0f} tokens/s; decode {dec_ms:.3f} ms a token "
+            f"({dec_how}), {B / dec_ms * 1e3:.0f} tokens/s; prefill + 8 greedy decode steps "
+            f"{loop_ms:.1f} ms host clock; torch.profiler: {'; '.join(split)}; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB [{smi}]")
+
+
+def hold_decode(name: str, r: dict, rel_tol: float, fails: list):
+    """Max |d| within ``rel_tol`` of max |logit|; the argmax equal in
+    every row, except a row whose forward top-2 gap is under that max |d|
+    (a near-tie), which is printed."""
+    ties = r["moved"] & (r["gaps"] <= r["err"])
+    print(f"  {name}: decode vs forward over {r['seq_len']} tokens: max |d| {r['err']:.4g} "
+          f"(limit {rel_tol * r['scale']:.4g}), max |logit| {r['scale']:.4g}, argmax moved in "
+          f"{int(r['moved'].sum())} of {len(r['moved'])} rows ({int(ties.sum())} at near-ties), "
+          f"smallest top-2 gap of the forward {float(r['gaps'].min()):.4g}")
+    if bool((r["moved"] & ~ties).any()):
+        fails.append(f"{name}: a row's argmax moved between decode and forward")
+    if r["err"] > rel_tol * r["scale"]:
+        fails.append(f"{name}: decode vs forward max |d| {r['err']:.4g}")
+
+
+def reference_init_yardstick(arch, params, toks) -> str:
+    """fp32 vs float64 logits of the exact prefill at 2 layers and at full
+    depth, at the init's own scale: how chaotic the random model is."""
+    out = []
+    for L in (2, arch.cfg.n_layers):
+        cfg = dataclasses.replace(arch.cfg, n_layers=L, use_flash=False)
+        p = {**params, "dense_layers": opt_lib.tree_map(lambda t: t[:L], params["dense_layers"])}
+        l32 = TransformerLM(cfg).prefill(p, toks)[0]
+        a64, p64 = float64_twin(TransformerLM(cfg), p)
+        l64 = a64.prefill(p64, toks)[0]
+        out.append(f"{L} layers {max_err(l32.double(), l64) / float(l64.abs().max()):.3g}")
+        del p64, l64
+    return ", ".join(out)
+
+
+def phase_lms(smi: str, fails: list):
+    """9b, 9c. qwen2-1.5b and h2o-danube-1.8b at full width, on
+    conditioned params."""
+    rng = np.random.default_rng(SEED + 1)
+    arch = get_arch("qwen2-1.5b")
+    B, S = QWEN_SHAPE
+    budget = S + QWEN_DECODE
+    toks = torch.from_numpy(rng.integers(0, arch.cfg.vocab, (B, S)).astype(np.int32)).cuda()
+    cfg32 = dataclasses.replace(arch.cfg, param_dtype=torch.float32, act_dtype=torch.float32)
+    arch32 = TransformerLM(cfg32, optimizer=arch.optimizer)
+    params32 = arch32.init(SEED)
+    print(f"  qwen2-1.5b: {sum(t.numel() for t in opt_lib.leaves(params32)):,} params, prefill "
+          f"{B} x {S}, budget {budget}, {QWEN_DECODE} greedy decode steps; at the init's own "
+          f"scale, the exact fp32 prefill's logits vs a float64 run, of max |logit|: "
+          f"{reference_init_yardstick(arch32, params32, toks)}")
+    params32 = conditioned(params32, "dense_layers", cfg32.d_model)
+    params = opt_lib.tree_map(lambda t: t.to(arch.cfg.param_dtype), params32)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = decode_vs_forward(arch, params, toks, QWEN_DECODE, budget)
+    hold_decode("qwen2-1.5b bf16", r, LM_BF16_TOL, fails)
+    print(f"  qwen2-1.5b bf16: {time_lm(arch, params, toks, budget, r['cache'], r['first'], smi)}")
+    del r, params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r = decode_vs_forward(arch32, params32, toks, QWEN_DECODE, budget)
+    hold_decode("qwen2-1.5b fp32", r, LM_FP32_TOL, fails)
+    print(f"  qwen2-1.5b fp32: {time_lm(arch32, params32, toks, budget, r['cache'], r['first'], smi)}")
+    del r
+    exact = TransformerLM(dataclasses.replace(cfg32, use_flash=False))
+    lf, cf = arch32.prefill(params32, toks, budget=budget)
+    le, ce = exact.prefill(params32, toks, budget=budget)
+    errs = {n: (max_err(a.float(), b.float()), float(b.float().abs().max()))
+            for n, a, b in (("logits", lf, le), ("k", cf["k"], ce["k"]), ("v", cf["v"], ce["v"]))}
+    a64, p64 = float64_twin(exact, params32)
+    l64, c64 = a64.prefill(p64, toks, budget=budget)
+    del p64
+    yard = {n: max_err(b.double(), c) for n, b, c in
+            (("logits", le, l64), ("k", ce["k"], c64["k"]), ("v", ce["v"], c64["v"]))}
+    print("  qwen2-1.5b fp32 prefill, flash vs q-chunked exact: "
+          + ", ".join(f"{n} max |d| {e:.4g} (limit {FLASH_EXACT_TOL * m:.4g}; the exact path "
+                      f"vs a float64 run {yard[n]:.4g})" for n, (e, m) in errs.items()))
+    fails.extend(f"qwen2-1.5b flash vs exact {n}: max |d| {e:.4g}"
+                 for n, (e, m) in errs.items() if e > FLASH_EXACT_TOL * m)
+    assert torch.equal(cf["pos"], ce["pos"]) and torch.equal(cf["len"], ce["len"])
+    del params32, lf, cf, le, ce, l64, c64
+    torch.cuda.empty_cache()
+
+    arch = get_arch("h2o-danube-1.8b")
+    B, S = DANUBE_SHAPE
+    W = arch.cfg.window
+    torch.cuda.reset_peak_memory_stats()
+    params = conditioned(arch.init(SEED), "dense_layers", arch.cfg.d_model)
+    toks = torch.from_numpy(rng.integers(0, arch.cfg.vocab, (B, S)).astype(np.int32)).cuda()
+    print(f"  h2o-danube-1.8b: {sum(t.numel() for t in opt_lib.leaves(params)):,} params "
+          f"({arch.cfg.param_dtype}), window {W}, prefill {B} x {S} (ring shift "
+          f"{(S - W) % W}), {DANUBE_DECODE} greedy decode steps")
+    r = decode_vs_forward(arch, params, toks, DANUBE_DECODE, None)
+    pos = r["cache"]["pos"]
+    slots = torch.arange(W, device="cuda")
+    assert pos.shape == (B, W) and bool((pos % W == slots).all()) and \
+        int(pos.min()) == S - W and int(pos.max()) == S - 1, "the SWA ring layout"
+    hold_decode("h2o-danube-1.8b bf16", r, LM_BF16_TOL, fails)
+    print(f"  h2o-danube-1.8b bf16: "
+          f"{time_lm(arch, params, toks, None, r['cache'], r['first'], smi)}")
+    del params, r
+    torch.cuda.empty_cache()
+
+
+def phase_models():
+    """9. The models path: the paper's embedder and two dense LMs at full
+    width. None of the port's kernels is on it."""
+    smi = nvidia_smi()
+    print("models path:")
+    counts.reset_all()
+    fails: list[str] = []
+    phase_encoder(smi, fails)
+    with torch.no_grad():
+        phase_lms(smi, fails)
+    snap = counts.snapshot()
+    assert all(c["kernel"] == 0 and c["plain"] == 0 for c in snap.values()), snap
+    assert not fails, "models path: " + "; ".join(fails)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3373,6 +3695,8 @@ def main() -> int:
     phase_launcher()
     phase_comparison()
     phase_training(results)
+    torch.cuda.empty_cache()
+    phase_models()
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name:9s} kernel {r['ms']:.4f} ms device ({r['host_ms']:.4f} ms a call "

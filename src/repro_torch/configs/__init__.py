@@ -2,13 +2,16 @@
 paper's own (``streaming_rag``).
 
 Importing this package registers every ported factory with
-``models/api``. The LM and GNN configs wait for their models (ROADMAP
-A10).
+``models/api``. The deepseek configs wait for MoE, MLA and MTP, and
+meshgraphnet for ``models/gnn.py`` (ROADMAP A10).
 """
 from repro_torch.configs import (  # noqa: F401
     bert4rec,
     dien,
     fm,
+    h2o_danube_1_8b,
+    h2o_danube_3_4b,
     mind,
+    qwen2_1_5b,
     streaming_rag,
 )

@@ -1,8 +1,11 @@
-"""The paper's own system config (Table 2 defaults). The embedder waits
-for the port's ``models/`` slice."""
+"""The paper's own system config (Table 2 defaults): the streaming-RAG
+pipeline and its SBERT-style embedder, registered as
+``streaming-rag-embedder`` so the launchers share one entry point."""
 from __future__ import annotations
 
 from repro_torch.core import clustering, heavy_hitter, pipeline, prefilter
+from repro_torch.models.api import register
+from repro_torch.models.transformer import EncoderConfig, EncoderEmbedder
 
 EMBED_DIM = 384
 
@@ -36,3 +39,16 @@ def paper_pipeline_config(
         store_depth=store_depth,
         store_dtype=store_dtype,
     )
+
+
+@register("streaming-rag-embedder")
+def make_embedder(smoke: bool = False):
+    if smoke:
+        return EncoderEmbedder(EncoderConfig(
+            name="sbert-encoder-smoke", n_layers=2, d_model=32, n_heads=2,
+            d_ff=64, vocab=128, max_len=16))
+    # ~26M params (6 x 2.36M + the 30,522 x 384 tied embedding), MiniLM-ish:
+    # the embedding producer for the pipeline
+    return EncoderEmbedder(EncoderConfig(
+        name="sbert-encoder", n_layers=6, d_model=EMBED_DIM, n_heads=6,
+        d_ff=1536, vocab=30522, max_len=128))

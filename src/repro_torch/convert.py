@@ -18,6 +18,11 @@ dicts of numpy arrays (``jax.tree.map(np.asarray, params)``) becomes the
 port's nested dicts of tensors with ``params_from_numpy`` (stacked layer
 blocks keep their leading layer axis), and ``params_to_numpy`` goes back.
 
+A bf16 leaf crosses through a 16-bit integer view: numpy's
+``ml_dtypes.bfloat16`` (what ``np.asarray`` of a JAX bf16 array gives)
+becomes ``torch.bfloat16`` bit for bit, and back. Every other dtype stays
+as it is.
+
 Optimizer and train states cross as ``{"step", "mu", "nu"}`` and
 ``{"params", "opt"}`` nested dicts of numpy arrays: ``mu`` / ``nu`` are
 param-shaped dicts or ``None``, and Adafactor's factored ``(row, col)``
@@ -121,19 +126,36 @@ def state_to_numpy(state) -> dict:
     return out
 
 
+def _tensor(a, dev) -> torch.Tensor:
+    """A numpy leaf as a tensor on ``dev``; bf16 by its 16-bit view."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    """A tensor leaf as a numpy array; bf16 as ``ml_dtypes.bfloat16``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def params_from_numpy(tree, device="cpu"):
     """Nested dicts of numpy arrays -> the same dicts of tensors on
     ``device``, dtypes and shapes kept."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree)).to(torch.device(device))
+    return _tensor(tree, torch.device(device))
 
 
 def params_to_numpy(tree):
     """Nested dicts of tensors -> the same dicts of numpy arrays."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    return _array(tree)
 
 
 def _moments_from_numpy(tree, dev):
@@ -143,7 +165,7 @@ def _moments_from_numpy(tree, dev):
         return {k: _moments_from_numpy(v, dev) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(_moments_from_numpy(v, dev) for v in tree)
-    return torch.from_numpy(np.array(tree)).to(dev)
+    return _tensor(tree, dev)
 
 
 def _moments_to_numpy(tree):
@@ -153,7 +175,7 @@ def _moments_to_numpy(tree):
         return {k: _moments_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return tuple(_moments_to_numpy(v) for v in tree)
-    return tree.detach().cpu().numpy()
+    return _array(tree)
 
 
 def opt_state_from_numpy(tree: dict, device="cpu"):

@@ -28,6 +28,7 @@ class ShapeDef:
     name: str
     kind: str                   # train | prefill | decode | serve | retrieval
     dims: tuple[tuple[str, int], ...]  # named dims, e.g. (("seq", 4096), ...)
+    skip: str | None = None     # reason if this cell is skipped (noted in docs)
 
     def dim(self, k: str) -> int:
         return dict(self.dims)[k]

@@ -1,5 +1,8 @@
-"""Shared model-building blocks, as far as the recsys archs need them to
-serve and train.
+"""Shared model-building blocks of the recsys archs and the dense
+transformer family: norms, rotary embeddings, GQA attention, the gated MLP,
+embeddings and the cross-entropy. The reference's MoE and MLA blocks wait
+for their slice (ROADMAP A10); its sharding hint ``_constrain`` has no
+meaning in one process and no counterpart.
 
 Parameters are plain nested dicts of tensors. ``Builder`` draws them from
 one explicit ``torch.Generator`` with the reference's shapes and stddev
@@ -96,6 +99,79 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     """RMSNorm: math in fp32, output in the input dtype; its gradient is
     the reference's custom VJP (``_RMSNorm``)."""
     return _RMSNorm.apply(x, scale, eps)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm: math in fp32, output in the input dtype."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float = 10_000.0,
+                     device=None) -> torch.Tensor:
+    """[head_dim / 2] fp32 inverse frequencies."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """Rotary embedding of x [..., S, H, D] at positions (broadcastable to
+    [..., S]): the two halves of the last axis rotate together (not
+    interleaved pairs), angles in fp32, output in x's dtype."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)                   # [D/2]
+    angles = positions[..., None].to(torch.float32) * freqs        # [..., S, D/2]
+    cos = torch.cos(angles)[..., None, :]                          # [..., S, 1, D/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  q_positions: torch.Tensor, k_positions: torch.Tensor,
+                  causal: bool = True, window: int | None = None,
+                  k_valid: torch.Tensor | None = None,
+                  softmax_scale: float | None = None) -> torch.Tensor:
+    """Grouped-query attention, exact: q [B, Sq, H, D], k/v [B, Sk, KV, D]
+    (query head h = kv * g + i reads KV head kv), optional sliding window
+    and cache-slot validity k_valid [B, Sk]; scores in fp32, masked at
+    -1e30; output [B, Sq, H, Dv] in q's dtype."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    g = H // KV
+    scale = softmax_scale or (1.0 / math.sqrt(D))
+    qg = q.reshape(B, Sq, KV, g, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
+                     k.to(torch.float32)) * scale              # [B, KV, g, Sq, Sk]
+    pq = q_positions[:, None, None, :, None]
+    pk = k_positions[:, None, None, None, :]
+    mask = torch.ones(s.shape, dtype=torch.bool, device=s.device)
+    if causal:
+        mask &= pk <= pq
+    if window is not None:
+        mask &= pq - pk < window
+    if k_valid is not None:
+        mask &= k_valid[:, None, None, None, :]
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype,
+                   tied: bool = False) -> Params:
+    """``embedding`` [vocab, d_model] with stddev 0.02, and ``unembed``
+    [d_model, vocab] where the output projection is not tied to it."""
+    b = Builder(gen, dtype)
+    b.normal("embedding", (vocab, d_model), stddev=0.02)
+    if not tied:
+        b.normal("unembed", (d_model, vocab), stddev=0.02)
+    return b.build()
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

@@ -12,22 +12,30 @@ from repro_torch.kernels.common import resolve_device
 
 
 def dummy_batch(input_specs, seed: int = 0, device=None) -> dict:
-    """Concrete batch matching a StepSpec's input_specs, on ``device``
-    (``cuda`` unless given). ints -> zeros (always-valid indices), floats ->
-    N(0, 1) from numpy (drawn in sorted key order, as the reference's tree
-    walk draws them), bools -> True."""
+    """Concrete batch matching a StepSpec's input_specs (nested dicts of
+    specs too, such as a decode step's cache), on ``device`` (``cuda``
+    unless given). ints -> zeros (always-valid indices), floats -> N(0, 1)
+    from numpy (drawn in sorted key order, as the reference's tree walk
+    draws them), bools -> True."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    out = {}
-    for name in sorted(input_specs):
-        shape, dtype = input_specs[name]
-        if dtype == torch.bool:
-            out[name] = torch.ones(shape, dtype=dtype, device=dev)
-        elif dtype.is_floating_point:
-            out[name] = torch.from_numpy(rng.normal(size=shape)).to(dev, dtype)
-        else:
-            out[name] = torch.zeros(shape, dtype=dtype, device=dev)
-    return out
+
+    def make(specs):
+        out = {}
+        for name in sorted(specs):
+            if isinstance(specs[name], dict):
+                out[name] = make(specs[name])
+                continue
+            shape, dtype = specs[name]
+            if dtype == torch.bool:
+                out[name] = torch.ones(shape, dtype=dtype, device=dev)
+            elif dtype.is_floating_point:
+                out[name] = torch.from_numpy(rng.normal(size=shape)).to(dev, dtype)
+            else:
+                out[name] = torch.zeros(shape, dtype=dtype, device=dev)
+        return out
+
+    return make(input_specs)
 
 
 def assert_finite(tree, where: str = "") -> None:

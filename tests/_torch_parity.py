@@ -7,6 +7,13 @@ import jax
 import numpy as np
 import torch
 
+from repro.models.transformer import LMConfig as JLMConfig, TransformerLM as JLM
+from repro_torch.convert import params_to_numpy
+from repro_torch.models.transformer import LMConfig, TransformerLM
+
+# the dense transformer family's tolerance (tests/test_torch_transformer.py)
+TOL = dict(rtol=1e-5, atol=1e-5)
+
 
 def jax_tree(state) -> dict:
     """A reference NamedTuple state as nested dicts of numpy arrays (the
@@ -133,3 +140,59 @@ def opt_tree(state) -> dict:
         return np.asarray(t)
 
     return {"step": np.asarray(state.step), "mu": conv(state.mu), "nu": conv(state.nu)}
+
+
+# ------------------------------------------------------------ transformer
+def tiny_lm_pair(**kw):
+    """The reference's and the port's LM at ``tests/test_models.py``'s
+    ``tiny_dense`` shapes, with ``kw`` on top."""
+    base = dict(name="t", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                vocab=512, remat=False, attn_chunk=16)
+    base.update(kw)
+    return JLM(JLMConfig(**base)), TransformerLM(LMConfig(**base))
+
+
+def redraw_uniform_leaves(tree, rng):
+    """The reference's params as numpy, each all-ones / all-zeros leaf
+    (norm scales, QKV biases) redrawn around its value."""
+    def leaf(a):
+        a = np.asarray(a)
+        if np.all(a == a.flat[0]):
+            return (a + 0.1 * rng.normal(size=a.shape)).astype(a.dtype)
+        return a
+    return jax.tree.map(leaf, tree)
+
+
+def np_tokens(shape, seed, vocab=512):
+    return np.random.default_rng(seed).integers(0, vocab, shape).astype(np.int32)
+
+
+def np_positions(B, S):
+    return np.tile(np.arange(S, dtype=np.int32), (B, 1))
+
+
+def close_to_largest(got, want):
+    """Within 1e-5: rtol 1e-5 and atol 1e-5 of the largest |want| (at least 1)."""
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * max(1.0, float(np.abs(want).max())))
+
+
+def hold_grads(got, want):
+    """The port's gradient tree against the reference's, leaf for leaf:
+    rtol 1e-4, atol 1e-4 of the leaf's largest |gradient|."""
+    for g, w in zip(jax.tree.leaves(params_to_numpy(got)), jax.tree.leaves(want)):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * float(np.abs(w).max()))
+
+
+def hold_cache(got, want):
+    """A prefill / decode cache leaf for leaf: positions and lengths exact,
+    k / v within ``close_to_largest``."""
+    assert sorted(got) == sorted(want)
+    for name in ("pos", "len"):
+        np.testing.assert_array_equal(got[name].numpy(), np.asarray(want[name]))
+    for name in ("k", "v"):
+        assert tuple(got[name].shape) == want[name].shape
+        close_to_largest(got[name].numpy(), want[name])

@@ -33,7 +33,12 @@ def test_port_and_chip_smoke_import_no_jax():
                      "repro_torch.engine.sharded", "repro_torch.core.baselines",
                      "repro_torch.core.theory", "repro_torch.data.qa",
                      "repro_torch.train.trainer", "repro_torch.train.optimizer",
-                     "repro_torch.data.pipeline", "repro_torch.launch.train"):
+                     "repro_torch.data.pipeline", "repro_torch.launch.train",
+                     "repro_torch.models.layers", "repro_torch.models.flash_attention",
+                     "repro_torch.models.transformer", "repro_torch.configs.streaming_rag",
+                     "repro_torch.configs.lm_common", "repro_torch.configs.qwen2_1_5b",
+                     "repro_torch.configs.h2o_danube_1_8b",
+                     "repro_torch.configs.h2o_danube_3_4b", "repro_torch.convert"):
             assert name in names, name
         print(len(names))
     """)
@@ -60,6 +65,10 @@ def test_entry_points_run_on_the_card_by_default():
               lambda: Engine(cfg).state.route_labels,
               lambda: RAGServer(cfg, ServerConfig(topk=4), seed=0).state.route_labels,
               lambda: get_arch("mind", smoke=True).init()["item_emb"],
+              lambda: get_arch("streaming-rag-embedder").init()["final_norm"],
+              lambda: get_arch("qwen2-1.5b").init()["final_norm"],
+              lambda: get_arch("h2o-danube-1.8b").init()["final_norm"],
+              lambda: get_arch("h2o-danube-3-4b").init()["final_norm"],
               lambda: ShardedEngine(cfg, make_streaming_mesh(2, 2)).shards[1].route_labels,
               lambda: baselines.make_static_rag(16, capacity=8).init(0).index.vectors,
               lambda: baselines.make_sakr(16, k=8, capacity=8).init(0).route_labels,
@@ -78,6 +87,12 @@ def test_entry_points_run_on_the_card_by_default():
     sharded = ShardedEngine(cfg, make_streaming_mesh(2, 2, "cpu"))
     assert {s.route_labels.device.type for s in sharded.shards} == {"cpu"}
     assert get_arch("mind", smoke=True).init(device="cpu")["item_emb"].device.type == "cpu"
+    lm = get_arch("qwen2-1.5b", smoke=True)
+    assert lm.init(device="cpu")["final_norm"].device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            lm.init_cache(1, 8)
+    assert lm.init_cache(1, 8, "cpu")["pos"].device.type == "cpu"
 
 
 def test_unported_server_options_raise(tmp_path):

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.models.api import get_arch as j_get_arch
+from repro.models.api import get_arch as j_get_arch, list_archs as j_list_archs
 from repro.models.testing import dummy_batch as j_dummy_batch
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.kernels.counts import COUNTS
@@ -163,12 +163,16 @@ def test_step_cells_finite_and_shaped(name, shape):
 
 
 def test_registry_and_train_cells():
-    assert list_archs() == sorted(ARCHS)
+    # the reference's archs less the still-unported MoE/MLA pair and the GNN
+    unported = {"deepseek-moe-16b", "deepseek-v3-671b", "meshgraphnet"}
+    assert list_archs() == sorted(set(j_list_archs()) - unported)
+    assert set(ARCHS) <= set(list_archs())
     for name in ARCHS:
         spec = get_arch(name, smoke=True).step("train_batch")
         jspec = j_get_arch(name, smoke=True).step("train_batch")
         assert spec.kind == jspec.kind == "train" and callable(spec.fn)
         assert {k: tuple(v.shape) for k, v in spec.input_specs.items()} == \
             {k: tuple(v.shape) for k, v in jspec.input_specs.items()}
-    with pytest.raises(KeyError, match="unknown arch"):
-        get_arch("qwen2-1.5b")
+    for name in sorted(unported):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get_arch(name)

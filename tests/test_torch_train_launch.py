@@ -10,6 +10,7 @@ import itertools
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -31,16 +32,33 @@ def _wait(cond, timeout=10.0):
 
 
 def test_prefetch_loader_drops_the_oldest():
+    """The producer makes N batches, then blocks inside its N + 1st until
+    the loader is closed: by then exactly N - depth were shed, and the
+    queue holds the newest depth, oldest first."""
+    N, depth = 7, 2
+    made, gate = threading.Event(), threading.Event()
     counter = itertools.count()
-    loader = PrefetchLoader(lambda: {"i": next(counter)}, depth=2)
+
+    def batch_fn():
+        i = next(counter)
+        if i == N:          # every earlier batch is in the queue
+            made.set()
+        if i >= N:
+            gate.wait()
+        return {"i": i}
+
+    loader = PrefetchLoader(batch_fn, depth=depth)
     try:
-        _wait(lambda: loader.dropped >= 3)
-        first = next(loader)["i"]
-        # the queue holds the newest two: everything older was shed
-        assert first >= loader.dropped >= 3
-        assert next(loader)["i"] > first
+        assert made.wait(timeout=10), "the producer stalled"
+        assert loader.dropped == N - depth
+        assert next(loader)["i"] == N - depth
+        assert next(loader)["i"] == N - depth + 1
+        assert loader.dropped == N - depth
     finally:
         loader.close()
+        gate.set()          # releases the blocked batch_fn so the thread ends
+        loader._thread.join(timeout=10)
+    assert not loader._thread.is_alive()
 
 
 def test_prefetch_loader_without_drops_keeps_every_batch_in_order():
