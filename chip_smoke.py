@@ -171,7 +171,8 @@
    (``F.embedding_bag`` + divide) and bound. Mips at MIND's retrieval
    shape (4 x 64 against 1,000,000 x 64, k = 100) likewise, and at DIEN's
    and FM's (1 x 18 and 1 x 11 against 1,000,000 rows of N(0, 0.02)), each
-   with its two launches timed apart.
+   with its two launches timed apart, beside the plain version and the
+   library.
 6. Recsys path: MIND at full width (``configs/mind.py``, params drawn on
    the card from a seeded generator) runs serve_p99, serve_bulk and
    retrieval_cand once each with the counts reset just before: bag
@@ -234,7 +235,8 @@
    likewise at MIND's history gather, every id on row 0, int64 ids and
    the target gather, its library yardstick PyTorch's own backward of
    ``table[ids]``, its split, and each of a step's four row gathers timed
-   at its own shape (history, target twice, 512 negatives). Then one MIND train step
+   at its own shape (history, target twice, 512 negatives; the last three
+   beside their plain version and the library's). Then one MIND train step
    through the kernels against the same step through the plain bag and
    gather backward on the card, from the same state and draws (gradients
    within rtol 1e-5 and an atol of 1e-6 + 1e-5 x the magnitude of the
@@ -259,9 +261,10 @@
    --ckpt-interval 2``) in its own process, then again to 6 on the same
    directory, which must resume at 4.
 9. Models path (last, after ``empty_cache()``; no kernel of the port is on
-   it, and counts reset just before must read 0). The checks run on
-   params from ``init`` with the attention projections rescaled to the
-   usual fan-in over d_model (``conditioned``): at the init's own scale
+   it, and counts reset just before must read 0; (b)-(e) under
+   ``torch.no_grad()``, ``empty_cache()`` between the models). The checks
+   run on params from ``init`` with the attention projections rescaled to
+   the usual fan-in (``conditioned``): at the init's own scale
    (the reference's Builder takes the heads axis as fan-in) the scores
    are nearly one-hot and a random model past a few layers is chaotic,
    fp32 rounding alone moving its logits by O(1); that yardstick is
@@ -285,9 +288,39 @@
    float64 run. (c) h2o-danube-1.8b at full width (bf16, window 4096):
    ``prefill`` 1 x 4608, past the window, so every cache slot holds
    position p at slot p % 4096 (the last 4096 positions); 16 decode
-   steps; the same check over 4624 tokens. Printed: device ms and
-   sequences/s (encoder), step ms, prefill ms, decode ms a token and
-   tokens/s, peak memory, each beside the card's name and power limit.
+   steps; the same check over 4624 tokens. (d) deepseek-moe-16b at full
+   width and full depth (bf16, flash; 16.38 B params): first one MoE
+   layer of it at fp32 on 4096 seeded tokens, at its capacity factor
+   1.25 and at 1.0 (C 384, the mean load, where assignments must drop:
+   asserted), the card against the same function on the CPU (expert ids
+   equal but where two router scores lie within 1e-5, every assignment's
+   slot or drop equal away from the experts a near-tie moved, y within
+   1e-4 of max |y| on the tokens routed alike, aux within rtol 1e-5, two
+   card calls bit-equal); then ``prefill`` 4 x 1024 with budget S + 32 and 32 greedy
+   ``decode_step``s, decode vs forward as in (b) with the MoE capacity
+   raised so that no assignment drops (asserted: 0 dropped), within 5e-2
+   in bf16 and, on params of its own cut to 4 layers (1 dense, 3 MoE; the
+   fp32 model at full depth is 65.5 GB), within 1e-3 in fp32; at the real
+   capacity factor the dropped share of each MoE layer of the prefill is
+   printed, and the decode floor (every weight a step uses read once at
+   3.35 TB/s) beside the decode time. (e) deepseek-v3-671b at full width
+   cut in depth to 4 layers (its 3 dense layers and 1 MoE layer, with the
+   MTP block: 26.72 B params, 53.4 GB; at full depth 1.34 TB): one MLA
+   layer at fp32, B = 1, S = 512, card vs CPU (``mla_attention`` and the
+   prefill cache's c_kv / k_rope within 1e-4 of their max); ``prefill`` 2
+   x 256 + 16 decode steps with the capacity raised, decode vs forward
+   within 5e-2 in bf16; a timed ``prefill`` 2 x 2048 at the real capacity
+   factor; ``loss`` on 2 x 512 with MTP, ce / aux / mtp_ce finite. Params
+   are ``conditioned`` in every stack and the MTP block (MLA's wq_b to std
+   1/sqrt(q_lora_rank), wk_b / wv_b to 1/sqrt(kv_lora_rank), wo to
+   1/sqrt(h * v_head_dim)), the init's float64 yardstick printed beside
+   (deepseek-moe-16b at 2 and 4 layers, deepseek-v3's dense MLA layers at
+   1 and 2). Training either config at full width waits for training-side
+   distribution (ROADMAP A10): its optimizer state does not fit one card.
+   Printed: device ms and sequences/s (encoder), step ms, prefill ms,
+   decode ms a token and tokens/s, launches, kernel ms and idle share of
+   one call, peak memory (after each deepseek ``init`` too), each beside
+   the card's name and power limit, and each part's seconds.
 10. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -346,6 +379,7 @@ from repro_torch.kernels.rerank.rerank import rerank_topk_cuda  # noqa: E402
 from repro_torch.kernels.serve.ref import serve_routes_ref, serve_topk_ref  # noqa: E402
 from repro_torch.kernels.serve.serve import (serve_launcher, serve_routes_cuda,  # noqa: E402
                                              serve_topk_cuda)
+from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import recsys  # noqa: E402
 from repro_torch.models.api import get_arch  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
@@ -446,6 +480,28 @@ DANUBE_SHAPE, DANUBE_DECODE = (1, 4608), 16
 # decode-vs-forward relative to max |logit| (fp32; bf16); flash vs exact on the
 # fp32 prefill, relative to each compared tensor's max |value| (PERF.md)
 LM_FP32_TOL, LM_BF16_TOL, FLASH_EXACT_TOL = 1e-3, 5e-2, 1e-4
+# DeepSeek (9d, 9e): one MoE layer of deepseek-moe-16b at fp32 on 4096 seeded
+# tokens and one MLA layer of deepseek-v3 at B = 1, S = 512, card vs CPU
+# (outputs and caches within 1e-4 of their max |value|, the aux loss within
+# rtol 1e-5, expert ids equal but where two router scores lie within 1e-5);
+# deepseek-moe-16b prefills 4 x 1024 and decodes 32 tokens at full depth in
+# bf16, its decode-vs-forward also at fp32 on 4 layers (1 dense, 3 MoE);
+# deepseek-v3 is cut to 4 layers (its 3 dense layers and 1 MoE layer, with
+# the MTP block) and prefills 2 x 256 + 16 decode steps, then 2 x 2048
+DS_MOE_SHAPE, DS_MOE_DECODE, DS_MOE_LAYER_TOKENS, DS_MOE_FP32_LAYERS = (4, 1024), 32, 4096, 4
+DS_V3_LAYERS, DS_V3_SHAPE, DS_V3_DECODE, DS_V3_TIMED, DS_V3_LOSS = 4, (2, 256), 16, (2, 2048), (2, 512)
+DS_LAYER_TOL, DS_AUX_RTOL, DS_TIE = 1e-4, 1e-5, 1e-5
+# the MoE layer is held card vs CPU again at a capacity equal to the mean
+# load (C 384), where assignments drop (asserted), so the drop path is compared
+DS_DROP_CF = 1.0
+DS_V3_CUT = ("deepseek-v3-671b cut in depth 61 -> 4 layers (its 3 dense layers and the first "
+             "of its 58 MoE layers, with the MTP block): at full depth its params are 1.34 TB "
+             "in bf16; the cut is 26.72 B params, 53.4 GB, which one 80 GB card holds beside "
+             "a 2 x 2048 prefill")
+DS_TRAIN_WAITS = ("training either deepseek config at full width waits for training-side "
+                  "distribution (ROADMAP A10 item 3): AdamW's fp32 moments of deepseek-moe-16b "
+                  "are 131 GB, Adafactor's factored state of deepseek-v3 plus its params far "
+                  "past one card")
 # BERT4Rec's serve_bulk attention scores: 262144 x 2 heads x 200 x 200 fp32
 BERT4REC_BULK_SKIP = ("bert4rec serve_bulk skipped on one card: its attention "
                       "scores [262144, 2, 200, 200] fp32 alone are 84 GB (the "
@@ -1081,10 +1137,12 @@ def phase_recsys_kernels(results):
         u1 = torch.randn((1, d), generator=gen, device="cuda")
         check_mips(u1, t, valid, 100, chk)
         ms, _ = cuda_ms(lambda: mips_topk_cuda(u1, t, valid, 100))
+        plain, plain_how = device_ms(lambda: mips_topk_ref(u1, t, valid, 100))
         lib, _ = device_ms(lambda: torch.topk(torch.mm(u1, t.T), 100))
         b_ms, b_by = mips_bound(1, t.shape[0], d, 100)
-        print(f"  mips at 1 x {d} vs {t.shape[0]} x {d}, k=100: {ms:.4f} ms device, library "
-              f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); {mips_split(u1, t, valid, 100)}")
+        print(f"  mips at 1 x {d} vs {t.shape[0]} x {d}, k=100: {ms:.4f} ms device, plain "
+              f"{plain:.4f} ms ({plain_how}), library {lib:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); {mips_split(u1, t, valid, 100)}")
         del t
     chk.done("Q=1, d=18 and d=11, k=100")
     return arch, params, batches
@@ -3281,8 +3339,18 @@ def phase_training(results):
     for what, ids, g in shapes:
         g = g.contiguous()
         ms = cuda_ms(lambda: gather_backward_cuda(table, ids, g))[0]
-        timed_gathers.append(f"{what} {tuple(ids.shape)} {ms:.4f} ms")
-    print("  gather_backward, the four row gathers of a MIND step at their own shapes: "
+        line = f"{what} {tuple(ids.shape)} {ms:.4f} ms"
+        if what != "history":   # the history's plain and library times are above
+            plain = device_ms(lambda: gather_backward_ref(table, ids, g), iters=5)[0]
+            tbl = table.detach().clone().requires_grad_(True)
+            out = tbl[ids.long()]
+            lib = device_ms(lambda: torch.autograd.grad(out, tbl, g, retain_graph=True),
+                            iters=2)[0]
+            line += f" (plain {plain:.4f} ms, library {lib:.4f} ms)"
+            del out, tbl
+        timed_gathers.append(line)
+    print("  gather_backward, the four row gathers of a MIND step at their own shapes (plain: "
+          "index_add_; library: PyTorch's backward of table[ids]): "
           + "; ".join(timed_gathers) + " device")
     del ghist
 
@@ -3409,21 +3477,25 @@ def float64_twin(arch, params):
     return type(arch)(cfg64), opt_lib.tree_map(lambda t: t.double(), params)
 
 
-def conditioned(params, layers: str, d_model: int):
-    """The params with the attention projections redrawn to the usual
-    fan-in over d_model: ``init`` (as the reference's Builder) takes the
-    heads axis as fan-in of wq/wk/wv [d, h, hd] and head_dim as wo's, so
-    q and k come out with std ~8-28 and the scores are nearly one-hot;
-    past a few layers a random model is then chaotic, and fp32 rounding
-    alone moves its logits by O(1) (printed beside). wq/wk/wv are scaled
-    to std 1/sqrt(d_model), wo to 1/sqrt(h * hd); nothing else changes."""
-    out = dict(params)
-    attn = dict(params[layers]["attn"])
-    for name in ("wq", "wk", "wv"):
-        attn[name] = attn[name] * (attn[name].shape[2] / d_model) ** 0.5
-    attn["wo"] = attn["wo"] / attn["wo"].shape[1] ** 0.5
-    out[layers] = {**params[layers], "attn": attn}
-    return out
+def conditioned(params):
+    """The params with the attention projections rescaled, in place, to
+    the usual fan-in, in every layer stack and the MTP block: ``init`` (as
+    the reference's Builder) takes the heads axis as fan-in of wq/wk/wv
+    [d, h, hd] and of MLA's wq_b/wk_b/wv_b [r, h, x], and head_dim as
+    wo's [h, hd, d], so q and k come out with std ~8-28 and the scores are
+    nearly one-hot; past a few layers a random model is then chaotic, and
+    fp32 rounding alone moves its logits by O(1) (printed beside).
+    wq/wk/wv are scaled to std 1/sqrt(d_model), wq_b to 1/sqrt(q_lora_rank),
+    wk_b/wv_b to 1/sqrt(kv_lora_rank), wo to 1/sqrt(h * hd); nothing else
+    changes. Returns ``params``."""
+    for name in ("layers", "dense_layers", "moe_layers", "mtp_block"):
+        attn = params.get(name, {}).get("attn", {})
+        for leaf in ("wq", "wk", "wv", "wq_b", "wk_b", "wv_b"):
+            if leaf in attn:    # [..., fan-in, h, x]: std 1/sqrt(h) -> 1/sqrt(fan-in)
+                attn[leaf].mul_((attn[leaf].shape[-2] / attn[leaf].shape[-3]) ** 0.5)
+        if "wo" in attn:        # [..., h, hd, d]: std 1/sqrt(hd) -> 1/sqrt(h * hd)
+            attn["wo"].div_(attn["wo"].shape[-3] ** 0.5)
+    return params
 
 
 def embed_on_card_and_cpu(arch, params, toks, mask) -> tuple:
@@ -3448,7 +3520,7 @@ def phase_encoder(smi: str, fails: list):
     mask[B // 2] = False                        # one all-padding row
     with torch.no_grad():
         _, ref_err, ref_64, ref_cpu_64 = embed_on_card_and_cpu(arch, params, toks, mask)
-        params = conditioned(params, "layers", arch.cfg.d_model)
+        params = conditioned(params)
         emb, err, card_64, cpu_64 = embed_on_card_and_cpu(arch, params, toks, mask)
     norms = torch.linalg.vector_norm(emb, dim=-1)
     keep = torch.arange(B, device="cuda") != B // 2
@@ -3571,17 +3643,30 @@ def hold_decode(name: str, r: dict, rel_tol: float, fails: list):
         fails.append(f"{name}: decode vs forward max |d| {r['err']:.4g}")
 
 
-def reference_init_yardstick(arch, params, toks) -> str:
+def cut_depth(cfg, params, n: int):
+    """(config, params) of the first ``n`` layers: the dense stack first,
+    then the MoE stack (views of ``params``)."""
+    n_dense = min(n, cfg.first_k_dense if cfg.moe else cfg.n_layers)
+    p = {k: v for k, v in params.items() if k not in ("dense_layers", "moe_layers")}
+    for name, k in (("dense_layers", n_dense), ("moe_layers", n - n_dense)):
+        if k:
+            p[name] = opt_lib.tree_map(lambda t: t[:k], params[name])
+    return dataclasses.replace(cfg, n_layers=n, first_k_dense=min(cfg.first_k_dense, n)), p
+
+
+def reference_init_yardstick(arch, params, toks, depths=None) -> str:
     """fp32 vs float64 logits of the exact prefill at 2 layers and at full
-    depth, at the init's own scale: how chaotic the random model is."""
+    depth (or ``depths``), at the init's own scale: how chaotic the random
+    model is (the float64 twin keeps the attention scores and the MoE's
+    routing and combine in fp32, as the reference computes them)."""
     out = []
-    for L in (2, arch.cfg.n_layers):
-        cfg = dataclasses.replace(arch.cfg, n_layers=L, use_flash=False)
-        p = {**params, "dense_layers": opt_lib.tree_map(lambda t: t[:L], params["dense_layers"])}
+    for n in depths or (2, arch.cfg.n_layers):
+        cfg, p = cut_depth(arch.cfg, params, n)
+        cfg = dataclasses.replace(cfg, use_flash=False)
         l32 = TransformerLM(cfg).prefill(p, toks)[0]
         a64, p64 = float64_twin(TransformerLM(cfg), p)
         l64 = a64.prefill(p64, toks)[0]
-        out.append(f"{L} layers {max_err(l32.double(), l64) / float(l64.abs().max()):.3g}")
+        out.append(f"{n} layers {max_err(l32.double(), l64) / float(l64.abs().max()):.3g}")
         del p64, l64
     return ", ".join(out)
 
@@ -3601,7 +3686,7 @@ def phase_lms(smi: str, fails: list):
           f"{B} x {S}, budget {budget}, {QWEN_DECODE} greedy decode steps; at the init's own "
           f"scale, the exact fp32 prefill's logits vs a float64 run, of max |logit|: "
           f"{reference_init_yardstick(arch32, params32, toks)}")
-    params32 = conditioned(params32, "dense_layers", cfg32.d_model)
+    params32 = conditioned(params32)
     params = opt_lib.tree_map(lambda t: t.to(arch.cfg.param_dtype), params32)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3638,7 +3723,7 @@ def phase_lms(smi: str, fails: list):
     B, S = DANUBE_SHAPE
     W = arch.cfg.window
     torch.cuda.reset_peak_memory_stats()
-    params = conditioned(arch.init(SEED), "dense_layers", arch.cfg.d_model)
+    params = conditioned(arch.init(SEED))
     toks = torch.from_numpy(rng.integers(0, arch.cfg.vocab, (B, S)).astype(np.int32)).cuda()
     print(f"  h2o-danube-1.8b: {sum(t.numel() for t in opt_lib.leaves(params)):,} params "
           f"({arch.cfg.param_dtype}), window {W}, prefill {B} x {S} (ring shift "
@@ -3655,16 +3740,280 @@ def phase_lms(smi: str, fails: list):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def moe_census(into: list):
+    """Every MoE call's (assignments, dropped assignments) while inside,
+    by wrapping ``layers.moe_ffn`` (the transformer calls it through the
+    module) to count the drops of ``layers.route`` (deterministic: the
+    routing ``moe_ffn`` computes) first; the counts stay on the card until
+    read."""
+    orig = lm_layers.moe_ffn
+
+    def counted(p, x, cfg):
+        into.append((x.shape[0] * cfg.top_k, lm_layers.route(p, x, cfg).dropped()))
+        return orig(p, x, cfg)
+
+    lm_layers.moe_ffn = counted
+    try:
+        yield
+    finally:
+        lm_layers.moe_ffn = orig
+
+
+def drop_shares(census) -> list[float]:
+    return [int(d) / n for n, d in census]
+
+
+def no_drop(cfg):
+    """``cfg`` with the MoE capacity raised past every expert's most
+    assignments at any token count: C = int(cf * Tg * K / E) >= Tg for cf
+    = E / K * 1.001 (0.001 Tg of slack keeps the float product off the
+    integer below), and no expert takes a token twice."""
+    moe = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k * 1.001))
+
+
+def held_without_drops(arch, params, toks, steps, budget) -> dict:
+    """``decode_vs_forward`` on ``arch`` with the capacity raised, every
+    MoE call of it (prefill, decodes, the forward) dropping nothing."""
+    census: list = []
+    with moe_census(census):
+        r = decode_vs_forward(TransformerLM(no_drop(arch.cfg)), params, toks, steps, budget)
+    dropped = sum(int(d) for _, d in census)
+    assert census and dropped == 0, f"{dropped} assignments dropped at the raised capacity"
+    return r
+
+
+def param_line(params) -> str:
+    n = sum(t.numel() for t in opt_lib.leaves(params))
+    gb = sum(t.numel() * t.element_size() for t in opt_lib.leaves(params)) / 1e9
+    return (f"{n:,} params, {gb:.2f} GB; peak after init "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def decode_floor(params, B: int) -> str:
+    """The least time a decode step takes: every weight it uses read once
+    (the reference's dispatch runs every expert's GEMM over its C >= 8
+    slots), the token embedding table only at the B rows it gathers, the
+    MTP block and projection (training only) not at all."""
+    emb = params["embed"]["embedding"]
+    used = {k: v for k, v in params.items() if k not in ("mtp_block", "mtp_proj")}
+    nbytes = sum(t.numel() * t.element_size() for t in opt_lib.leaves(used)) \
+        - emb.numel() * emb.element_size() + B * emb.shape[1] * emb.element_size()
+    return (f"decode floor {nbytes / PEAK_BYTES * 1e3:.2f} ms a step ({nbytes / 1e9:.2f} GB "
+            f"of weights read once at 3.35 TB/s)")
+
+
+def hold_moe_layer(cfg, smi: str, fails: list):
+    """9d.1: one MoE layer of ``cfg`` at full width in fp32 on seeded
+    tokens, at the config's capacity factor and at DS_DROP_CF, where
+    assignments must drop (C equal to the mean load), the card against
+    the same function on the CPU: expert ids equal but at near-ties (two
+    selection scores within DS_TIE), every assignment's slot (its place in
+    its expert's buffer, or dropped) equal away from the experts a
+    near-tie moved, y within DS_LAYER_TOL of max |y| on the tokens routed
+    alike, aux within rtol DS_AUX_RTOL; two card calls bit-equal."""
+    T, K = DS_MOE_LAYER_TOKENS, cfg.moe.top_k
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    p = lm_layers.init_moe(gen, cfg.moe, torch.float32)
+    x = torch.randn((T, cfg.moe.d_model), generator=gen, device="cuda")
+    pc = opt_lib.tree_map(lambda t: t.cpu(), p)
+    xc = x.cpu()
+    logits = xc @ pc["router"]
+    sel = (torch.sigmoid(logits) + pc["router_bias"] if cfg.moe.router == "sigmoid_norm"
+           else torch.softmax(logits, dim=1))
+    for cf in (cfg.moe.capacity_factor, DS_DROP_CF):
+        moe = dataclasses.replace(cfg.moe, capacity_factor=cf)
+        name = f"{cfg.name} MoE layer at capacity factor {cf}"
+        r = lm_layers.route(p, x, moe)
+        y, aux = lm_layers.moe_ffn(p, x, moe)
+        y2, aux2 = lm_layers.moe_ffn(p, x, moe)
+        if not (torch.equal(y, y2) and torch.equal(aux, aux2)):
+            fails.append(f"{name}: two card calls differ")
+        ms, how = device_ms(lambda: lm_layers.moe_ffn(p, x, moe), iters=5)
+        rc = lm_layers.route(pc, xc, moe)
+        yc, auxc = lm_layers.moe_ffn(pc, xc, moe)
+        ids, idc = r.ids.cpu(), rc.ids
+        differ = ids != idc
+        tie_ok = (sel.gather(1, ids.long()) - sel.gather(1, idc.long())).abs() < DS_TIE
+        if bool((differ & ~tie_ok).any()):
+            fails.append(f"{name}: {int((differ & ~tie_ok).sum())} expert ids differ off "
+                         "near-ties")
+        moved = differ.any(1)
+        touched = torch.isin(ids, torch.cat([ids[moved], idc[moved]]).unique())
+        slot, slot_c = r.slot.cpu().reshape(T, K), rc.slot.reshape(T, K)
+        if bool(((slot != slot_c) & ~differ & ~touched).any()):
+            fails.append(f"{name}: the slots of the kept assignments differ")
+        dropped, dropped_c = int(r.dropped()), int(rc.dropped())
+        if cf == DS_DROP_CF and dropped == 0:
+            fails.append(f"{name}: no assignment dropped, so the drop path went unchecked")
+        alike = ~moved & ((slot >= 0) == (slot_c >= 0)).all(1)
+        err, scale = max_err(y.cpu()[alike], yc[alike]), float(yc.abs().max())
+        if err > DS_LAYER_TOL * scale:
+            fails.append(f"{name}: card vs CPU max |d| {err:.4g}")
+        aux_err = abs(float(aux) - float(auxc))
+        if aux_err > DS_AUX_RTOL * abs(float(auxc)):
+            fails.append(f"{name}: aux {float(aux)!r} vs {float(auxc)!r}")
+        G, Tg, C = lm_layers.groups(T, moe)
+        print(f"  {name}, fp32 ({moe.num_experts} experts top-{K}, {moe.num_shared} shared, "
+              f"{T} tokens: G {G}, capacity {C}, mean load {Tg * K // moe.num_experts}): card "
+              f"vs CPU y max |d| {err:.4g} (limit {DS_LAYER_TOL * scale:.4g}) on "
+              f"{int(alike.sum())} of {T} tokens routed alike; near-ties "
+              f"{int((differ & tie_ok).sum())}; aux {float(aux):.7g} vs {float(auxc):.7g} (|d| "
+              f"{aux_err:.3g}); dropped {dropped} (CPU {dropped_c}) of {T * K} assignments; "
+              f"two card calls bit-equal; {ms:.3f} ms device ({how}) [{smi}]")
+        del y, y2, yc
+    del p, pc, x, xc
+
+
+def hold_mla_layer(cfg, smi: str, fails: list):
+    """9e.1: one MLA layer of ``cfg`` at full width in fp32, conditioned,
+    at B = 1, S = 512: ``mla_attention`` and the prefill cache's c_kv /
+    k_rope, card against CPU, each within DS_LAYER_TOL of its max."""
+    mla = cfg.mla
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    p = conditioned({"mtp_block": {"attn": lm_layers.init_mla(gen, mla, torch.float32)}})
+    p = p["mtp_block"]["attn"]
+    x = torch.randn((1, 512, mla.d_model), generator=gen, device="cuda")
+    pos = torch.arange(512, dtype=torch.int32, device="cuda")[None]
+
+    def run(pp, xx, pp_pos):
+        return (lm_layers.mla_attention(pp, mla, xx, pp_pos, attn_chunk=cfg.attn_chunk,
+                                        use_flash=cfg.use_flash),
+                *lm_layers.mla_latents(pp, mla, xx, pp_pos))
+
+    got = run(p, x, pos)
+    want = run(opt_lib.tree_map(lambda t: t.cpu(), p), x.cpu(), pos.cpu())
+    out = []
+    for name, a, b in zip(("attention", "ckv", "krope"), got, want):
+        err, scale = max_err(a.cpu(), b), float(b.abs().max())
+        out.append(f"{name} max |d| {err:.4g} (limit {DS_LAYER_TOL * scale:.4g})")
+        if err > DS_LAYER_TOL * scale:
+            fails.append(f"{cfg.name} MLA layer {name}: card vs CPU max |d| {err:.4g}")
+    print(f"  {cfg.name} MLA layer at fp32 (B 1, S 512, {mla.n_heads} heads, q/k "
+          f"{mla.qk_nope_dim + mla.qk_rope_dim} v {mla.v_head_dim}, "
+          f"{'flash' if cfg.use_flash else 'exact'}): card vs CPU " + ", ".join(out) + f" [{smi}]")
+
+
+def phase_deepseek_moe(smi: str, fails: list):
+    """9d. deepseek-moe-16b at full width and full depth."""
+    arch = get_arch("deepseek-moe-16b")
+    cfg = arch.cfg
+    hold_moe_layer(cfg, smi, fails)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 2)
+    B, S = DS_MOE_SHAPE
+    budget = S + DS_MOE_DECODE
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)).cuda()
+
+    cfg32 = dataclasses.replace(cfg, n_layers=DS_MOE_FP32_LAYERS, param_dtype=torch.float32,
+                                act_dtype=torch.float32)
+    arch32 = TransformerLM(cfg32)
+    params32 = arch32.init(SEED)
+    yard = reference_init_yardstick(arch32, params32, toks, depths=(2, DS_MOE_FP32_LAYERS))
+    r = held_without_drops(arch32, conditioned(params32), toks, DS_MOE_DECODE, budget)
+    print(f"  deepseek-moe-16b fp32, depth cut to {DS_MOE_FP32_LAYERS} (1 dense, "
+          f"{DS_MOE_FP32_LAYERS - 1} MoE; the fp32 model at full depth is 65.5 GB): at the "
+          f"init's own scale, the exact fp32 prefill's logits vs a float64 run, of max |logit|: "
+          f"{yard}")
+    hold_decode(f"deepseek-moe-16b fp32 ({DS_MOE_FP32_LAYERS} layers, capacity raised, 0 "
+                "dropped)", r, LM_FP32_TOL, fails)
+    del params32, r
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    params = conditioned(arch.init(SEED))
+    print(f"  deepseek-moe-16b at full width and depth (bf16, flash): {param_line(params)}; "
+          f"prefill {B} x {S}, budget {budget}, {DS_MOE_DECODE} greedy decode steps")
+    r = held_without_drops(arch, params, toks, DS_MOE_DECODE, budget)
+    hold_decode("deepseek-moe-16b bf16 (capacity raised, 0 dropped)", r, LM_BF16_TOL, fails)
+    census: list = []
+    with moe_census(census):
+        arch.prefill(params, toks, budget=budget)
+    shares = drop_shares(census)
+    print(f"  deepseek-moe-16b prefill {B} x {S} at capacity factor {cfg.moe.capacity_factor} "
+          f"(C {lm_layers.groups(B * S, cfg.moe)[2]}): dropped share per MoE layer "
+          + ", ".join(f"{x:.4f}" for x in shares) + f" (mean {np.mean(shares):.4f})")
+    print(f"  deepseek-moe-16b bf16: "
+          f"{time_lm(arch, params, toks, budget, r['cache'], r['first'], smi)}; "
+          f"{decode_floor(params, B)}")
+    del params, r
+
+
+def phase_deepseek_v3(smi: str, fails: list):
+    """9e. deepseek-v3-671b at full width, cut in depth."""
+    arch = get_arch("deepseek-v3-671b")
+    cfg = dataclasses.replace(arch.cfg, n_layers=DS_V3_LAYERS)
+    print(f"  {DS_V3_CUT}")
+    hold_mla_layer(cfg, smi, fails)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 3)
+    B, S = DS_V3_SHAPE
+    budget = S + DS_V3_DECODE
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)).cuda()
+    cfg2 = dataclasses.replace(cfg, n_layers=2, first_k_dense=2, mtp=False,
+                               param_dtype=torch.float32, act_dtype=torch.float32)
+    yard = reference_init_yardstick(TransformerLM(cfg2), TransformerLM(cfg2).init(SEED), toks,
+                                    depths=(1, 2))
+    print(f"  deepseek-v3-671b at the init's own scale, the exact fp32 prefill's logits vs a "
+          f"float64 run, of max |logit| (its dense MLA layers): {yard}")
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    lm = TransformerLM(cfg, optimizer=arch.optimizer)
+    params = conditioned(lm.init(SEED))
+    print(f"  deepseek-v3-671b, {DS_V3_LAYERS} layers + MTP (bf16, flash, sigmoid routing, "
+          f"route scale {cfg.moe.route_scale}): {param_line(params)}; prefill {B} x {S}, budget "
+          f"{budget}, {DS_V3_DECODE} greedy decode steps")
+    r = held_without_drops(lm, params, toks, DS_V3_DECODE, budget)
+    hold_decode("deepseek-v3-671b bf16 (capacity raised, 0 dropped)", r, LM_BF16_TOL, fails)
+    B2, S2 = DS_V3_TIMED
+    big = torch.from_numpy(rng.integers(0, cfg.vocab, (B2, S2)).astype(np.int32)).cuda()
+    census: list = []
+    with moe_census(census):
+        lm.prefill(params, big)
+    print(f"  deepseek-v3-671b prefill {B2} x {S2} at capacity factor "
+          f"{cfg.moe.capacity_factor} (C {lm_layers.groups(B2 * S2, cfg.moe)[2]}): dropped "
+          f"share of its MoE layer {drop_shares(census)[0]:.4f}")
+    print(f"  deepseek-v3-671b bf16 (decode on the {B} x {budget} cache): "
+          f"{time_lm(lm, params, big, None, r['cache'], r['first'], smi)}; "
+          f"{decode_floor(params, B)}")
+    Bl, Sl = DS_V3_LOSS
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (Bl, Sl)).astype(np.int32)
+                                        ).cuda()}
+    loss, m = lm.loss(params, batch)
+    vals = {k: float(v) for k, v in {"loss": loss, **m}.items()}
+    assert sorted(m) == ["aux", "ce", "mtp_ce"] and all(np.isfinite(v) for v in vals.values()), vals
+    print(f"  deepseek-v3-671b loss on {Bl} x {Sl} with MTP (weight {cfg.mtp_weight}): "
+          + ", ".join(f"{k} {v:.6g}" for k, v in vals.items()))
+    print(f"  {DS_TRAIN_WAITS}")
+    del params, r, big
+
+
 def phase_models():
-    """9. The models path: the paper's embedder and two dense LMs at full
-    width. None of the port's kernels is on it."""
+    """9. The models path: the paper's embedder, two dense LMs and the
+    two DeepSeek configs at full width. None of the port's kernels is on
+    it."""
     smi = nvidia_smi()
     print("models path:")
     counts.reset_all()
     fails: list[str] = []
+    t0 = time.perf_counter()
     phase_encoder(smi, fails)
     with torch.no_grad():
         phase_lms(smi, fails)
+        print(f"  9a-9c {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_deepseek_moe(smi, fails)
+        torch.cuda.empty_cache()
+        print(f"  9d {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_deepseek_v3(smi, fails)
+        torch.cuda.empty_cache()
+        print(f"  9e {time.perf_counter() - t0:.1f} s")
     snap = counts.snapshot()
     assert all(c["kernel"] == 0 and c["plain"] == 0 for c in snap.values()), snap
     assert not fails, "models path: " + "; ".join(fails)

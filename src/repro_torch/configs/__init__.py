@@ -2,11 +2,12 @@
 paper's own (``streaming_rag``).
 
 Importing this package registers every ported factory with
-``models/api``. The deepseek configs wait for MoE, MLA and MTP, and
-meshgraphnet for ``models/gnn.py`` (ROADMAP A10).
+``models/api``. meshgraphnet waits for ``models/gnn.py`` (ROADMAP A10).
 """
 from repro_torch.configs import (  # noqa: F401
     bert4rec,
+    deepseek_moe_16b,
+    deepseek_v3_671b,
     dien,
     fm,
     h2o_danube_1_8b,

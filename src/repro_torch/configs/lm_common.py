@@ -1,5 +1,5 @@
-"""Shared helpers for the dense LM configs: the smoke shapes and the
-reduced same-family config."""
+"""Shared helpers for the LM configs: the smoke shapes and the reduced
+same-family config."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,7 +7,7 @@ import dataclasses
 import torch
 
 from repro_torch.models.api import ShapeDef
-from repro_torch.models.transformer import UNPORTED, LMConfig, TransformerLM
+from repro_torch.models.transformer import LMConfig, TransformerLM
 from repro_torch.train.optimizer import OptimizerConfig
 
 SMOKE_LM_SHAPES = {
@@ -20,15 +20,25 @@ SMOKE_LM_SHAPES = {
 
 def smoke_lm(cfg: LMConfig, window: int | None = None) -> LMConfig:
     """Reduced same-family config: tiny widths, few layers, same structure."""
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(f"MoE and MLA smoke configs: {UNPORTED}")
-    return dataclasses.replace(
-        cfg, name=cfg.name + "-smoke", n_layers=2, d_model=64,
+    kw = dict(
+        n_layers=2, d_model=64,
         n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 4),
         d_ff=128, vocab=512, remat=False, attn_chunk=32,
         param_dtype=torch.float32, act_dtype=torch.float32,
         window=window if cfg.window else None,
-        train_microbatches=2)
+        train_microbatches=2,
+    )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=8, top_k=2, d_model=64, d_ff=32,
+            tokens_per_group=64, capacity_factor=4.0)
+        kw["first_k_dense"] = min(cfg.first_k_dense, 1)
+        kw["dense_ff"] = 128
+    if cfg.mla is not None:
+        kw["mla"] = dataclasses.replace(
+            cfg.mla, d_model=64, n_heads=4, q_lora_rank=32, kv_lora_rank=16,
+            qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)
+    return dataclasses.replace(cfg, name=cfg.name + "-smoke", **kw)
 
 
 def build(cfg: LMConfig, opt: OptimizerConfig, smoke: bool) -> TransformerLM:

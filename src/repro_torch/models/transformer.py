@@ -1,26 +1,27 @@
-"""Causal-LM architecture family, dense part (GQA, sliding-window
-attention, QKV bias, tied or untied embeddings), plus the SBERT-style
-mean-pool encoder the streaming-RAG pipeline embeds with.
+"""Causal-LM architecture family (dense GQA/SWA, DeepSeek MoE, MLA, MTP)
+plus the SBERT-style mean-pool encoder the streaming-RAG pipeline embeds with.
 
-One class covers the dense configs:
+One class covers the five LM configs:
   h2o-danube-3-4b / -1.8b : llama+mistral mix — GQA + sliding-window attn
   qwen2-1.5b              : GQA (kv=2) + QKV bias + tied embeddings
-DeepSeek's MoE, MLA and multi-token prediction wait for their slice
-(ROADMAP A10): a config that asks for one raises ``NotImplementedError``.
+  deepseek-moe-16b        : fine-grained MoE (2 shared + 64 routed, top-6)
+  deepseek-v3-671b        : MLA + (1 shared + 256 routed, top-8) + MTP
 
 Layers run as a loop over stacked per-layer params (the reference's
-``lax.scan``), each under ``torch.utils.checkpoint`` when ``remat`` is on
-and a gradient is being taken (the reference's ``jax.checkpoint``).
+``lax.scan``; the first ``first_k_dense`` layers in one stack, the MoE
+layers in another), each under ``torch.utils.checkpoint`` when ``remat``
+is on and a gradient is being taken (the reference's ``jax.checkpoint``).
 
-Serving: a ring-buffer KV cache sized to the attention window (SWA ⇒
-O(window) memory at 500k context), slot = position % capacity, empty slots
-at position -1.
+Serving: dense/GQA archs use a ring-buffer KV cache sized to the attention
+window (SWA ⇒ O(window) memory at 500k context), slot = position %
+capacity, empty slots at position -1; MLA uses the compressed latent
+cache (c_kv and the roped shared key) with absorbed-matrix decode
+(``layers.mla_decode``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -30,8 +31,6 @@ from repro_torch.models import layers as L
 from repro_torch.models.api import Arch, ShapeDef, StepSpec, spec
 from repro_torch.models.flash_attention import flash_sdpa
 from repro_torch.train import optimizer as opt_lib
-
-UNPORTED = "waits for the MoE/MLA/MTP slice (ROADMAP A10)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,12 +47,12 @@ class LMConfig:
     tied_embeddings: bool = False
     window: int | None = None          # sliding-window attention
     rope_theta: float = 10_000.0
-    # MoE (not ported yet)
-    moe: Any = None
+    # MoE
+    moe: L.MoEConfig | None = None
     first_k_dense: int = 0
     dense_ff: int | None = None        # d_ff of the leading dense layers
-    # MLA (not ported yet)
-    mla: Any = None
+    # MLA
+    mla: L.MLAConfig | None = None
     mtp: bool = False
     mtp_weight: float = 0.3
     # numerics / memory
@@ -92,14 +91,18 @@ def _init_attn(gen, cfg: LMConfig):
 
 
 def _init_block(gen, cfg: LMConfig, kind: str):
-    """kind: 'dense' ('moe' waits for its slice)."""
-    if kind == "moe" or cfg.mla is not None:
-        raise NotImplementedError(f"MoE and MLA blocks: {UNPORTED}")
+    """kind: 'dense' | 'moe'."""
     b = L.Builder(gen, cfg.param_dtype)
-    b.sub("attn", _init_attn(gen, cfg))
+    if cfg.mla is not None:
+        b.sub("attn", L.init_mla(gen, cfg.mla, cfg.param_dtype))
+    else:
+        b.sub("attn", _init_attn(gen, cfg))
     b.ones("ln1", (cfg.d_model,))
     b.ones("ln2", (cfg.d_model,))
-    b.sub("mlp", L.init_mlp(gen, cfg.d_model, cfg.dense_ff or cfg.d_ff, cfg.param_dtype))
+    if kind == "moe":
+        b.sub("moe", L.init_moe(gen, cfg.moe, cfg.param_dtype))
+    else:
+        b.sub("mlp", L.init_mlp(gen, cfg.d_model, cfg.dense_ff or cfg.d_ff, cfg.param_dtype))
     return b.build()
 
 
@@ -176,24 +179,38 @@ def _attention(p, cfg: LMConfig, x, positions):
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def _block(p, cfg: LMConfig, kind: str, x, positions):
-    if kind != "dense" or cfg.mla is not None:
-        raise NotImplementedError(f"MoE and MLA blocks: {UNPORTED}")
+def _ffn(p, cfg: LMConfig, h):
+    """The block's feed-forward half on h [B, S, d]: (y, aux). A MoE
+    layer dispatches the B * S tokens as one flat batch."""
+    if "moe" in p:
+        B, S, d = h.shape
+        y, aux = L.moe_ffn(p["moe"], h.reshape(B * S, d), cfg.moe)
+        return y.reshape(B, S, d), aux
+    return L.mlp(p["mlp"], h), torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _block(p, cfg: LMConfig, x, positions):
+    """One layer, dense or MoE (a MoE layer's params hold ``moe``): (x, aux)."""
     h = L.rms_norm(x, p["ln1"])
-    x = x + _attention(p["attn"], cfg, h, positions)
-    h = L.rms_norm(x, p["ln2"])
-    return x + L.mlp(p["mlp"], h), torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.mla is not None:
+        a = L.mla_attention(p["attn"], cfg.mla, h, positions, attn_chunk=cfg.attn_chunk,
+                            use_flash=cfg.use_flash)
+    else:
+        a = _attention(p["attn"], cfg, h, positions)
+    x = x + a
+    y, aux = _ffn(p, cfg, L.rms_norm(x, p["ln2"]))
+    return x + y, aux
 
 
-def _scan_blocks(stacked, cfg: LMConfig, kind: str, x, positions):
+def _scan_blocks(stacked, cfg: LMConfig, x, positions):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(_n_layers(stacked)):
         p = L.layer(stacked, i)
         if remat:
-            x, a = checkpoint(_block, p, cfg, kind, x, positions, use_reentrant=False)
+            x, a = checkpoint(_block, p, cfg, x, positions, use_reentrant=False)
         else:
-            x, a = _block(p, cfg, kind, x, positions)
+            x, a = _block(p, cfg, x, positions)
         aux = aux + a
     return x, aux
 
@@ -226,17 +243,25 @@ class TransformerLM(Arch):
 
     # -- init -----------------------------------------------------------------
     def init(self, seed: int = 0, device=None):
+        """The embeddings, ``dense_layers`` (the first ``first_k_dense``
+        layers of a MoE config, every layer of a dense one), ``moe_layers``
+        (the rest), ``final_norm`` and, with ``mtp``, ``mtp_block`` and
+        ``mtp_proj`` [2d, d]; drawn in that order from one generator."""
         cfg = self.cfg
-        if cfg.moe is not None or cfg.mla is not None or cfg.mtp:
-            raise NotImplementedError(f"MoE, MLA and MTP: {UNPORTED}")
         gen = torch.Generator(device=resolve_device(device))
         gen.manual_seed(seed)
         b = L.Builder(gen, cfg.param_dtype)
         b.sub("embed", L.init_embedding(gen, cfg.vocab, cfg.d_model, cfg.param_dtype,
                                         tied=cfg.tied_embeddings))
-        b.sub("dense_layers", L.stack_layers(gen, cfg.n_layers,
-                                             lambda g: _init_block(g, cfg, "dense")))
+        n_moe = cfg.n_layers - cfg.first_k_dense if cfg.moe else 0
+        for name, kind, n in (("dense_layers", "dense", cfg.n_layers - n_moe),
+                              ("moe_layers", "moe", n_moe)):
+            if n:
+                b.sub(name, L.stack_layers(gen, n, lambda g, k=kind: _init_block(g, cfg, k)))
         b.ones("final_norm", (cfg.d_model,))
+        if cfg.mtp:
+            b.sub("mtp_block", _init_block(gen, cfg, "moe" if cfg.moe else "dense"))
+            b.normal("mtp_proj", (2 * cfg.d_model, cfg.d_model))
         return b.build()
 
     # -- forward --------------------------------------------------------------
@@ -244,8 +269,8 @@ class TransformerLM(Arch):
         cfg = self.cfg
         x = _embed_tokens(params, cfg, tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for kind, stacked, _ in self._stacks(params):
-            x, a = _scan_blocks(stacked, cfg, kind, x, positions)
+        for stacked in self._stacks(params):
+            x, a = _scan_blocks(stacked, cfg, x, positions)
             aux = aux + a
         return L.rms_norm(x, params["final_norm"]), aux
 
@@ -274,17 +299,31 @@ class TransformerLM(Arch):
         return tot / torch.clamp(cnt, min=1)
 
     def loss(self, params, batch):
+        """Next-token CE + the MoE aux loss; with ``mtp``, plus
+        ``mtp_weight`` x (the depth-1 multi-token prediction's CE + its aux):
+        h_t joined with the embedding of token t+1, projected by
+        ``mtp_proj`` and run through ``mtp_block``, predicts token t+2."""
         cfg = self.cfg
-        if cfg.mtp:
-            raise NotImplementedError(f"multi-token prediction: {UNPORTED}")
         tokens = batch["tokens"]
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
         h, aux = self.hidden(params, tokens, positions)
-        labels = torch.cat([tokens[:, 1:], torch.full((B, 1), -1, dtype=tokens.dtype,
-                                                      device=tokens.device)], dim=1)
-        ce = self._ce_chunked(params, h, labels)
-        return ce + aux, {"ce": ce, "aux": aux}
+
+        def shifted(by):   # labels: the tokens ``by`` ahead, -1 past the end
+            return torch.cat([tokens[:, by:], torch.full((B, by), -1, dtype=tokens.dtype,
+                                                         device=tokens.device)], dim=1)
+
+        ce = self._ce_chunked(params, h, shifted(1))
+        metrics = {"ce": ce, "aux": aux}
+        loss = ce + aux
+        if cfg.mtp:
+            emb = params["embed"]["embedding"].to(h.dtype)[tokens[:, 1:].long()]
+            comb = torch.cat([h[:, :-1], emb], dim=-1) @ params["mtp_proj"]
+            h2, aux2 = _block(params["mtp_block"], cfg, comb, positions[:, :-1])
+            mtp_ce = self._ce_chunked(params, h2, shifted(2)[:, :-1])
+            loss = loss + cfg.mtp_weight * (mtp_ce + aux2)
+            metrics["mtp_ce"] = mtp_ce
+        return loss, metrics
 
     # -- serving --------------------------------------------------------------
     def cache_capacity(self, seq_len: int) -> int:
@@ -293,55 +332,77 @@ class TransformerLM(Arch):
 
     def cache_specs(self, batch: int, seq_len: int) -> dict:
         """Shapes and dtypes of ``init_cache(batch, seq_len)`` (the
-        reference's ``abstract_cache``), allocating nothing."""
+        reference's ``abstract_cache``), allocating nothing: MLA's latent
+        cache {ckv, krope, len}, else {k, v, pos, len}."""
         cfg = self.cfg
         Sc = self.cache_capacity(seq_len)
+        lens = spec((batch,), torch.int32)
+        if cfg.mla is not None:
+            lat = (cfg.n_layers, batch, Sc)
+            return {"ckv": spec(lat + (cfg.mla.kv_lora_rank,), cfg.act_dtype),
+                    "krope": spec(lat + (cfg.mla.qk_rope_dim,), cfg.act_dtype), "len": lens}
         kv = (cfg.n_layers, batch, Sc, cfg.n_kv_heads, cfg.hd)
         return {"k": spec(kv, cfg.act_dtype), "v": spec(kv, cfg.act_dtype),
-                "pos": spec((batch, Sc), torch.int32), "len": spec((batch,), torch.int32)}
+                "pos": spec((batch, Sc), torch.int32), "len": lens}
 
     def init_cache(self, batch: int, seq_len: int, device=None):
-        """An empty cache on ``device`` (``cuda`` unless given): k/v zeros,
-        every slot at position -1, length 0."""
+        """An empty cache on ``device`` (``cuda`` unless given): zeros,
+        every slot of a k/v cache at position -1, length 0."""
         dev = resolve_device(device)
         out = {n: torch.zeros(s.shape, dtype=s.dtype, device=dev)
                for n, s in self.cache_specs(batch, seq_len).items()}
-        out["pos"].fill_(-1)
+        if "pos" in out:
+            out["pos"].fill_(-1)
         return out
 
     def _stacks(self, params):
-        """Per-layer stacks in execution order: [('dense', stacked, n)]."""
-        return [("dense", params["dense_layers"], _n_layers(params["dense_layers"]))]
+        """The stacked layers in execution order: the dense stack, then the
+        MoE stack."""
+        return [params[name] for name in ("dense_layers", "moe_layers") if name in params]
+
+    def _layers(self, params):
+        """(cache layer index, layer params) in execution order."""
+        layers = [L.layer(stacked, j) for stacked in self._stacks(params)
+                  for j in range(_n_layers(stacked))]
+        return enumerate(layers)
 
     def decode_step(self, params, cache, token):
         """One token for every sequence in the batch. token: [B] i32.
-        Writes the token's k/v at slot ``len % Sc`` of a copy of the cache
-        (the reference's one-hot update, by index)."""
+        Writes the token at slot ``len % Sc`` of a copy of the cache (the
+        reference's one-hot update, by index for k/v; MLA's by
+        ``mla_decode``'s own)."""
         cfg = self.cfg
         B = token.shape[0]
         x = _embed_tokens(params, cfg, token)[:, None]
         pos = cache["len"]                                       # [B] current positions
-        Sc = cache["k"].shape[2]
-        rows = torch.arange(B, device=pos.device)
-        slot = (pos % Sc).long()
-        pos_buf = cache["pos"].clone()
-        pos_buf[rows, slot] = pos
-        valid = pos_buf >= 0
-        k_all, v_all = cache["k"].clone(), cache["v"].clone()
-        off = 0
-        for _, stacked, n in self._stacks(params):
-            for i in range(n):
-                p_l = L.layer(stacked, i)
+        if cfg.mla is not None:
+            slot = pos % cache["ckv"].shape[2]
+            ckv_all, kr_all = cache["ckv"].clone(), cache["krope"].clone()
+            for i, p_l in self._layers(params):
+                a, ckv_all[i], kr_all[i] = L.mla_decode(
+                    p_l["attn"], cfg.mla, L.rms_norm(x, p_l["ln1"]), ckv_all[i], kr_all[i],
+                    pos, slot)
+                x = x + a
+                x = x + _ffn(p_l, cfg, L.rms_norm(x, p_l["ln2"]))[0]
+            new_cache = {"ckv": ckv_all, "krope": kr_all, "len": cache["len"] + 1}
+        else:
+            Sc = cache["k"].shape[2]
+            rows = torch.arange(B, device=pos.device)
+            slot = (pos % Sc).long()
+            pos_buf = cache["pos"].clone()
+            pos_buf[rows, slot] = pos
+            valid = pos_buf >= 0
+            k_all, v_all = cache["k"].clone(), cache["v"].clone()
+            for i, p_l in self._layers(params):
                 h = L.rms_norm(x, p_l["ln1"])
                 q, k, v = _qkv(p_l["attn"], cfg, h, pos[:, None])
-                k_all[off + i, rows, slot] = k[:, 0]
-                v_all[off + i, rows, slot] = v[:, 0]
-                o = _sdpa(q, k_all[off + i], v_all[off + i], pos[:, None], pos_buf, cfg, valid)
+                k_all[i, rows, slot] = k[:, 0]
+                v_all[i, rows, slot] = v[:, 0]
+                o = _sdpa(q, k_all[i], v_all[i], pos[:, None], pos_buf, cfg, valid)
                 x = x + torch.einsum("bshd,hdo->bso", o, p_l["attn"]["wo"])
-                x = x + L.mlp(p_l["mlp"], L.rms_norm(x, p_l["ln2"]))
-            off += n
+                x = x + _ffn(p_l, cfg, L.rms_norm(x, p_l["ln2"]))[0]
+            new_cache = {"k": k_all, "v": v_all, "pos": pos_buf, "len": cache["len"] + 1}
         h = L.rms_norm(x, params["final_norm"])
-        new_cache = {"k": k_all, "v": v_all, "pos": pos_buf, "len": cache["len"] + 1}
         return self.logits(params, h)[:, 0], new_cache
 
     def prefill(self, params, tokens, budget: int | None = None):
@@ -371,25 +432,34 @@ class TransformerLM(Arch):
         def ring(buf):  # [B, Sc, ...]: place position p at slot p % Sc
             return torch.roll(buf, shift, dims=1) if shift else buf
 
-        ks, vs = [], []
-        for _, stacked, n in self._stacks(params):
-            for i in range(n):
-                p_l = L.layer(stacked, i)
-                h = L.rms_norm(x, p_l["ln1"])
-                q, k, v = _qkv(p_l["attn"], cfg, h, positions)
-                o = _chunked_sdpa_wrap(q, k, v, positions, cfg)
+        # per layer, the two cached leaves: MLA's normed c_kv and roped
+        # shared key, else k and v
+        cached = ([], [])
+        for _, p_l in self._layers(params):
+            h = L.rms_norm(x, p_l["ln1"])
+            if cfg.mla is not None:
+                pair = L.mla_latents(p_l["attn"], cfg.mla, h, positions)
+                x = x + L.mla_attention(p_l["attn"], cfg.mla, h, positions,
+                                        attn_chunk=cfg.attn_chunk, use_flash=cfg.use_flash)
+            else:
+                q, *pair = _qkv(p_l["attn"], cfg, h, positions)
+                o = _chunked_sdpa_wrap(q, *pair, positions, cfg)
                 x = x + torch.einsum("bshd,hdo->bso", o, p_l["attn"]["wo"])
-                x = x + L.mlp(p_l["mlp"], L.rms_norm(x, p_l["ln2"]))
-                ks.append(ring(fit(k)))
-                vs.append(ring(fit(v)))
-        if pad:
-            pos_slice = torch.cat([torch.arange(S, dtype=torch.int32, device=dev),
-                                   torch.full((pad,), -1, dtype=torch.int32, device=dev)])
+            x = x + _ffn(p_l, cfg, L.rms_norm(x, p_l["ln2"]))[0]
+            for into, buf in zip(cached, pair):
+                into.append(ring(fit(buf)))
+        first, second = (torch.stack(c) for c in cached)
+        lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+        if cfg.mla is not None:
+            cache = {"ckv": first, "krope": second, "len": lens}
         else:
-            pos_slice = torch.arange(S - Sc, S, dtype=torch.int32, device=dev)
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-                 "pos": ring(pos_slice.expand(B, Sc)).contiguous(),
-                 "len": torch.full((B,), S, dtype=torch.int32, device=dev)}
+            if pad:
+                pos_slice = torch.cat([torch.arange(S, dtype=torch.int32, device=dev),
+                                       torch.full((pad,), -1, dtype=torch.int32, device=dev)])
+            else:
+                pos_slice = torch.arange(S - Sc, S, dtype=torch.int32, device=dev)
+            cache = {"k": first, "v": second,
+                     "pos": ring(pos_slice.expand(B, Sc)).contiguous(), "len": lens}
         h = L.rms_norm(x, params["final_norm"])
         return self.logits(params, h[:, -1:])[:, 0], cache
 

@@ -76,9 +76,15 @@ def flatten_tree(tree) -> dict[str, Any]:
 
 
 def to_host(leaf) -> np.ndarray:
-    """A flattened leaf as a numpy array that owns its memory."""
+    """A flattened leaf as a numpy array that owns its memory. numpy has
+    no bfloat16: a bf16 tensor goes out as its 16 bits, a 2-byte void
+    array (the bytes and the dtype the reference's ``np.savez`` of an
+    ``ml_dtypes.bfloat16`` leaf writes)."""
     if torch.is_tensor(leaf):
-        return leaf.detach().cpu().numpy().copy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2").copy()
+        return t.numpy().copy()
     return np.array(leaf)
 
 
@@ -88,8 +94,10 @@ def _leaf_in(abstract, arr):
         gen.set_state(torch.from_numpy(np.array(arr, np.uint8)))
         return gen
     if torch.is_tensor(abstract):
-        t = torch.from_numpy(np.array(arr)).to(abstract.dtype)
-        return t.to(abstract.device)
+        a = np.array(arr)
+        if abstract.dtype == torch.bfloat16 and a.dtype.kind == "V" and a.dtype.itemsize == 2:
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(abstract.device)
+        return torch.from_numpy(a).to(abstract.dtype).to(abstract.device)
     if isinstance(abstract, bool):
         return bool(arr)
     if isinstance(abstract, int):

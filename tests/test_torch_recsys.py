@@ -163,8 +163,8 @@ def test_step_cells_finite_and_shaped(name, shape):
 
 
 def test_registry_and_train_cells():
-    # the reference's archs less the still-unported MoE/MLA pair and the GNN
-    unported = {"deepseek-moe-16b", "deepseek-v3-671b", "meshgraphnet"}
+    # the reference's archs less the still-unported GNN
+    unported = {"meshgraphnet"}
     assert list_archs() == sorted(set(j_list_archs()) - unported)
     assert set(ARCHS) <= set(list_archs())
     for name in ARCHS:

@@ -13,9 +13,10 @@ float64 run of the same model, summing in its own order), the gradients of ``los
 ``jax.grad`` within rtol 1e-4 (atol 1e-4 of the leaf's largest gradient);
 ``prefill``'s logits and every cache leaf for a SWA ring that wraps and a
 padded budget; three chained ``decode_step``s; the reference's
-decode-vs-forward and out-of-window tests on the port; each dense LM
-config's smoke cells shaped as the reference's, and its train step with
-two microbatches. ``tests/test_torch_embedder.py`` holds the encoder, bf16
+decode-vs-forward and out-of-window tests on the port; each LM config's
+fields (the deepseek pair's MoE and MLA settings too) and smoke cells
+shaped as the reference's, and qwen2's train step with two microbatches
+(``tests/test_torch_moe_mla.py`` holds the deepseek pair's). ``tests/test_torch_embedder.py`` holds the encoder, bf16
 across ``convert`` and the train launcher."""
 import dataclasses
 
@@ -34,7 +35,8 @@ from repro_torch.models.api import get_arch
 from repro_torch.models.testing import assert_finite, dummy_batch
 from repro_torch.models.transformer import TransformerLM
 
-LM_ARCHS = ["qwen2-1.5b", "h2o-danube-1.8b", "h2o-danube-3-4b"]
+LM_ARCHS = ["qwen2-1.5b", "h2o-danube-1.8b", "h2o-danube-3-4b", "deepseek-moe-16b",
+            "deepseek-v3-671b"]
 VARIANTS = {
     "full": dict(),
     "swa": dict(window=8),
@@ -171,15 +173,6 @@ def test_swa_masks_out_of_window():
     np.testing.assert_allclose(l1.numpy(), l2.numpy(), rtol=1e-4, atol=1e-5)
 
 
-def test_unported_lm_parts_raise():
-    lm = tiny_lm_pair()[1]
-    for cfg in (dataclasses.replace(lm.cfg, moe=object()),
-                dataclasses.replace(lm.cfg, mla=object()),
-                dataclasses.replace(lm.cfg, mtp=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            TransformerLM(cfg).init(0, "cpu")
-
-
 # ------------------------------------------------------------------ configs
 @pytest.mark.parametrize("name", LM_ARCHS)
 def test_lm_config_matches_reference_and_smoke_cells_run(name):
@@ -189,6 +182,10 @@ def test_lm_config_matches_reference_and_smoke_cells_run(name):
         want, got = getattr(full_j, f.name), getattr(full_t, f.name)
         if f.name in ("param_dtype", "act_dtype"):
             assert str(got).split(".")[-1] == jnp.dtype(want).name, f.name
+        elif f.name in ("moe", "mla"):   # the packages' own MoEConfig / MLAConfig
+            assert (got is None) == (want is None), f.name
+            if want is not None:
+                assert dataclasses.asdict(got) == dataclasses.asdict(want), f.name
         else:
             assert got == want, f.name
     assert ta.optimizer == get_arch(name).optimizer and ta.optimizer.kind == ja.optimizer.kind
