@@ -321,7 +321,44 @@
    decode ms a token and tokens/s, launches, kernel ms and idle share of
    one call, peak memory (after each deepseek ``init`` too), each beside
    the card's name and power limit, and each part's seconds.
-10. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
+10. GNN path (last, after ``empty_cache()``): MeshGraphNet at full width
+   (15 layers, d_hidden 128, 2-layer MLPs with LayerNorm, sum aggregation,
+   remat). minibatch_lg's batches are sampled on the host by the
+   ``NeighborSampler`` (1,024 roots, fan-out 15 then 10) from
+   ``random_csr_graph(232,965, 492)`` (~114.6 M edges), node features and
+   labels gathered from seeded tables on the card. (a) The segment sum
+   (``bag_backward.cu``'s gather entry run forward) against its plain
+   version at minibatch_lg's padded shape (168,960 entries into 169,984
+   rows, d = 128, ids the sampled batch's ``edge_dst``), with every id 0
+   (the dummy batch's one hot row) and int64 ids: each element within
+   1e-5 of the sum of its terms' magnitudes + 1e-6, empty rows exactly
+   zero, two calls bit-equal; the gather backward the same way at
+   ``hn[src]``'s shape; device ms, plain, library (``index_add_``) and the
+   bound, and the entry's launches by part. (b) One forward, loss and
+   gradient on the card against the same module on the CPU with the same
+   params on a sampled batch (the CPU without remat, whose recompute
+   gives the same values): outputs and loss within 1e-4 of their max
+   |value|, each gradient leaf within 1e-3 of its max |grad| or, where
+   the CPU's fp32 run is further than that from a float64 run of the
+   same params (on the card, through the plain gathers and segment sums;
+   a node-encoder weight's gradient sums ~88 k nodes' terms with
+   cancellation), within twice that distance (printed); two card train
+   steps from one state bit-equal. (c) ``Trainer`` runs of 3
+   steps each on full_graph_sm (2,708 nodes and 10,556 uniform edges,
+   padded to 3,072 / 10,752), molecule (128 molecules of 30 nodes and 64
+   edges, the MSE branch) and minibatch_lg, then ogb_products full batch
+   on a random CSR graph of its mean degree with nodes and edges halved
+   together until a step fits (an OutOfMemoryError under the cap halves
+   it; the cut printed with its reason); counts reset just before each
+   run: the segment sum launches 2 a layer a step (forward, recompute),
+   the gather backward 2, nothing else, no plain version; losses finite.
+   (d) The train launcher (``--arch meshgraphnet --full --shape molecule
+   --steps 4 --ckpt-interval 2``) in its own process, then resumed to 6.
+   Printed: the host ms to sample a batch, step ms, steps/s, launches a
+   step, the bag_backward.cu kernels' ms, kernel ms and idle share of one
+   step (torch.profiler), peak memory, each beside the card's name and
+   power limit.
+11. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository beside it.
@@ -330,6 +367,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -361,10 +399,10 @@ from repro_torch.kernels.assign.ref import assign_ref  # noqa: E402
 from repro_torch.kernels.bag import ops as bag_ops  # noqa: E402
 from repro_torch.kernels.bag.bag import (embedding_bag_backward_cuda,  # noqa: E402
                                          embedding_bag_cuda, embedding_bag_sorted_cuda,
-                                         gather_backward_cuda)
+                                         gather_backward_cuda, segment_sum_cuda)
 from repro_torch.kernels.bag.ref import (embedding_bag_backward_ref,  # noqa: E402
                                          embedding_bag_ref, embedding_bag_sorted_ref,
-                                         gather_backward_ref)
+                                         gather_backward_ref, segment_sum_ref)
 from repro_torch.kernels.common import (NEG_INF, l2_normalize,  # noqa: E402
                                         l2_normalize_queries, require_full_fp32,
                                         stable_topk)
@@ -379,9 +417,10 @@ from repro_torch.kernels.rerank.rerank import rerank_topk_cuda  # noqa: E402
 from repro_torch.kernels.serve.ref import serve_routes_ref, serve_topk_ref  # noqa: E402
 from repro_torch.kernels.serve.serve import (serve_launcher, serve_routes_cuda,  # noqa: E402
                                              serve_topk_cuda)
+from repro_torch.models import gnn as gnn_lib  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import recsys  # noqa: E402
-from repro_torch.models.api import get_arch  # noqa: E402
+from repro_torch.models.api import TrainState, get_arch  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
 from repro_torch.models.testing import assert_finite, dummy_batch  # noqa: E402
 from repro_torch.obs import kern  # noqa: E402
@@ -420,9 +459,13 @@ SOURCES = {"admit": "src/repro/kernels/admit/admit.py:177",
                             "src/repro/kernels/bag/ref.py:13 embedding_bag_ref"),
            # bag_backward.cu's gather entry: one entry a bag, no segments
            "gather_backward": ("port-side: no pallas_call; the transpose of "
-                               "src/repro/models/recsys.py:198's row gather (jnp.take)")}
+                               "src/repro/models/recsys.py:198's row gather (jnp.take)"),
+           # the same entry's sum run forward: the GNN's aggregation
+           "segment_sum": ("port-side: no pallas_call; src/repro/models/gnn.py:168 "
+                           "jax.ops.segment_sum")}
 # a kernel whose source is another's file
-CSRC_OF = {"serve_route": "serve", "gather_backward": "bag_backward"}
+CSRC_OF = {"serve_route": "serve", "gather_backward": "bag_backward",
+           "segment_sum": "bag_backward"}
 RECSYS_STEPS = ("serve_p99", "serve_bulk", "retrieval_cand")
 LOOP_INGEST_MS = 250.59   # fused ingest ms/batch with the per-arrival loop in place
 #                           of the heavy-hitter kernel (PERF.md; H100 80GB HBM3, 700 W)
@@ -502,6 +545,18 @@ DS_TRAIN_WAITS = ("training either deepseek config at full width waits for train
                   "distribution (ROADMAP A10 item 3): AdamW's fp32 moments of deepseek-moe-16b "
                   "are 131 GB, Adafactor's factored state of deepseek-v3 plus its params far "
                   "past one card")
+# the GNN path (10): MeshGraphNet at full width (15 layers, d_hidden 128,
+# remat), 3 Trainer steps on each shape under the training path's memory
+# cap; minibatch_lg's batches sampled on the host from a random CSR graph of
+# its node count and mean degree; card vs CPU outputs and loss within 1e-4
+# of their max |value|, each grad leaf within 1e-3 of its max |grad| or, where
+# fp32 rounding alone (the CPU's fp32 run against a float64 one) moves that
+# leaf further, within twice that (H100 80GB HBM3 at 700 W: node_encoder.w0
+# card vs CPU 1.24e-3, the CPU vs float64 7.9e-4); ogb_products full batch on
+# a random CSR graph whose nodes and edges are halved together until a step fits
+GNN_TRAIN_STEPS, GNN_OUT_TOL, GNN_GRAD_TOL, GNN_MAX_HALVINGS = 3, 1e-4, 1e-3, 8
+GNN_LAUNCH_FLAGS = ("--arch", "meshgraphnet", "--full", "--shape", "molecule",
+                    "--ckpt-interval", "2")
 # BERT4Rec's serve_bulk attention scores: 262144 x 2 heads x 200 x 200 fp32
 BERT4REC_BULK_SKIP = ("bert4rec serve_bulk skipped on one card: its attention "
                       "scores [262144, 2, 200, 200] fp32 alone are 84 GB (the "
@@ -3198,24 +3253,31 @@ def backward_split(what: str, fn) -> dict[str, float]:
     return parts
 
 
-def step_breakdown(fn, top: int = 8):
-    """One warm call of ``fn`` under torch.profiler: the device time by
-    kernel name (the top ``top``), their sum against the host clock."""
-    wall, launches = profiled_launches(fn)
+def kernels_by_name(launches) -> list[tuple[str, float, int]]:
+    """(name, device ms, launches) per kernel name (its first 60
+    characters), the most device time first."""
     by_name: dict[str, list] = {}
     for name, ms in launches:
         rec = by_name.setdefault(name[:60], [0.0, 0])
         rec[0] += ms
         rec[1] += 1
-    total = sum(v[0] for v in by_name.values())
+    return sorted(((n, ms, k) for n, (ms, k) in by_name.items()), key=lambda r: -r[1])
+
+
+def step_breakdown(fn, top: int = 8):
+    """One warm call of ``fn`` under torch.profiler: the device time by
+    kernel name (the top ``top``), their sum against the host clock."""
+    wall, launches = profiled_launches(fn)
+    rows = kernels_by_name(launches)
+    total = sum(ms for _, ms, _ in rows)
     # unclipped: kernel time past the wall (overlapping streams, an event
     # counted twice) shows as a negative share and is flagged
     idle = 1 - total / wall
     flag = "; KERNEL TIME EXCEEDS THE WALL: the count is suspect" if idle < 0 else ""
     print(f"  one mind train step under torch.profiler: {wall:.2f} ms host clock, "
-          f"{total:.2f} ms of kernels ({sum(v[1] for v in by_name.values())} launches; "
+          f"{total:.2f} ms of kernels ({len(launches)} launches; "
           f"device idle share {idle:.3f}{flag}); by device time:")
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+    for name, ms, n in rows[:top]:
         print(f"    {ms:9.3f} ms  x{n:4d}  {name}")
 
 
@@ -4019,6 +4081,450 @@ def phase_models():
     assert not fails, "models path: " + "; ".join(fails)
 
 
+# --------------------------------------------------------------------- GNN
+def pad512(n: int) -> int:
+    return -(-n // gnn_lib.PAD_TO) * gnn_lib.PAD_TO
+
+
+def gnn_buffers(src, dst, n: int, N: int, E: int) -> dict:
+    """Edge ids and masks on the card: the live edges first, the padding
+    at node 0 (masked), as the sampler pads."""
+    e = len(src)
+    s, t = np.zeros(E, np.int32), np.zeros(E, np.int32)
+    s[:e], t[:e] = src, dst
+    return {"edge_src": torch.from_numpy(s).cuda(), "edge_dst": torch.from_numpy(t).cuda(),
+            "node_mask": torch.arange(N, device="cuda") < n,
+            "edge_mask": torch.arange(E, device="cuda") < e}
+
+
+def gnn_full_batch(arch, src, dst, n: int, d_feat: int, n_out: int, gen,
+                   graph_of=None) -> dict:
+    """A full-batch graph on the card, node and edge buffers padded to
+    multiples of 512: features N(0, 1), class labels uniform in [0,
+    n_out), or (``graph_of``: each node's graph) one N(0, 1) target a
+    graph broadcast to its nodes, [N, 1] (molecule's regression)."""
+    N, E = pad512(n), pad512(len(src))
+    b = gnn_buffers(src, dst, n, N, E)
+    b["node_feat"] = torch.randn((N, d_feat), generator=gen, device="cuda")
+    b["edge_feat"] = torch.randn((E, arch.cfg.d_edge_feat), generator=gen, device="cuda")
+    if graph_of is None:
+        b["labels"] = torch.randint(0, n_out, (N,), generator=gen, device="cuda",
+                                    dtype=torch.int32)
+    else:
+        target = torch.randn((int(graph_of.max()) + 1, 1), generator=gen, device="cuda")
+        lab = torch.zeros((N, 1), device="cuda")
+        lab[:n] = target[torch.from_numpy(graph_of).cuda()]
+        b["labels"] = lab
+    return b
+
+
+def csr_edges(indptr, indices):
+    """(src, dst) of a CSR graph's edges: the neighbour sends to its row."""
+    deg = np.diff(indptr)
+    return indices.astype(np.int32), np.repeat(np.arange(len(deg), dtype=np.int32), deg)
+
+
+def gnn_sampled_batch(arch, sampler, feats, labels, rng, gen):
+    """One minibatch_lg batch: 1,024 roots without replacement, their
+    fan-out subgraph by the sampler on the host (timed), node features
+    and labels gathered from the tables on the card by original node id
+    (padding rows zero), edge features N(0, 1). Returns (batch, host ms
+    of the sampler, live nodes, live edges)."""
+    d = dict(arch.shapes["minibatch_lg"].dims)
+    roots = rng.choice(d["n_nodes"], d["batch_nodes"], replace=False)
+    t = time.perf_counter()
+    sub = sampler.sample(roots, d["pad_nodes"], d["pad_edges"])
+    host_ms = (time.perf_counter() - t) * 1e3
+    N, E = arch.padded_sizes("minibatch_lg")   # the sampler's buffers, 512-aligned
+    n, e = sub["n_nodes"], sub["n_edges"]
+    b = gnn_buffers(sub["edge_src"][:e], sub["edge_dst"][:e], n, N, E)
+    orig = torch.zeros(N, dtype=torch.int64)
+    orig[:d["pad_nodes"]] = torch.from_numpy(sub["orig_nodes"])
+    orig = orig.cuda()
+    b["node_feat"] = torch.where(b["node_mask"][:, None], feats[orig], 0.0)
+    b["labels"] = labels[orig]
+    b["edge_feat"] = torch.randn((E, arch.cfg.d_edge_feat), generator=gen, device="cuda")
+    return b, host_ms, n, e
+
+
+def check_segment_sum(x, ids, n: int, chk: Check):
+    """The segment sum twice (bit-equal) against its plain version on the
+    card: each element within 1e-5 of the sum of its own terms'
+    magnitudes + 1e-6 (another order of the same sum); rows no id names
+    exactly zero."""
+    got = segment_sum_cuda(x, ids, n)
+    again = segment_sum_cuda(x, ids, n)
+    want = segment_sum_ref(x, ids, n)
+    mag = segment_sum_ref(x.abs(), ids, n)
+    torch.cuda.synchronize()
+    what = f"ids {tuple(ids.shape)} {ids.dtype} into {n}"
+    if not torch.equal(got, again):
+        chk.fail.append(f"{what}: two calls differ")
+    chk.err = max(chk.err, max_err(got, want))
+    bad = int(((got - want).abs() > RTOL * mag + ATOL).sum())
+    if bad:
+        chk.fail.append(f"{what}: {bad} values off")
+    touched = torch.zeros(n, dtype=torch.bool, device="cuda")
+    touched[ids.long()] = True
+    if not bool((got[~touched] == 0).all()):
+        chk.fail.append(f"{what}: an empty segment is not zero")
+
+
+def time_segment_sum(x, ids, n: int):
+    """Device ms of the segment sum (its sort and dense pass included),
+    plain (``segment_sum_ref``: ``index_add_`` in f32), library (one
+    ``torch.zeros(n, d).index_add_(0, ids, x)``, timed only) and the
+    bound: the entries read once, the dense result written once."""
+    E, d = x.shape
+    ms, host = cuda_ms(lambda: segment_sum_cuda(x, ids, n))
+    plain, plain_how = device_ms(lambda: segment_sum_ref(x, ids, n), iters=5)
+    lib_fn = lambda: torch.zeros((n, d), device="cuda").index_add_(0, ids, x)  # noqa: E731
+    lib_err = max_err(lib_fn(), segment_sum_ref(x, ids, n))
+    lib, lib_how = device_ms(lib_fn, iters=5)
+    b_ms, b_by = bound(float(E * d), E * d * 4 + n * d * 4 + E * ids.element_size())
+    print(f"  segment_sum at minibatch_lg: {E} entries into {n} x {d}: {ms:.4f} ms device "
+          f"({host:.4f} ms a call from the host), plain {plain:.4f} ms ({plain_how}), "
+          f"library {lib:.4f} ms (zeros + index_add_, float atomics; {lib_how}; max|d| vs "
+          f"plain {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=ms, host_ms=host, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def gnn_kernels(arch, batch, gen, results):
+    """10a. The segment sum and the gather backward at minibatch_lg's
+    shapes, against their plain versions."""
+    N, E, d = batch["node_mask"].numel(), batch["edge_mask"].numel(), arch.cfg.d_hidden
+    x = torch.randn((E, d), generator=gen, device="cuda")
+    dst, src = batch["edge_dst"], batch["edge_src"]
+    zeros = torch.zeros_like(dst)          # every id 0: the dummy batch's one hot row
+    chk = Check("seg_sum")
+    check_segment_sum(x, dst, N, chk)
+    check_segment_sum(x, zeros, N, chk)
+    check_segment_sum(x, dst.long(), N, chk)
+    chk.done("minibatch_lg dst, zeros, int64")
+    results["segment_sum"] = dict(max_abs_err=chk.err, **time_segment_sum(x, dst, N))
+    backward_split("segment_sum at minibatch_lg", lambda: segment_sum_cuda(x, dst, N))
+    backward_split("segment_sum, every id 0", lambda: segment_sum_cuda(x, zeros, N))
+    zeros_ms = cuda_ms(lambda: segment_sum_cuda(x, zeros, N))[0]
+    print(f"  segment_sum, every id 0: {zeros_ms:.4f} ms device")
+    hn = torch.randn((N, d), generator=gen, device="cuda")
+    chk = Check("gath_bwd")
+    check_gather_backward(hn, src, x, chk)
+    check_gather_backward(hn, torch.zeros_like(src), x, chk)
+    check_gather_backward(hn, batch["edge_dst"], x, chk)
+    chk.done("hn[src], hn[dst], zeros at minibatch_lg")
+    ms = cuda_ms(lambda: gather_backward_cuda(hn, src, x))[0]
+    plain = device_ms(lambda: gather_backward_ref(hn, src, x), iters=5)[0]
+    print(f"  gather_backward at hn[src] ({E} ids into {N} x {d}): {ms:.4f} ms device, plain "
+          f"{plain:.4f} ms")
+
+
+def tree_rel(got, want) -> dict[str, float]:
+    """Leaf path -> max |got - want| / max |want| over nested dicts."""
+    out = {}
+
+    def walk(g, w, path):
+        if isinstance(w, dict):
+            for k in w:
+                walk(g[k], w[k], f"{path}.{k}" if path else k)
+        else:
+            scale = max(float(w.abs().max()), 1e-30)
+            out[path] = float((g.cpu().double() - w.cpu().double()).abs().max()) / scale
+
+    walk(got, want, "")
+    return out
+
+
+def gnn_out_loss_grads(arch, params, batch):
+    """(out, loss, grads) of one forward and backward: ``loss_and_grads``,
+    with the forward's output recorded on its way."""
+    seen = {}
+    forward = arch.forward
+
+    def recording(p, b):
+        seen["out"] = forward(p, b)
+        return seen["out"]
+
+    arch.forward = recording
+    try:
+        loss, _, grads = arch.loss_and_grads(params, batch)
+    finally:
+        del arch.forward          # the class's method again
+    return seen["out"].detach(), loss, grads
+
+
+@contextlib.contextmanager
+def gnn_plain_route():
+    """MeshGraphNet's row gathers and segment sums through their plain
+    versions on the tensors' device (the float64 yardstick on the card:
+    the kernels take f32 and bf16)."""
+    saved = gnn_lib.gather_rows, gnn_lib.segment_sum
+    gnn_lib.gather_rows = lambda t, ids: bag_ops.gather_apply(t, ids, False)
+    gnn_lib.segment_sum = lambda x, ids, n: bag_ops.segment_sum_apply(x, ids, n, False)
+    try:
+        yield
+    finally:
+        gnn_lib.gather_rows, gnn_lib.segment_sum = saved
+
+
+def gnn_twin(arch, **changes):
+    """A MeshGraphNet with ``arch``'s widths and shapes and its config
+    changed by ``changes``."""
+    twin = gnn_lib.MeshGraphNet(dataclasses.replace(arch.cfg, **changes))
+    twin.shapes, twin.d_feat, twin.n_out = arch.shapes, arch.d_feat, arch.n_out
+    return twin
+
+
+def gnn_card_vs_cpu(arch, batch, smi: str, fails: list):
+    """10b. One forward, loss and gradient at full width on a sampled
+    minibatch_lg batch: the card against the CPU with the same params
+    (the CPU without remat, whose recompute gives the same values), and
+    a float64 run on the card through the plain versions (the yardstick
+    of fp32 rounding); then two card train steps from one state,
+    bit-equal."""
+    params = arch.init(SEED)
+    t = time.perf_counter()
+    out, loss, grads = gnn_out_loss_grads(arch, params, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    p_cpu = opt_lib.tree_map(lambda t: t.cpu(), params)
+    b_cpu = {k: v.cpu() for k, v in batch.items()}
+    t = time.perf_counter()
+    out_c, loss_c, grads_c = gnn_out_loss_grads(gnn_twin(arch, remat=False), p_cpu, b_cpu)
+    cpu_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with gnn_plain_route():
+        _, loss_64, grads_64 = gnn_out_loss_grads(
+            gnn_twin(arch, param_dtype=torch.float64),
+            opt_lib.tree_map(lambda t: t.double(), params),
+            {k: v.double() if v.is_floating_point() else v for k, v in batch.items()})
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t
+    out_err = max_err(out.cpu(), out_c) / float(out_c.abs().max())
+    loss_err = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    rel, yard = tree_rel(grads, grads_c), tree_rel(grads_c, grads_64)
+    card64 = tree_rel(grads, grads_64)
+    worst = sorted(rel, key=lambda k: -rel[k] / max(GNN_GRAD_TOL, 2 * yard[k]))[:4]
+    print(f"  card vs CPU, full width on a sampled batch (card {card_s:.2f} s cold, CPU "
+          f"{cpu_s:.1f} s, float64 on the card {f64_s:.2f} s): out {out_err:.3g} of max |out| "
+          f"{float(out_c.abs().max()):.4g} (limit {GNN_OUT_TOL}), loss {float(loss):.6f} vs "
+          f"{float(loss_c):.6f} (rel {loss_err:.3g}; float64 {float(loss_64):.6f}); grads, the "
+          f"worst leaves against their limits: " + ", ".join(
+              f"{k} {rel[k]:.3g} (CPU vs float64 {yard[k]:.3g}, card vs float64 "
+              f"{card64[k]:.3g})" for k in worst)
+          + f"; worst leaf of all: card vs CPU {max(rel.values()):.3g}, CPU vs float64 "
+          f"{max(yard.values()):.3g}, card vs float64 {max(card64.values()):.3g} [{smi}]")
+    if out_err > GNN_OUT_TOL or loss_err > GNN_OUT_TOL:
+        fails.append(f"gnn card vs CPU: out {out_err:.3g}, loss {loss_err:.3g}")
+    over = [k for k in rel if rel[k] > max(GNN_GRAD_TOL, 2 * yard[k])]
+    if over:
+        fails.append(f"gnn card vs CPU grads over their limits: {over}")
+    del p_cpu, b_cpu, grads_c, grads_64, out_c, out
+    state = TrainState(params, opt_lib.init(arch.optimizer, params))
+    step = arch.step("minibatch_lg").fn
+    s1, m1 = step(state, batch)
+    s2, m2 = step(state, batch)
+    torch.cuda.synchronize()
+    l1, l2 = ([*opt_lib.leaves(s.params), *opt_lib.leaves(s.opt.mu),
+               *opt_lib.leaves(s.opt.nu), s.opt.step] for s in (s1, s2))
+    same = len(l1) == len(l2) and all(torch.equal(a, b) for a, b in zip(l1, l2))
+    print(f"  two card train steps from one state: {'bit-equal' if same else 'DIFFER'} "
+          f"({len(l1)} leaves of params and moments), losses {float(m1['loss']):.6f}, "
+          f"{float(m2['loss']):.6f}")
+    if not same or not torch.equal(m1["loss"], m2["loss"]):
+        fails.append("gnn: two card train steps from one state differ")
+    del state, s1, s2, grads, params
+
+
+def gnn_train(arch, shape: str, batches, smi: str, what: str):
+    """10c. ``Trainer.fit`` on ``batches`` under the memory cap, counts
+    reset just before: the segment sum 2 a layer a step (forward and
+    remat's recompute), the gather backward 2, nothing else, no plain
+    version; then one step under torch.profiler. Returns the counts."""
+    L, n = arch.cfg.n_layers, len(batches)
+    cap_gb = TRAIN_MEMORY_FRACTION * torch.cuda.get_device_properties(0).total_memory / 1e9
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gnn_") as tmp:
+        tr = Trainer(arch, TrainerConfig(total_steps=n, ckpt_dir=tmp, ckpt_interval=n + 1,
+                                         log_interval=1))
+        state = tr.init_state(SEED)
+        step_ms, base = [], tr.step_fn
+
+        def timed_step(st, b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = base(st, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        tr.step_fn = timed_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.set_per_process_memory_fraction(TRAIN_MEMORY_FRACTION)
+        try:
+            counts.reset_all()
+            state, hist = tr.fit(iter(batches), state=state)
+            snap = counts.snapshot()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    assert snap["segment_sum"] == {"kernel": 2 * L * n, "plain": 0}, (shape, snap)
+    assert snap["gather_backward"] == {"kernel": 2 * L * n, "plain": 0}, (shape, snap)
+    assert all(c == {"kernel": 0, "plain": 0} for k, c in snap.items()
+               if k not in ("segment_sum", "gather_backward")), (shape, snap)
+    losses = [m["loss"] for _, m in hist]
+    assert [s for s, _ in hist] == list(range(1, n + 1)) and np.all(np.isfinite(losses)), hist
+    step = arch.make_train_step()
+    wall, launches = profiled_launches(lambda: step(state, batches[0]))
+    total = sum(ms for _, ms in launches)
+    ours = sum(ms for name, ms in launches
+               if any(k.lower() in name.lower() for k, _ in BWD_PARTS))
+    warm = step_ms[1:] or step_ms
+    print(f"  {what}: {n} Trainer steps, ms {', '.join(f'{x:.1f}' for x in step_ms)} (host "
+          f"clock around synchronize(); the first cold), {1e3 / np.median(warm):.2f} steps/s "
+          f"warm; launches a step segment_sum {snap['segment_sum']['kernel'] // n}, "
+          f"gather_backward {snap['gather_backward']['kernel'] // n}; one step under "
+          f"torch.profiler: {wall:.1f} ms host clock, {total:.1f} ms of kernels in "
+          f"{len(launches)} launches (device idle share {1 - total / wall:.3f}), of which "
+          f"bag_backward.cu's {ours:.2f} ms; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"peak {peak:.2f} GB under a {cap_gb:.1f} GB cap [{smi}]")
+    print("    by device time: " + "; ".join(
+        f"{ms:.2f} ms x{k} {name}" for name, ms, k in kernels_by_name(launches)[:5]))
+    del state
+    torch.cuda.empty_cache()
+    return snap
+
+
+def gnn_ogb_cut(arch, gen, smi: str):
+    """ogb_products full batch on ``random_csr_graph`` at the shape's mean
+    degree, nodes (and so edges) halved until one train step fits under
+    the memory cap (an OutOfMemoryError halves it). Returns (batches,
+    label)."""
+    d = dict(arch.shapes["ogb_products"].dims)
+    n_full, deg = d["n_nodes"], round(d["n_edges"] / d["n_nodes"])
+    step = arch.step("ogb_products").fn
+    state = arch.init_train_state(SEED)
+    tried = []
+    for halvings in range(GNN_MAX_HALVINGS):
+        n = -(-n_full // 2 ** halvings)
+        src, dst = csr_edges(*gnn_lib.random_csr_graph(n, deg, SEED))
+        batch = gnn_full_batch(arch, src, dst, n, d["d_feat"], d["n_out"], gen)
+        fits = True
+        torch.cuda.set_per_process_memory_fraction(TRAIN_MEMORY_FRACTION)
+        try:
+            step(state, batch)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        if fits:
+            break
+        tried.append(f"1/{2 ** halvings} ({n} nodes, {len(src)} edges) did not fit")
+        del batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise AssertionError("ogb_products: no cut fits: " + "; ".join(tried))
+    cut = (f"ogb_products cut 1/{2 ** halvings}: {n} of {n_full} nodes, {len(src)} of "
+           f"{d['n_edges']} edges (mean degree {deg}), d_feat {d['d_feat']}, n_out "
+           f"{d['n_out']}, full batch: at full size its fp32 edge latents alone are "
+           f"{d['n_edges'] * arch.cfg.d_hidden * 4 / 1e9:.1f} GB a layer, {arch.cfg.n_layers} of "
+           f"them kept for the backward under remat; " + ("; ".join(tried) or "the full size fit"))
+    print(f"  {cut} [{smi}]")
+    batches = [batch] + [gnn_full_batch(arch, src, dst, n, d["d_feat"], d["n_out"], gen)
+                         for _ in range(GNN_TRAIN_STEPS - 1)]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return batches, f"ogb_products at cut 1/{2 ** halvings}: {n} nodes, {len(src)} edges"
+
+
+def phase_gnn(results):
+    """10. The GNN path: MeshGraphNet at full width on the card."""
+    smi = nvidia_smi()
+    arch = get_arch("meshgraphnet")
+    print(f"GNN path: MeshGraphNet {arch.cfg}, optimizer {arch.optimizer}")
+    fails: list[str] = []
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 10)
+    d = dict(arch.shapes["minibatch_lg"].dims)
+    t = time.perf_counter()
+    deg = round(d["n_edges"] / d["n_nodes"])
+    indptr, indices = gnn_lib.random_csr_graph(d["n_nodes"], deg, SEED)
+    graph_s = time.perf_counter() - t
+    sampler = gnn_lib.NeighborSampler(indptr, indices, (d["fanout1"], d["fanout2"]),
+                                      SEED)
+    feats = torch.randn((d["n_nodes"], d["d_feat"]), generator=gen, device="cuda")
+    labels = torch.randint(0, d["n_out"], (d["n_nodes"],), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    sampled = [gnn_sampled_batch(arch, sampler, feats, labels, rng, gen)
+               for _ in range(GNN_TRAIN_STEPS + 1)]
+    mb = [b for b, _, _, _ in sampled]
+    print(f"  minibatch_lg graph: random_csr_graph({d['n_nodes']}, {deg}): "
+          f"{int(indptr[-1])} edges, "
+          f"{(indptr.nbytes + indices.nbytes) / 1e9:.2f} GB of host CSR, built in "
+          f"{graph_s:.2f} s; {len(sampled)} batches of {d['batch_nodes']} roots, fan-out "
+          f"{d['fanout1']}·{d['fanout2']}: live nodes "
+          f"{', '.join(str(n) for _, _, n, _ in sampled)} of {d['pad_nodes']}, live edges "
+          f"{', '.join(str(e) for _, _, _, e in sampled)} of {d['pad_edges']}; host ms to "
+          f"sample a batch {', '.join(f'{ms:.1f}' for _, ms, _, _ in sampled)}")
+    del sampled
+    gnn_kernels(arch, mb[0], gen, results)
+    gnn_card_vs_cpu(arch, mb[-1], smi, fails)
+    del feats, labels, indptr, indices, sampler
+    torch.cuda.empty_cache()
+
+    # (c) Trainer runs; minibatch_lg's is the path whose launches the JSON line reports
+    sm = dict(arch.shapes["full_graph_sm"].dims)
+    g = np.random.default_rng(SEED + 1)
+    edges = [(g.integers(0, sm["n_nodes"], sm["n_edges"]),
+              g.integers(0, sm["n_nodes"], sm["n_edges"])) for _ in range(GNN_TRAIN_STEPS)]
+    gnn_train(arch, "full_graph_sm",
+              [gnn_full_batch(arch, s_, t_, sm["n_nodes"], sm["d_feat"], sm["n_out"], gen)
+               for s_, t_ in edges], smi,
+              f"full_graph_sm ({sm['n_nodes']} -> {pad512(sm['n_nodes'])} nodes, "
+              f"{sm['n_edges']} -> {pad512(sm['n_edges'])} edges)")
+    mo = dict(arch.shapes["molecule"].dims)
+    nm, em, B = mo["n_nodes"], mo["n_edges"], mo["batch"]
+    graph_of = np.repeat(np.arange(B), nm).astype(np.int64)
+    mol = []
+    for _ in range(GNN_TRAIN_STEPS):
+        base_ = np.repeat(np.arange(B) * nm, em)
+        mol.append(gnn_full_batch(arch, base_ + g.integers(0, nm, B * em),
+                                  base_ + g.integers(0, nm, B * em), B * nm, mo["d_feat"],
+                                  mo["n_out"], gen, graph_of=graph_of))
+    gnn_train(arch, "molecule", mol, smi,
+              f"molecule ({B} x {nm} -> {pad512(B * nm)} nodes, {B * em} edges; MSE)")
+    del mol
+    snap = gnn_train(arch, "minibatch_lg", mb[:GNN_TRAIN_STEPS], smi,
+                     f"minibatch_lg (padded {mb[0]['node_mask'].numel()} nodes / "
+                     f"{mb[0]['edge_mask'].numel()} edges)")
+    results["segment_sum"]["launches"] = snap["segment_sum"]["kernel"]
+    del mb
+    torch.cuda.empty_cache()
+    ogb, what = gnn_ogb_cut(arch, gen, smi)
+    gnn_train(arch, "ogb_products", ogb, smi, what)
+    del ogb
+    torch.cuda.empty_cache()
+
+    # (d) the train launcher on molecule, then a resume on its directory
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gnn_launch_") as tmp:
+        first = run_module("repro_torch.launch.train", [*GNN_LAUNCH_FLAGS, "--steps", "4",
+                                                        "--ckpt-dir", tmp], root,
+                           "  gnn train launcher")
+        assert first[-1] == "final checkpoint: 4" and first[-2].startswith("step 4: loss="), first
+        second = run_module("repro_torch.launch.train", [*GNN_LAUNCH_FLAGS, "--steps", "6",
+                                                         "--ckpt-dir", tmp], root,
+                            "  gnn train launcher")
+        steps = [ln.split(":")[0] for ln in second if ln.startswith("step ")]
+        assert steps == ["step 6"] and second[-1] == "final checkpoint: 6", second
+        print("  gnn train launcher: 4 steps of molecule at full width, then resumed at 4 to 6")
+    assert not fails, "GNN path: " + "; ".join(fails)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4046,6 +4552,8 @@ def main() -> int:
     phase_training(results)
     torch.cuda.empty_cache()
     phase_models()
+    torch.cuda.empty_cache()
+    phase_gnn(results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name:9s} kernel {r['ms']:.4f} ms device ({r['host_ms']:.4f} ms a call "

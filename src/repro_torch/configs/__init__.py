@@ -2,7 +2,7 @@
 paper's own (``streaming_rag``).
 
 Importing this package registers every ported factory with
-``models/api``. meshgraphnet waits for ``models/gnn.py`` (ROADMAP A10).
+``models/api``: every arch the reference registers.
 """
 from repro_torch.configs import (  # noqa: F401
     bert4rec,
@@ -12,6 +12,7 @@ from repro_torch.configs import (  # noqa: F401
     fm,
     h2o_danube_1_8b,
     h2o_danube_3_4b,
+    meshgraphnet,
     mind,
     qwen2_1_5b,
     streaming_rag,

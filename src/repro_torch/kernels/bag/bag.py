@@ -3,7 +3,8 @@
 bag) and its gradient (``repro_torch/csrc/bag_backward.cu``: a stable
 radix sort of the entries by row, runs that span chunks summed into
 pieces, and one dense pass that writes every row once), whose entry also
-takes a row gather's gradient (``gather_backward_cuda``)."""
+takes a row gather's gradient (``gather_backward_cuda``) and, the same
+sum, a segment sum (``segment_sum_cuda``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -151,15 +152,17 @@ def _bwd_fn():
 def _backward_launch(table, indices, segment_ids, grad_out, weights, mean, num_bags,
                      d_table, d_w):
     """Plan the call and launch ``bag_backward.cu`` (``segment_ids``
-    None: a gather's transpose, entry i is bag i)."""
-    dev, (V, d), L = table.device, table.shape, indices.shape[0]
+    None: a gather's transpose, entry i is bag i). The rows, width, type
+    and device are ``d_table``'s; ``table`` is read only for ``d_w``, and
+    may be None where ``d_w`` is."""
+    dev, (V, d), L = d_table.device, d_table.shape, indices.shape[0]
     plan = backward_plan(V, L, d, num_bags, weights is not None, mean)
     buf = torch.empty((plan.scratch_bytes,), dtype=torch.uint8, device=dev)
     at = plan.offsets()
     regions = [buf.data_ptr() + at[name] if nbytes else None for name, nbytes in plan.regions]
     widths = (*plan.widths, 0, 0)[:3]
     lib, fn = _bwd_fn()
-    err = fn(table.data_ptr(), int(table.dtype == torch.bfloat16), V, d, indices.data_ptr(),
+    err = fn(build.ptr(table), int(d_table.dtype == torch.bfloat16), V, d, indices.data_ptr(),
              int(indices.dtype == torch.int64), build.ptr(segment_ids),
              int(segment_ids is not None and segment_ids.dtype == torch.int64),
              build.ptr(weights), grad_out.data_ptr(), int(mean), num_bags, L,
@@ -238,3 +241,32 @@ def gather_backward_cuda(table: torch.Tensor, ids: torch.Tensor,
     _backward_launch(table, flat, None, g, None, False, L, d_table, None)
     COUNTS["gather_backward"].kernel += 1
     return d_table
+
+
+def segment_sum_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
+                     num_segments: int) -> torch.Tensor:
+    """Same function as ``ref.segment_sum_ref``: out[s] = sum_{i:
+    segment_ids[i] = s} data[i], dense [num_segments, d] in data's dtype
+    (f32 or bf16), summed in f32 in a fixed order (each segment's entries
+    in their own order, chunk by chunk), by ``bag_backward.cu``'s gather
+    entry with ``num_segments`` rows and one entry a bag: the gather
+    transpose's sum, with ``data`` as its grad_out. That entry reads no
+    table (the table is read only for d_w, not asked here), so none is
+    passed and none is allocated. Segments no id names are exactly zero;
+    ids in [0, num_segments) (not checked: that would need a host sync).
+    The same bits every call."""
+    if data.dim() != 2 or data.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("segment_sum takes [L, d] float32 or bfloat16 data")
+    L, d = data.shape
+    if segment_ids.dtype not in INDEX_DTYPES or segment_ids.shape != (L,):
+        raise TypeError(f"segment_ids must be an [L] tensor of {INDEX_DTYPES}")
+    if L >= 2**31 or num_segments >= 2**31 or num_segments < 0:
+        raise ValueError("segment_sum counts entries and segments in 32 bits")
+    ids = segment_ids.contiguous()
+    g = data.to(torch.float32).contiguous()
+    out = torch.empty((num_segments, d), dtype=data.dtype, device=data.device)
+    if num_segments == 0 or d == 0:
+        return out
+    _backward_launch(None, ids, None, g, None, False, L, out, None)
+    COUNTS["segment_sum"].kernel += 1
+    return out

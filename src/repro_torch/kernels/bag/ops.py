@@ -15,13 +15,20 @@ requires grad the forward runs alone, with no autograd node.
 ``gather_rows(table, ids)`` is ``table[ids]`` whose gradient is the same
 kernel with one entry a bag (``gather_backward``): PyTorch's own
 backward of that indexing serialises on a row that many ids share (the
-padding row 0 of a history batch)."""
+padding row 0 of a history batch).
+
+``segment_sum(data, ids, n)`` is that kernel's sum run forward (the
+GNN's aggregation into destination nodes): deterministic, where
+``index_add_`` on the card adds with float atomics in no fixed order. Its
+gradient is the row gather ``grad[ids]``, as the reference's transpose of
+``jax.ops.segment_sum``."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.bag.ref import (embedding_bag_backward_ref, embedding_bag_ref,
-                                         embedding_bag_sorted_ref, gather_backward_ref)
+                                         embedding_bag_sorted_ref, gather_backward_ref,
+                                         segment_sum_ref)
 from repro_torch.kernels.common import check_same_device
 
 
@@ -136,3 +143,44 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Rows of a [V, d] table: ``table[ids]``, [*ids.shape, d]."""
     kernel = check_same_device(table, ids).type == "cuda"
     return gather_apply(table, ids, kernel)
+
+
+def _segment_sum(data, segment_ids, num_segments, kernel):
+    if kernel:
+        from repro_torch.kernels.bag.bag import segment_sum_cuda as fn
+    else:
+        fn = segment_sum_ref
+    return fn(data, segment_ids, num_segments)
+
+
+class _SegmentSum(torch.autograd.Function):
+    """``segment_sum`` by the kernel (``kernel``) or its plain version;
+    its gradient is ``grad[segment_ids]``."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments, kernel):
+        ctx.save_for_backward(segment_ids)
+        return _segment_sum(data, segment_ids, num_segments, kernel)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (segment_ids,) = ctx.saved_tensors
+        return grad_out[segment_ids.long()], None, None, None
+
+
+def segment_sum_apply(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                      kernel: bool) -> torch.Tensor:
+    """The segment sum by the kernel (``kernel``) or its plain version, on
+    the tensors' own device; an autograd node where ``data`` requires
+    grad."""
+    if torch.is_grad_enabled() and data.requires_grad:
+        return _SegmentSum.apply(data, segment_ids, num_segments, kernel)
+    return _segment_sum(data, segment_ids, num_segments, kernel)
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """[num_segments, d]: out[s] = sum_{i: segment_ids[i] = s} data[i]
+    for [L, d] data and [L] ids (see ``ref.segment_sum_ref``)."""
+    kernel = check_same_device(data, segment_ids).type == "cuda"
+    return segment_sum_apply(data, segment_ids, num_segments, kernel)

@@ -85,9 +85,22 @@ def gather_backward_ref(table: torch.Tensor, ids: torch.Tensor,
                         grad_out: torch.Tensor) -> torch.Tensor:
     """The gradient of ``table[ids]`` given ``grad_out`` [*ids.shape, d]:
     d_table[v] = sum_{i: ids[i] = v} grad_out[i], dense [V, d] in the
-    table's dtype, summed in f32 (the transpose of the reference's
-    ``jnp.take`` row gathers)."""
+    table's dtype, summed in f32 (a float64 table in float64) (the
+    transpose of the reference's ``jnp.take`` row gathers)."""
     COUNTS["gather_backward"].plain += 1
     d = table.shape[1]
-    return torch.zeros(table.shape, dtype=torch.float32, device=table.device).index_add_(
-        0, ids.reshape(-1).long(), grad_out.reshape(-1, d).to(torch.float32)).to(table.dtype)
+    acc = torch.promote_types(table.dtype, torch.float32)
+    return torch.zeros(table.shape, dtype=acc, device=table.device).index_add_(
+        0, ids.reshape(-1).long(), grad_out.reshape(-1, d).to(acc)).to(table.dtype)
+
+
+def segment_sum_ref(data: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """out[s] = sum_{i: segment_ids[i] = s} data[i]: dense [num_segments,
+    d] in data's dtype, summed in f32 (float64 data in float64), empty
+    segments zero (``jax.ops.segment_sum``)."""
+    COUNTS["segment_sum"].plain += 1
+    acc = torch.promote_types(data.dtype, torch.float32)
+    return torch.zeros((num_segments, data.shape[1]), dtype=acc,
+                       device=data.device).index_add_(
+        0, segment_ids.long(), data.to(acc)).to(data.dtype)

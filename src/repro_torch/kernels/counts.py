@@ -35,6 +35,7 @@ COUNTS: dict[str, CallCounts] = {
     "bag": CallCounts(),
     "bag_backward": CallCounts(),   # bag's gradient (port-side: no pallas_call)
     "gather_backward": CallCounts(),   # bag_backward.cu's gather transpose
+    "segment_sum": CallCounts(),   # the same entry as a segment sum (the GNN's aggregation)
     "heavy_hitter": CallCounts(),
 }
 

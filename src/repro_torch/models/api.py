@@ -43,13 +43,15 @@ class TensorSpec(NamedTuple):
 
 
 class StepSpec(NamedTuple):
-    """The reference's StepSpec without its sharding and donation fields
-    (logical batch axes wait for training-side distribution, ROADMAP A10;
-    nothing is donated without jit)."""
+    """The reference's StepSpec without its donation field (nothing is
+    donated without jit). ``batch_axes`` (logical axes per batch entry)
+    is kept where an arch states them, as MeshGraphNet does; the others'
+    wait for training-side distribution (ROADMAP A10)."""
 
     fn: Callable                       # (state, batch) -> out
     input_specs: dict[str, TensorSpec]
     kind: str                          # train | serve
+    batch_axes: dict[str, tuple] | None = None
 
 
 class TrainState(NamedTuple):

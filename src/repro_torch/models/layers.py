@@ -141,12 +141,14 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm: math in fp32, output in the input dtype."""
-    x32 = x.to(torch.float32)
-    mu = torch.mean(x32, dim=-1, keepdim=True)
-    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
-    out = (x32 - mu) * torch.rsqrt(var + eps)
-    return (out * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+    """LayerNorm: math in fp32 (float64 input in float64), output in the
+    input dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xa = x.to(acc)
+    mu = torch.mean(xa, dim=-1, keepdim=True)
+    var = torch.mean((xa - mu) ** 2, dim=-1, keepdim=True)
+    out = (xa - mu) * torch.rsqrt(var + eps)
+    return (out * scale.to(acc) + bias.to(acc)).to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float = 10_000.0,
@@ -214,8 +216,9 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype,
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Token-mean CE in fp32; labels == -100 are ignored."""
-    logits = logits.to(torch.float32)
+    """Token-mean CE in fp32 (float64 logits in float64); labels < 0 are
+    ignored."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     valid = labels >= 0 if mask is None else mask
     safe = torch.clamp(labels, min=0).long()
     logz = torch.logsumexp(logits, dim=-1)

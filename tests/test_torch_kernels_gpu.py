@@ -1,7 +1,7 @@
 """The port's CUDA kernels (admit, serve, mips, rerank, prefilter,
-assign, bag, heavy_hitter) against their plain PyTorch versions, on the
-card, and the ``AsyncServer`` on the card. Run where
-there is one:
+assign, bag and its backward's bag, gather and segment-sum entries,
+heavy_hitter) against their plain PyTorch versions, on the card, and the
+``AsyncServer`` and MeshGraphNet on the card. Run where there is one:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py -q
 
@@ -1994,3 +1994,125 @@ def test_gather_backward_kernel_matches_plain_and_is_deterministic(cuda, case):
     untouched = torch.ones(table.shape[0], dtype=torch.bool)
     untouched[ids.reshape(-1).long().cpu()] = False
     assert bool((got.cpu()[untouched] == 0).all())
+
+
+def _segment_inputs(case, dev):
+    """(data [E, d], ids [E], num_segments): MeshGraphNet's aggregation at
+    minibatch_lg's padded shape with ids from a sampled batch, every id 0
+    at that size (a dummy batch's one hot row), int64 ids, bf16 data, two
+    segments of three empty, DIEN's width, one segment, no entries."""
+    from repro_torch.models.gnn import NeighborSampler, random_csr_graph
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    N, E, d = 169_984, 168_960, 128
+    if case in ("sampled", "int64", "bf16"):
+        indptr, indices = random_csr_graph(20_000, 40, seed=1)
+        sub = NeighborSampler(indptr, indices, (15, 10), seed=2).sample(
+            np.random.default_rng(3).choice(20_000, 1024, replace=False), N, E)
+        ids = torch.from_numpy(sub["edge_dst"]).to(dev)
+        if case == "int64":
+            ids = ids.long()
+    elif case == "zeros":
+        ids = torch.zeros(E, dtype=torch.int32, device=dev)
+    elif case == "empty":
+        ids = torch.randint(0, 1000, (E,), generator=g, device=dev, dtype=torch.int32) * 3
+        N = 3000
+    elif case == "d18":
+        E, N, d = 65_536, 4096, 18
+        ids = torch.randint(0, N, (E,), generator=g, device=dev, dtype=torch.int32)
+    elif case == "one_segment":
+        N, E = 1, 4097
+        ids = torch.zeros(E, dtype=torch.int32, device=dev)
+    else:    # no entries
+        E, N = 0, 17
+        ids = torch.zeros(0, dtype=torch.int32, device=dev)
+    data = torch.randn((E, d), generator=g, device=dev)
+    if case == "bf16":
+        data = data.to(torch.bfloat16)
+    return data, ids, N
+
+
+@pytest.mark.parametrize("case", ["sampled", "zeros", "int64", "bf16", "empty", "d18",
+                                  "one_segment", "no_entries"])
+def test_segment_sum_kernel_matches_plain_and_is_deterministic(cuda, case):
+    """``bag_backward.cu``'s gather entry run forward as a segment sum,
+    against ``segment_sum_ref``: each element within 1e-5 of the sum of
+    its terms' magnitudes + 1e-6 (a bf16 result, the f32 sum rounded once:
+    half a bf16 ulp more), empty segments exactly zero, two calls
+    bit-equal."""
+    from repro_torch.kernels.bag.bag import segment_sum_cuda
+    from repro_torch.kernels.bag.ref import segment_sum_ref
+
+    data, ids, N = _segment_inputs(case, cuda)
+    before = COUNTS["segment_sum"].kernel
+    got, again = (segment_sum_cuda(data, ids, N) for _ in range(2))
+    torch.cuda.synchronize()
+    assert COUNTS["segment_sum"].kernel == before + 2 and torch.equal(got, again)
+    assert got.dtype == data.dtype and got.shape == (N, data.shape[1])
+    want = segment_sum_ref(data.float(), ids, N)
+    mag = segment_sum_ref(data.float().abs(), ids, N)
+    tol = 1e-5 * mag + 1e-6
+    if data.dtype == torch.bfloat16:
+        tol = tol + torch.maximum(got.float().abs(), want.abs()) * 2.0 ** -8
+    assert bool(((got.float() - want).abs() <= tol).all())
+    untouched = torch.ones(N, dtype=torch.bool, device=cuda)
+    untouched[ids.long()] = False
+    assert bool((got[untouched] == 0).all())
+
+
+def test_segment_sum_autograd_on_card(cuda):
+    """``ops.segment_sum`` as an autograd node on the card: the forward is
+    the kernel (one launch), the gradient the row gather ``grad[ids]``
+    (no launch of the port's kernels)."""
+    from repro_torch.kernels import counts
+    from repro_torch.kernels.bag import ops as bag_ops
+
+    data, ids, N = _segment_inputs("d18", cuda)
+    x = data.clone().requires_grad_(True)
+    g = torch.randn((N, data.shape[1]), device=cuda)
+    before = counts.snapshot()
+    out = bag_ops.segment_sum(x, ids, N)
+    (dx,) = torch.autograd.grad(out, x, g)
+    after = counts.snapshot()
+    assert after["segment_sum"]["kernel"] - before["segment_sum"]["kernel"] == 1
+    assert all(after[k] == before[k] for k in after if k != "segment_sum")
+    assert torch.equal(dx, g[ids.long()])
+
+
+@pytest.mark.parametrize("shape", ["full_graph_sm", "minibatch_lg", "ogb_products", "molecule"])
+def test_gnn_train_step_on_card(cuda, shape):
+    """A smoke MeshGraphNet train step on the card (remat on): the segment
+    sum twice a layer (forward, recompute), the gather backward twice a
+    layer, no plain version; two steps from one state bit-equal; the
+    card's loss within 1e-5 of the CPU's on the same params and batch."""
+    import dataclasses
+
+    from repro_torch.kernels import counts
+    from repro_torch.models.api import get_arch
+    from repro_torch.models.testing import dummy_batch
+    from repro_torch.train import optimizer as opt_lib
+
+    arch = get_arch("meshgraphnet", smoke=True)
+    arch.cfg = dataclasses.replace(arch.cfg, remat=True)
+    spec = arch.step(shape)
+    state = arch.init_train_state(0)
+    batch = dummy_batch(spec.input_specs, seed=1)
+    n = batch["edge_src"].numel()
+    batch["edge_src"] = torch.randint(0, batch["node_feat"].shape[0], (n,), device=cuda,
+                                      dtype=torch.int32)
+    batch["edge_dst"] = torch.randint(0, batch["node_feat"].shape[0], (n,), device=cuda,
+                                      dtype=torch.int32)
+    counts.reset_all()
+    new, m = spec.fn(state, batch)
+    torch.cuda.synchronize()
+    snap = counts.snapshot()
+    L = arch.cfg.n_layers
+    assert snap["segment_sum"] == {"kernel": 2 * L, "plain": 0}, snap
+    assert snap["gather_backward"] == {"kernel": 2 * L, "plain": 0}, snap
+    again, m2 = spec.fn(state, batch)
+    for a, b in zip(opt_lib.leaves(new.params), opt_lib.leaves(again.params)):
+        assert torch.equal(a, b)
+    assert torch.equal(m["loss"], m2["loss"])
+    cpu_loss = arch.loss(opt_lib.tree_map(lambda t: t.cpu(), state.params),
+                         {k: v.cpu() for k, v in batch.items()})[0]
+    assert abs(float(m["loss"]) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))

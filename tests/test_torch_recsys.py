@@ -163,9 +163,8 @@ def test_step_cells_finite_and_shaped(name, shape):
 
 
 def test_registry_and_train_cells():
-    # the reference's archs less the still-unported GNN
-    unported = {"meshgraphnet"}
-    assert list_archs() == sorted(set(j_list_archs()) - unported)
+    # every arch the reference registers, MeshGraphNet included
+    assert list_archs() == sorted(j_list_archs())
     assert set(ARCHS) <= set(list_archs())
     for name in ARCHS:
         spec = get_arch(name, smoke=True).step("train_batch")
@@ -173,6 +172,5 @@ def test_registry_and_train_cells():
         assert spec.kind == jspec.kind == "train" and callable(spec.fn)
         assert {k: tuple(v.shape) for k, v in spec.input_specs.items()} == \
             {k: tuple(v.shape) for k, v in jspec.input_specs.items()}
-    for name in sorted(unported):
-        with pytest.raises(KeyError, match="unknown arch"):
-            get_arch(name)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("no-such-arch")
