@@ -315,8 +315,9 @@
    1/sqrt(q_lora_rank), wk_b / wv_b to 1/sqrt(kv_lora_rank), wo to
    1/sqrt(h * v_head_dim)), the init's float64 yardstick printed beside
    (deepseek-moe-16b at 2 and 4 layers, deepseek-v3's dense MLA layers at
-   1 and 2). Training either config at full width waits for training-side
-   distribution (ROADMAP A10): its optimizer state does not fit one card.
+   1 and 2). Neither config trains at full width on one card: its optimizer
+   state does not fit; phase 11 prints the share a device of a mesh would
+   hold by the specs.
    Printed: device ms and sequences/s (encoder), step ms, prefill ms,
    decode ms a token and tokens/s, launches, kernel ms and idle share of
    one call, peak memory (after each deepseek ``init`` too), each beside
@@ -358,7 +359,29 @@
    step, the bag_backward.cu kernels' ms, kernel ms and idle share of one
    step (torch.profiler), peak memory, each beside the card's name and
    power limit.
-11. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
+11. Mesh path (training-side distribution): (a) every registered arch's
+   train-state specs (``sharding.train_state_pspecs``) on 16 x 16 (data,
+   model) and 2 x 16 x 16 (pod, data, model), computed on meta: no card
+   memory allocated (asserted), the params + optimizer bytes a position
+   holds printed beside the whole. (b) MIND at full width (65,536 rows,
+   10^6 x 64 items, AdamW) with ``Trainer(mesh=...)`` on a 2 x 2 mesh whose
+   every position is the one card: 3 ``fit`` steps on the mesh and 3
+   without on the same batches, the states bit-equal (else the difference
+   printed, failing past 1e-5 of max |value|); counts reset just before:
+   bag 1, bag_backward 1 and gather_backward 4 launches a step, nothing
+   else, no plain version; then the checkpoint written without the mesh
+   restored onto it and one more step, bit-equal to the step without. (c)
+   MIND's batch split over 4 data shards, each shard's gradients;
+   ``compressed_grad_allreduce`` on the card and on the CPU from the same
+   gradients (int8 payloads equal but one-off at half-integers within
+   1e-4, scales within 2 ulp, totals within 1e-5 of max |value|); the
+   int8 sum's error against ``fold_sum`` after 1 and 8 rounds of error
+   feedback; ``hierarchical_psum`` on a 2 x 2 (pod, data) grid within 1e-5
+   of ``fold_sum``. Printed: step ms with and without the mesh, a step's
+   gather and split ms, the state bytes a position holds, peak memory,
+   launches a step, device ms of the collectives, each beside the card's
+   name and power limit.
+12. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository beside it.
@@ -388,6 +411,7 @@ from repro_torch.core import baselines, heavy_hitter, pipeline, theory  # noqa: 
 from repro_torch.core import index as index_lib  # noqa: E402
 from repro_torch.data.qa import FactStream, exact_match, rouge_l, token_f1  # noqa: E402
 from repro_torch.data.streams import make_stream  # noqa: E402
+from repro_torch.distributed import collectives, compression, sharding  # noqa: E402
 from repro_torch.engine import stages  # noqa: E402
 from repro_torch.engine.engine import (Engine, ingest_impl,  # noqa: E402
                                        staged_ingest_impl)
@@ -420,7 +444,8 @@ from repro_torch.kernels.serve.serve import (serve_launcher, serve_routes_cuda, 
 from repro_torch.models import gnn as gnn_lib  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import recsys  # noqa: E402
-from repro_torch.models.api import TrainState, get_arch  # noqa: E402
+from repro_torch.launch.mesh import describe, make_debug_mesh  # noqa: E402
+from repro_torch.models.api import TrainState, get_arch, list_archs  # noqa: E402
 from repro_torch.models.transformer import TransformerLM  # noqa: E402
 from repro_torch.models.testing import assert_finite, dummy_batch  # noqa: E402
 from repro_torch.obs import kern  # noqa: E402
@@ -541,8 +566,8 @@ DS_V3_CUT = ("deepseek-v3-671b cut in depth 61 -> 4 layers (its 3 dense layers a
              "of its 58 MoE layers, with the MTP block): at full depth its params are 1.34 TB "
              "in bf16; the cut is 26.72 B params, 53.4 GB, which one 80 GB card holds beside "
              "a 2 x 2048 prefill")
-DS_TRAIN_WAITS = ("training either deepseek config at full width waits for training-side "
-                  "distribution (ROADMAP A10 item 3): AdamW's fp32 moments of deepseek-moe-16b "
+DS_TRAIN_WAITS = ("neither deepseek config trains at full width on one card (phase 11 prints "
+                  "a mesh device's share by the specs): AdamW's fp32 moments of deepseek-moe-16b "
                   "are 131 GB, Adafactor's factored state of deepseek-v3 plus its params far "
                   "past one card")
 # the GNN path (10): MeshGraphNet at full width (15 layers, d_hidden 128,
@@ -557,6 +582,16 @@ DS_TRAIN_WAITS = ("training either deepseek config at full width waits for train
 GNN_TRAIN_STEPS, GNN_OUT_TOL, GNN_GRAD_TOL, GNN_MAX_HALVINGS = 3, 1e-4, 1e-3, 8
 GNN_LAUNCH_FLAGS = ("--arch", "meshgraphnet", "--full", "--shape", "molecule",
                     "--ckpt-interval", "2")
+# the mesh path (11): every arch's train-state specs on meta at 16 x 16 and
+# 2 x 16 x 16; MIND at full width on a 2 x 2 mesh of the one card, 3 Trainer
+# steps against 3 without the mesh on the same batches, then a checkpoint
+# written without the mesh restored onto it and one more step; MIND's batch
+# split over 4 data shards for the compressed all-reduce (card vs CPU: int8
+# payloads equal but at half-integers within 1e-4, scales within 2 ulp,
+# totals within 1e-5 of their max |value|) and the hierarchical sum on a
+# 2 x 2 (pod, data) grid (within 1e-5 of fold_sum's max |value|)
+MESH_SPEC_MESHES = (((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model")))
+MESH_SHAPE, MESH_STEPS, MESH_SHARDS, MESH_EF_ROUNDS, MESH_TOL = (2, 2), 3, 4, 8, 1e-5
 # BERT4Rec's serve_bulk attention scores: 262144 x 2 heads x 200 x 200 fp32
 BERT4REC_BULK_SKIP = ("bert4rec serve_bulk skipped on one card: its attention "
                       "scores [262144, 2, 200, 200] fp32 alone are 84 GB (the "
@@ -3879,7 +3914,7 @@ def hold_moe_layer(cfg, smi: str, fails: list):
     T, K = DS_MOE_LAYER_TOKENS, cfg.moe.top_k
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    p = lm_layers.init_moe(gen, cfg.moe, torch.float32)
+    p, _ = lm_layers.init_moe(gen, cfg.moe, torch.float32)
     x = torch.randn((T, cfg.moe.d_model), generator=gen, device="cuda")
     pc = opt_lib.tree_map(lambda t: t.cpu(), p)
     xc = x.cpu()
@@ -3937,7 +3972,7 @@ def hold_mla_layer(cfg, smi: str, fails: list):
     mla = cfg.mla
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    p = conditioned({"mtp_block": {"attn": lm_layers.init_mla(gen, mla, torch.float32)}})
+    p = conditioned({"mtp_block": {"attn": lm_layers.init_mla(gen, mla, torch.float32)[0]}})
     p = p["mtp_block"]["attn"]
     x = torch.randn((1, 512, mla.d_model), generator=gen, device="cuda")
     pos = torch.arange(512, dtype=torch.int32, device="cuda")[None]
@@ -4525,6 +4560,256 @@ def phase_gnn(results):
     assert not fails, "GNN path: " + "; ".join(fails)
 
 
+# --------------------------------------------------------------- mesh path
+def mesh_specs(smi: str):
+    """11a. Every arch's train-state specs on meta (nothing allocated),
+    and the bytes of params + optimizer state one mesh position holds."""
+    for shape, axes in MESH_SPEC_MESHES:
+        mesh = make_debug_mesh(shape, axes)
+        cells = []
+        for name in list_archs():
+            arch = get_arch(name)
+            before = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            specs = sharding.train_state_pspecs(arch, mesh)
+            state = arch.abstract_train_state("meta")
+            per_dev = sharding.per_device_bytes(state, specs, mesh)
+            took = time.perf_counter() - t
+            leaves: list = []
+            sharding.tree_map(leaves.append, state)
+            whole = sum(x.numel() * x.element_size() for x in leaves)
+            assert all(x.device.type == "meta" for x in leaves), name
+            assert torch.cuda.memory_allocated() == before, (name, "allocated on the card")
+            cells.append(f"{name} {per_dev / 1e9:.3f} of {whole / 1e9:.1f} GB ({took:.2f} s)")
+        print(f"  specs on {'x'.join(map(str, shape))} {axes}, params + optimizer state a "
+              f"position holds (of the whole), computed on meta with no card memory "
+              f"allocated: " + "; ".join(cells) + f" [{smi}]")
+
+
+def timed_steps(trainer, into: list):
+    """Wrap ``trainer.step_fn`` to record each step's ms (host clock around
+    synchronize())."""
+    base = trainer.step_fn
+
+    def step(st, b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = base(st, b)
+        torch.cuda.synchronize()
+        into.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    trainer.step_fn = step
+
+
+def same_leaves(got, want) -> tuple[bool, float]:
+    """(every leaf bit-equal, the largest |difference| over max |value|),
+    ``got`` gathered onto ``want``'s device."""
+    a, b = [], []
+    sharding.tree_map(b.append, want)
+    sharding.tree_map(a.append, sharding.unshard(got, b[0].device))
+    assert len(a) == len(b)
+    equal, rel = True, 0.0
+    for x, y in zip(a, b):
+        assert x.shape == y.shape and x.dtype == y.dtype
+        if not torch.equal(x, y):
+            equal = False
+            d = float((x.double() - y.double()).abs().max())
+            rel = max(rel, d / max(float(y.double().abs().max()), 1e-30))
+    return equal, rel
+
+
+def hold_same(what: str, got, want, fails: list):
+    equal, rel = same_leaves(got, want)
+    if not equal:
+        # the same kernels on the same inputs should give the same bits
+        print(f"  {what}: NOT bit-equal, largest difference {rel:.3g} of max |value|")
+        if rel > MESH_TOL:
+            fails.append(f"{what}: {rel:.3g} of max |value| apart")
+    return equal
+
+
+def mesh_launches(steps: int) -> dict:
+    snap = counts.snapshot()
+    assert snap["bag"]["kernel"] == snap["bag_backward"]["kernel"] == steps, snap
+    assert snap["gather_backward"]["kernel"] == MIND_GATHERS * steps, snap
+    assert all(c["plain"] == 0 for c in snap.values()), "a plain version ran"
+    assert all(c["kernel"] == 0 for n, c in snap.items()
+               if n not in ("bag", "bag_backward", "gather_backward")), snap
+    return snap
+
+
+def mesh_train(smi: str, fails: list):
+    """11b. MIND at full width, the Trainer on a 2 x 2 mesh of the one card
+    against the Trainer without it; then the elastic restore."""
+    arch = get_arch("mind")
+    rng = np.random.default_rng(SEED + 11)
+    batches = [train_batch(arch, TRAIN_BATCH, rng, i + 1) for i in range(MESH_STEPS + 1)]
+    mesh = make_debug_mesh(MESH_SHAPE)
+    print(f"  {describe(mesh)}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        def cfg(steps, where, every=10 ** 9):
+            return TrainerConfig(total_steps=steps, ckpt_dir=os.path.join(tmp, where),
+                                 ckpt_interval=every, log_interval=1)
+
+        plain = Trainer(arch, cfg(MESH_STEPS, "plain", MESH_STEPS))
+        plain_ms: list = []
+        timed_steps(plain, plain_ms)
+        want, _ = plain.fit(iter(batches[:MESH_STEPS]), state=plain.init_state(SEED))
+        tr = Trainer(arch, cfg(MESH_STEPS, "mesh"), mesh=mesh)
+        state = tr.init_state(SEED)
+        mesh_ms: list = []
+        timed_steps(tr, mesh_ms)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset_all()
+        got, hist = tr.fit(iter(batches[:MESH_STEPS]), state=state)
+        snap = mesh_launches(MESH_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state
+        equal = hold_same("mesh vs no mesh after 3 steps", got, want, fails)
+        held = sharding.piece_bytes(got)
+        gather_ms, how_g = device_ms(lambda: sharding.unshard(got, tr.device), iters=5)
+        full = sharding.unshard(got, tr.device)
+        split_ms, how_s = device_ms(lambda: sharding.place(full, tr.state_shardings), iters=5)
+        del full
+        emb = got.params["item_emb"]
+        print(f"  mind Trainer.fit on the mesh: {MESH_STEPS} steps of {TRAIN_BATCH}, ms "
+              f"{', '.join(f'{x:.2f}' for x in mesh_ms)} on the mesh and "
+              f"{', '.join(f'{x:.2f}' for x in plain_ms)} without (host clock around "
+              f"synchronize(); the first cold); a step's gather {gather_ms:.3f} ms + split "
+              f"{split_ms:.3f} ms device ({how_g}; {how_s}); item_emb {emb.spec}, pieces "
+              f"{tuple(emb.pieces[0, 0].shape)}; state bytes a position "
+              f"{max(held.values()) / 1e9:.3f} GB; peak {peak:.2f} GB; launches a step bag "
+              f"{snap['bag']['kernel'] // MESH_STEPS}, bag_backward "
+              f"{snap['bag_backward']['kernel'] // MESH_STEPS}, gather_backward "
+              f"{snap['gather_backward']['kernel'] // MESH_STEPS}; states "
+              f"{'bit-equal' if equal else 'NOT bit-equal'}; losses "
+              f"{', '.join(f'{m['loss']:.4f}' for _, m in hist)} [{smi}]")
+        del got
+        plain.ckpt.wait()
+        # the elastic restore: the checkpoint written without the mesh, onto it
+        tr2 = Trainer(arch, cfg(MESH_STEPS + 1, "plain"), mesh=mesh)
+        t = time.perf_counter()
+        restored, meta = tr2.resume_or_init()
+        restore_s = time.perf_counter() - t
+        assert meta["step"] == MESH_STEPS and isinstance(restored.params["item_emb"],
+                                                          sharding.Sharded), meta
+        equal_r, _ = same_leaves(restored, want)
+        if not equal_r:
+            fails.append("the restored state differs from the one saved")
+        counts.reset_all()
+        got2, _ = tr2.fit(iter(batches[MESH_STEPS:]), state=restored, start_step=MESH_STEPS)
+        mesh_launches(1)
+        del restored
+        plain2 = Trainer(arch, cfg(MESH_STEPS + 1, "plain2"))
+        want2, _ = plain2.fit(iter(batches[MESH_STEPS:]), state=want, start_step=MESH_STEPS)
+        equal2 = hold_same("restored onto the mesh, one more step", got2, want2, fails)
+        print(f"  a checkpoint written without the mesh restored onto it in {restore_s:.2f} s "
+              f"({'bit-equal' if equal_r else 'NOT equal'} to the state saved), one more step "
+              f"{'bit-equal' if equal2 else 'NOT bit-equal'} to the step without the mesh "
+              f"[{smi}]")
+        del got2, want2, plain, plain2, tr, tr2
+    return arch, want, batches[0]
+
+
+def payload_diffs(q_card, q_cpu, y, scale) -> int:
+    """Entries off by one at a half-integer within 1e-4; raises on others."""
+    q_card = q_card.cpu().to(torch.int32)
+    off = q_card != q_cpu.to(torch.int32)
+    if bool(off.any()):
+        r = y[off].double() / float(scale)
+        assert bool(((q_card - q_cpu.to(torch.int32))[off].abs() == 1).all()), "payload off by more than 1"
+        assert bool(((r - r.floor() - 0.5).abs() < 1e-4).all()), "payload off away from a half-integer"
+    return int(off.sum())
+
+
+def mesh_collectives(arch, state, batch, smi: str, fails: list):
+    """11c. The compressed all-reduce and the hierarchical sum on the card,
+    on the gradients of MIND's batch split over 4 data shards."""
+    rows = TRAIN_BATCH // MESH_SHARDS
+    grads = []
+    for i in range(MESH_SHARDS):
+        part = {k: v if k == "rng" else v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        grads.append(arch.loss_and_grads(state.params, part)[2])
+    cpu, dev = torch.device("cpu"), state.params["item_emb"].device
+    grads_cpu = [opt_lib.tree_map(lambda t: t.cpu(), g) for g in grads]
+    names = sorted(grads[0])
+    off = 0
+    scale_ulps = 0.0
+    for g, h in zip(grads, grads_cpu):
+        for n in names:
+            zero = torch.zeros_like(g[n])
+            q_c, s_c, _ = compression.quantize_part(g[n], zero)
+            q_h, s_h, _ = compression.quantize_part(h[n], zero.cpu())
+            off += payload_diffs(q_c, q_h, h[n], s_h)
+            ulp = float(np.spacing(np.float32(float(s_h))))
+            scale_ulps = max(scale_ulps, abs(float(s_c) - float(s_h)) / ulp)
+    if scale_ulps > 2:
+        fails.append(f"compressed scales {scale_ulps:.1f} ulp apart")
+    efs = [compression.init_ef(g) for g in grads]
+    tot_c, _ = compression.compressed_grad_allreduce(grads, efs, dev)
+    tot_h, _ = compression.compressed_grad_allreduce(
+        grads_cpu, [compression.init_ef(h) for h in grads_cpu], cpu)
+    tot_err = 0.0
+    for n in names:
+        want = tot_h[n].double()
+        tot_err = max(tot_err, float((tot_c[n].cpu().double() - want).abs().max())
+                      / max(float(want.abs().max()), 1e-30))
+    if tot_err > MESH_TOL:
+        fails.append(f"compressed totals card vs CPU {tot_err:.3g} of max |value| apart")
+    del grads_cpu, tot_h
+    exact = {n: collectives.fold_sum([g[n] for g in grads], dev) for n in names}
+    acc = {n: torch.zeros_like(exact[n]) for n in names}
+    ef_err = []
+    for r in range(MESH_EF_ROUNDS):
+        tot, efs = compression.compressed_grad_allreduce(grads, efs, dev)
+        for n in names:
+            acc[n] += tot[n]
+        if r in (0, MESH_EF_ROUNDS - 1):
+            ef_err.append(max(float((acc[n] / (r + 1) - exact[n]).abs().max())
+                              / max(float(exact[n].abs().max()), 1e-30) for n in names))
+    comp_ms, how_c = device_ms(lambda: compression.compressed_grad_allreduce(
+        grads, efs, dev), iters=3)
+    fold_ms, how_f = device_ms(lambda: [collectives.fold_sum([g[n] for g in grads], dev)
+                                        for n in names], iters=3)
+    grid = [[grads[0], grads[1]], [grads[2], grads[3]]]
+    hier_err = 0.0
+    for n in names:
+        h = collectives.hierarchical_psum([[c[n] for c in pod] for pod in grid], dev)
+        hier_err = max(hier_err, float((h - exact[n]).abs().max())
+                       / max(float(exact[n].abs().max()), 1e-30))
+    if hier_err > MESH_TOL:
+        fails.append(f"hierarchical_psum {hier_err:.3g} of fold_sum's max |value| apart")
+    hier_ms, how_h = device_ms(lambda: [collectives.hierarchical_psum(
+        [[c[n] for c in pod] for pod in grid], dev) for n in names], iters=3)
+    n_el = sum(grads[0][n].numel() for n in names)
+    print(f"  compressed all-reduce over {MESH_SHARDS} data shards of {rows} rows "
+          f"({n_el:,} gradient values a shard): int8 payloads card vs CPU equal but {off} "
+          f"entries at half-integers, scales within {scale_ulps:.1f} ulp, totals within "
+          f"{tot_err:.3g} of max |value|; the int8 sum vs fold_sum {ef_err[0]:.3g} of max "
+          f"|value| after 1 round, {ef_err[1]:.3g} as the mean of {MESH_EF_ROUNDS} rounds of "
+          f"error feedback; hierarchical_psum on 2 x 2 (pod, data) within {hier_err:.3g} of "
+          f"fold_sum; device ms compressed {comp_ms:.3f} ({how_c}), fold_sum {fold_ms:.3f} "
+          f"({how_f}), hierarchical {hier_ms:.3f} ({how_h}) [{smi}]")
+
+
+def phase_mesh():
+    """11. The mesh path: the specs, MIND's Trainer on a mesh, compression
+    and the hierarchical sum on the card."""
+    smi = nvidia_smi()
+    t = time.perf_counter()
+    fails: list[str] = []
+    print("Mesh path:")
+    mesh_specs(smi)
+    arch, state, batch = mesh_train(smi, fails)
+    mesh_collectives(arch, state, batch, smi, fails)
+    del state, batch
+    torch.cuda.empty_cache()
+    print(f"  mesh path {time.perf_counter() - t:.1f} s")
+    assert not fails, "mesh path: " + "; ".join(fails)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4554,6 +4839,8 @@ def main() -> int:
     phase_models()
     torch.cuda.empty_cache()
     phase_gnn(results)
+    torch.cuda.empty_cache()
+    phase_mesh()
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name:9s} kernel {r['ms']:.4f} ms device ({r['host_ms']:.4f} ms a call "

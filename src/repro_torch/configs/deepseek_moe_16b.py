@@ -2,8 +2,9 @@
 d_ff=1408, vocab=102400, 2 shared + 64 routed top-6 fine-grained experts;
 first layer dense (d_ff=10944). [arXiv:2401.06066; hf]
 
-``fsdp`` is inert until training-side distribution (ROADMAP A10): the
-AdamW state of 16.4 B params does not fit one card.
+``fsdp`` maps the embed axis onto ``data`` in the specs
+(``distributed/sharding.py``): the AdamW state of 16.4 B params does not
+fit one card.
 """
 import torch
 

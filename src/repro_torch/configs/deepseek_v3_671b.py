@@ -5,8 +5,8 @@ top-8 experts (d_ff=2048), vocab=129280, MTP; first 3 layers dense
 
 Scale: bf16 params + Adafactor (factored second moment) + FSDP over the
 data axis — AdamW fp32 state alone (8 B/param) would need 5.4 TB. ``fsdp``
-is inert until training-side distribution (ROADMAP A10); one card holds
-the full-width model only cut in depth.
+maps the embed axis onto ``data`` in the specs (``distributed/sharding.py``);
+one card holds the full-width model only cut in depth.
 """
 import torch
 

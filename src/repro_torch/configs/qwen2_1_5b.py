@@ -2,9 +2,12 @@
 vocab=151936; GQA with QKV bias, tied embeddings.
 [arXiv:2407.10671; hf]
 
-``shard_seq`` (12 heads do not divide a 16-wide model axis, so the
-reference shards attention along the sequence) is inert until
-training-side distribution (ROADMAP A10).
+``shard_seq``: 12 heads do not divide a 16-wide model axis, so the specs
+(``distributed/sharding.py``) leave the head dims replicated, and the
+reference shards attention along the sequence by activation constraints
+(``_constrain``), placement hints to XLA's partitioner with no effect in
+one process and no counterpart here; no code of either package reads the
+flag itself.
 """
 import torch
 

@@ -4,16 +4,18 @@ Ingest never blocks on the card: a background prefetch thread keeps a
 bounded queue, and the *stream offset* is part of the checkpoint so a
 restart resumes exactly once. The bounded queue is also the straggler
 policy: when the consumer lags, the oldest queued batch is dropped
-(freshness beats completeness for streams).
-
-``shard_batch`` (placing a host batch on a mesh, sharded along its data
-axes) waits for training-side distribution (ROADMAP A10).
+(freshness beats completeness for streams). ``shard_batch`` places a
+batch on a mesh, split along its data axes.
 """
 from __future__ import annotations
 
 import collections
 import threading
 from typing import Callable, Iterator
+
+import torch
+
+from repro_torch.distributed.sharding import NamedSharding, P, put
 
 
 class PrefetchLoader:
@@ -88,3 +90,16 @@ def skip_to(stream, offset: int, batch: int):
         stream.next_batch(min(batch, offset - seen))
         seen += min(batch, offset - seen)
     return stream
+
+
+def shard_batch(batch: dict, mesh, data_axes: tuple[str, ...] = ("data",)) -> dict:
+    """Place a batch onto the mesh: each entry of rank >= 1 split along dim
+    0 over the product of ``data_axes`` (and replicated over the other
+    axes), a 0-d entry replicated. A leading dim that does not divide
+    raises ``ValueError``."""
+    out = {}
+    for k, v in batch.items():
+        v = v if torch.is_tensor(v) else torch.as_tensor(v)
+        spec = P(tuple(data_axes)) if v.dim() >= 1 else P()
+        out[k] = put(v, NamedSharding(mesh, spec))
+    return out

@@ -8,6 +8,9 @@ collective is an explicit function of the list: an all-gather is a
 upward. The merge order is the reference's, so a sharded answer equals
 the single-device one.
 
+  * ``fold_sum`` / ``all_gather`` / ``hierarchical_psum`` — psum, the
+    all-gather and the reduce-scatter / inter-pod sum / all-gather of the
+    reference's explicit hierarchical all-reduce;
   * ``merge_clusters`` / ``merge_counters`` — the count-weighted centroid
     merge and the label-union counter merge (``heavy_hitter.merge``
     folded from shard 0 upward);
@@ -38,6 +41,26 @@ def fold_sum(parts: list[torch.Tensor], device) -> torch.Tensor:
 def all_gather(parts: list[torch.Tensor], device, dim: int = 0) -> torch.Tensor:
     """The shards' parts concatenated in shard order along ``dim``."""
     return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+def hierarchical_psum(parts, device, pod_axis: str | None = "pod") -> torch.Tensor:
+    """Explicit hierarchical all-reduce over a ``[pod][data]`` grid of
+    parts: reduce-scatter along dim 0 within each pod (data shard j sums
+    the pod's j-th slices), sum over the pods on the scattered slices, then
+    all-gather within the pod. With ``pod_axis=None`` ``parts`` is one flat
+    list over the data shards and this is ``fold_sum``. Every shard ends
+    with the same total; it is returned once, on ``device``."""
+    if pod_axis is None:
+        return fold_sum(parts, device)
+    n_data = len(parts[0])
+    rows = parts[0][0].shape[0]
+    if rows % n_data or any(len(pod) != n_data for pod in parts):
+        raise ValueError(f"dim 0 of size {rows} does not scatter over "
+                         f"{n_data} data shards in every pod")
+    scattered = [[fold_sum([x.chunk(n_data, dim=0)[j] for x in pod], device)
+                  for j in range(n_data)] for pod in parts]
+    return all_gather([fold_sum([pod[j] for pod in scattered], device)
+                       for j in range(n_data)], device)
 
 
 def merge_clusters(states: list[clustering.ClusterState],

@@ -1,12 +1,16 @@
-"""The device grid of the sharded streaming engine.
+"""Device grids: the sharded streaming engine's and the train state's.
 
-A ``Mesh`` is a ``D x M`` grid of ``torch.device``s with axis names
-(``data``, ``model``): ``data`` shards the ingest stream, ``model``
-cluster-shards the serving doc store. One process drives every shard and
-moves tensors between them explicitly (``distributed.collectives``).
-On a card every shard shares that one card, as the reference forces
-``D * M`` host devices onto one CPU; ``describe`` prints the map, so the
-sharing is never hidden.
+A ``Mesh`` is a grid of ``torch.device``s with one to three named axes
+out of (``pod``, ``data``, ``model``), in that order. The streaming engine
+takes ``D x M`` (``data``, ``model``): ``data`` shards the ingest stream,
+``model`` cluster-shards the serving doc store. The trainer places its
+state on any of them by the specs of ``distributed.sharding``. One
+process drives every shard and moves tensors between them explicitly
+(``distributed.collectives``). On a card every shard shares that one
+card, as the reference forces its host devices onto one CPU; ``describe``
+prints the map, so the sharing is never hidden. Production shapes
+(2 x 16 x 16) are specs, not placements: ``sharding`` reads only a mesh's
+axis names and sizes.
 """
 from __future__ import annotations
 
@@ -18,21 +22,25 @@ import torch
 from repro_torch.kernels.common import resolve_device
 
 
+AXES = ("pod", "data", "model")
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
-    devices: np.ndarray                 # [D, M] object array of torch.device
+    devices: np.ndarray                 # object array of torch.device, one dim an axis
     axis_names: tuple[str, ...] = ("data", "model")
 
     @property
     def shape(self) -> tuple[int, ...]:
         return self.devices.shape
 
-    def device(self, data: int, model: int) -> torch.device:
-        return self.devices[data, model]
+    def device(self, *index: int) -> torch.device:
+        """The device at a mesh position (one index per axis)."""
+        return self.devices[index]
 
 
-def _grid(shape: tuple[int, int], devices) -> np.ndarray:
-    n = shape[0] * shape[1]
+def _grid(shape: tuple[int, ...], devices) -> np.ndarray:
+    n = int(np.prod(shape))
     if devices is None or isinstance(devices, (str, torch.device)):
         devices = [devices]
     pool = [torch.device("cuda" if d is None else d) for d in devices]
@@ -61,9 +69,16 @@ def make_streaming_mesh(data: int, model: int, devices=None) -> Mesh:
 
 
 def make_debug_mesh(shape=(2, 2), axes=("data", "model"), devices=None) -> Mesh:
-    """A small mesh for tests (pass ``devices="cpu"`` there)."""
-    assert len(shape) == 2 and tuple(axes) == ("data", "model"), (shape, axes)
-    return Mesh(_grid(tuple(shape), devices), tuple(axes))
+    """A small mesh of one to three named axes, a subsequence of (``pod``,
+    ``data``, ``model``), over ``devices`` as ``make_streaming_mesh``
+    places them (None = the current ``cuda`` card; tests pass ``"cpu"``)."""
+    axes = tuple(axes)
+    it = iter(AXES)
+    if not (len(shape) == len(axes) >= 1 and all(a in it for a in axes)):
+        raise ValueError(f"a mesh takes 1-3 of the axes {AXES} in that order, "
+                         f"got shape {tuple(shape)} over {axes}")
+    assert all(int(s) >= 1 for s in shape), shape
+    return Mesh(_grid(tuple(int(s) for s in shape), devices), axes)
 
 
 def data_axes(mesh: Mesh) -> tuple[str, ...]:
@@ -76,10 +91,9 @@ def axis_sizes(mesh: Mesh) -> dict[str, int]:
 
 
 def describe(mesh: Mesh) -> str:
-    """The device map, one ``(data, model) -> device`` entry per shard."""
-    D, M = mesh.shape
-    cells = [f"({d},{m})->{mesh.devices[d, m]}" for d in range(D)
-             for m in range(M)]
+    """The device map, one ``(index, ...) -> device`` entry per position."""
+    cells = [f"({','.join(map(str, ix))})->{mesh.devices[ix]}"
+             for ix in np.ndindex(*mesh.shape)]
     distinct = len({str(x) for x in mesh.devices.ravel()})
-    return (f"mesh {D}x{M} {mesh.axis_names} on {distinct} device(s): "
-            + " ".join(cells))
+    return (f"mesh {'x'.join(map(str, mesh.shape))} {mesh.axis_names} on "
+            f"{distinct} device(s): " + " ".join(cells))

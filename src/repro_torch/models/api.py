@@ -3,15 +3,16 @@ launchers and the trainer treat them alike.
 
 An Arch owns:
   * init(seed, device) -> params             (nested dicts of tensors)
+  * abstract_params() -> params on ``meta``  (the specs' input; no allocation)
+  * param_axes() -> logical-axis tree        (sharding rules input)
   * shapes: {shape_name: ShapeDef}           (the assigned input-shape set)
   * step(shape_name) -> StepSpec             (the step + its input specs)
   * loss(params, batch) -> (loss, extras)    (the train objective)
   * optimizer, microbatches                  (the train step's settings)
 
 ``StepSpec.fn(state, batch)`` runs where its tensors are: ``state`` is the
-params (serve) or a ``TrainState`` (train). ``param_axes`` and
-``init_with_axes`` (logical axes for sharding rules) wait for
-training-side distribution (ROADMAP A10).
+params (serve) or a ``TrainState`` (train). Batch entries and their logical
+sharding axes come from ``StepSpec.input_specs`` / ``batch_axes``.
 """
 from __future__ import annotations
 
@@ -44,14 +45,14 @@ class TensorSpec(NamedTuple):
 
 class StepSpec(NamedTuple):
     """The reference's StepSpec without its donation field (nothing is
-    donated without jit). ``batch_axes`` (logical axes per batch entry)
-    is kept where an arch states them, as MeshGraphNet does; the others'
-    wait for training-side distribution (ROADMAP A10)."""
+    donated without jit). ``batch_axes`` gives each batch entry's logical
+    axes (``None`` for a decode step's ``cache``, whose specs follow from
+    its shapes)."""
 
     fn: Callable                       # (state, batch) -> out
     input_specs: dict[str, TensorSpec]
     kind: str                          # train | serve
-    batch_axes: dict[str, tuple] | None = None
+    batch_axes: dict[str, tuple | None]
 
 
 class TrainState(NamedTuple):
@@ -67,10 +68,26 @@ class Arch:
     shapes: dict[str, ShapeDef] = {}
     microbatches: int = 1   # gradient-accumulation splits inside train_step
 
+    def init_with_axes(self, seed: int = 0, device=None):
+        """``(params, axes)``: the params on ``device`` (``cuda`` unless
+        given; raises without a card), drawn from a ``torch.Generator``
+        seeded with ``seed`` (on ``meta``: allocated and drawn nowhere),
+        and their logical-axis tree."""
+        raise NotImplementedError
+
     def init(self, seed: int = 0, device=None):
         """Params on ``device`` (``cuda`` unless given; raises without a
         card), drawn from a ``torch.Generator`` seeded with ``seed``."""
-        raise NotImplementedError
+        return self.init_with_axes(seed, device)[0]
+
+    def abstract_params(self):
+        """The params on ``meta``: shapes and dtypes, nothing allocated."""
+        return self.init_with_axes(0, "meta")[0]
+
+    def param_axes(self):
+        """The logical-axis tree of the params (tuples of axis names, one
+        per dim), computed on ``meta``."""
+        return self.init_with_axes(0, "meta")[1]
 
     # -- train state ----------------------------------------------------------
     def init_train_state(self, seed: int = 0, device=None) -> TrainState:
@@ -83,7 +100,9 @@ class Arch:
         """The tree a checkpoint restores onto: a freshly initialised train
         state on ``device`` (``cuda`` unless given), since the restore puts
         each leaf on its abstract leaf's device with its dtype (an abstract
-        tree on ``meta`` would restore nothing real)."""
+        tree on ``meta`` would restore nothing real). On ``meta`` it is the
+        train state's shapes alone, Adafactor's factored ``(row, col)``
+        moments included: the input of ``sharding.opt_pspecs``."""
         return self.init_train_state(0, device)
 
     def loss(self, params, batch):

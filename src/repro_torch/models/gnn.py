@@ -77,11 +77,11 @@ def _init_mlp_stack(gen, d_in, d_hidden, d_out, n_hidden, dtype, norm=True):
     b = L.Builder(gen, dtype)
     dims = [d_in] + [d_hidden] * n_hidden + [d_out]
     for i in range(len(dims) - 1):
-        b.normal(f"w{i}", (dims[i], dims[i + 1]))
-        b.zeros(f"b{i}", (dims[i + 1],))
+        b.normal(f"w{i}", (dims[i], dims[i + 1]), ("gnn_in", "gnn_out"))
+        b.zeros(f"b{i}", (dims[i + 1],), ("gnn_out",))
     if norm:
-        b.ones("ln_scale", (d_out,))
-        b.zeros("ln_bias", (d_out,))
+        b.ones("ln_scale", (d_out,), ("gnn_out",))
+        b.zeros("ln_bias", (d_out,), ("gnn_out",))
     return b.build()
 
 
@@ -119,24 +119,26 @@ class MeshGraphNet(Arch):
         self.n_out = max(s.dim("n_out") for s in self.shapes.values())
 
     # -- params ---------------------------------------------------------------
-    def init(self, seed: int = 0, device=None):
+    def init_with_axes(self, seed: int = 0, device=None):
         """``node_encoder``, ``edge_encoder``, ``processor`` (the layers'
         ``edge_mlp`` and ``node_mlp`` stacked on a leading layer axis) and
-        ``decoder``, drawn in that order from one generator."""
+        ``decoder``, drawn in that order from one generator, and their
+        axes."""
         cfg = self.cfg
-        gen = torch.Generator(device=resolve_device(device))
-        gen.manual_seed(seed)
+        gen = L.generator(seed, resolve_device(device))
         h, n, dt = cfg.d_hidden, cfg.mlp_layers, cfg.param_dtype
         b = L.Builder(gen, dt)
-        b.sub("node_encoder", _init_mlp_stack(gen, self.d_feat, h, h, n, dt))
-        b.sub("edge_encoder", _init_mlp_stack(gen, cfg.d_edge_feat, h, h, n, dt))
+        b.sub("node_encoder", *_init_mlp_stack(gen, self.d_feat, h, h, n, dt))
+        b.sub("edge_encoder", *_init_mlp_stack(gen, cfg.d_edge_feat, h, h, n, dt))
 
         def one_layer(g):
-            return {"edge_mlp": _init_mlp_stack(g, 3 * h, h, h, n, dt),
-                    "node_mlp": _init_mlp_stack(g, 2 * h, h, h, n, dt)}
+            bb = L.Builder(g, dt)
+            bb.sub("edge_mlp", *_init_mlp_stack(g, 3 * h, h, h, n, dt))
+            bb.sub("node_mlp", *_init_mlp_stack(g, 2 * h, h, h, n, dt))
+            return bb.build()
 
-        b.sub("processor", L.stack_layers(gen, cfg.n_layers, one_layer))
-        b.sub("decoder", _init_mlp_stack(gen, h, h, self.n_out, n, dt, norm=False))
+        b.sub("processor", *L.stack_layers(gen, cfg.n_layers, one_layer))
+        b.sub("decoder", *_init_mlp_stack(gen, h, h, self.n_out, n, dt, norm=False))
         return b.build()
 
     # -- forward ----------------------------------------------------------------

@@ -1,13 +1,18 @@
 """Shared model-building blocks of the recsys archs and the transformer
 family: norms, rotary embeddings, GQA attention, the gated MLP, DeepSeek's
 mixture of experts and multi-head latent attention, embeddings and the
-cross-entropy. The reference's sharding hint ``_constrain`` has no meaning
-in one process and no counterpart.
+cross-entropy. The reference's activation constraint ``_constrain`` is a
+placement hint to XLA's partitioner with no effect in one process, and has
+no counterpart.
 
-Parameters are plain nested dicts of tensors. ``Builder`` draws them from
-one explicit ``torch.Generator`` with the reference's shapes and stddev
-rule; the values differ from the reference's (another generator), so the
-tests carry the reference's params across with ``convert``.
+Parameters are plain nested dicts of tensors. Every parameter carries a
+parallel *logical-axis* annotation tree (same structure, tuples of axis
+names) that ``distributed/sharding.py`` maps onto mesh axes; ``Builder``
+builds both trees at once. It draws the params from one explicit
+``torch.Generator`` with the reference's shapes and stddev rule; the
+values differ from the reference's (another generator), so the tests
+carry the reference's params across with ``convert``. Without a generator
+it builds on ``meta``: the abstract params the specs are computed from.
 """
 from __future__ import annotations
 
@@ -21,22 +26,28 @@ from repro_torch.kernels.common import stable_topk
 from repro_torch.models.flash_attention import flash_attention
 
 Params = dict[str, Any]
+Axes = dict[str, Any]
 
 
 class Builder:
-    """Collects params drawn from one generator on one device."""
+    """Collects (param, logical-axes) pairs drawn from one generator on one
+    device. ``gen=None`` builds on ``meta``: shapes, dtypes and axes, with
+    nothing allocated and nothing drawn (the reference's ``eval_shape``)."""
 
-    def __init__(self, gen: torch.Generator, param_dtype=torch.float32):
+    def __init__(self, gen: torch.Generator | None, param_dtype=torch.float32):
         self.gen = gen
-        self.device = gen.device
+        self.device = torch.device("meta") if gen is None else gen.device
         self.dtype = param_dtype
         self.params: Params = {}
+        self.axes: Axes = {}
 
     def _draw(self, shape, std: float) -> torch.Tensor:
+        if self.gen is None:
+            return torch.empty(tuple(shape), dtype=self.dtype, device=self.device)
         return (torch.randn(tuple(shape), generator=self.gen, device=self.device,
                             dtype=torch.float32) * std).to(self.dtype)
 
-    def normal(self, name: str, shape, stddev: float | None = None,
+    def normal(self, name: str, shape, axes, stddev: float | None = None,
                by_expert: bool = False):
         """N(0, stddev) (default 1/sqrt(fan-in), fan-in = shape[-2]) drawn in
         fp32, stored in the param dtype. ``by_expert`` draws a leaf with a
@@ -45,36 +56,51 @@ class Builder:
         leaf is 15 GB in fp32)."""
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         std = stddev if stddev is not None else 1.0 / math.sqrt(fan_in)
-        if by_expert:
+        if by_expert and self.gen is not None:
             out = torch.empty(tuple(shape), dtype=self.dtype, device=self.device)
             for e in range(shape[0]):
                 out[e] = self._draw(shape[1:], std)
             self.params[name] = out
         else:
             self.params[name] = self._draw(shape, std)
+        self.axes[name] = tuple(axes)
         return self
 
-    def zeros(self, name: str, shape, dtype=None):
+    def zeros(self, name: str, shape, axes, dtype=None):
         self.params[name] = torch.zeros(tuple(shape), dtype=dtype or self.dtype,
                                         device=self.device)
+        self.axes[name] = tuple(axes)
         return self
 
-    def ones(self, name: str, shape):
+    def ones(self, name: str, shape, axes):
         self.params[name] = torch.ones(tuple(shape), dtype=self.dtype,
                                        device=self.device)
+        self.axes[name] = tuple(axes)
         return self
 
-    def sub(self, name: str, params: Params):
+    def sub(self, name: str, params: Params, axes: Axes):
         self.params[name] = params
+        self.axes[name] = axes
         return self
 
-    def build(self) -> Params:
-        return self.params
+    def build(self) -> tuple[Params, Axes]:
+        return self.params, self.axes
 
 
-def stack_layers(gen: torch.Generator, n_layers: int, make_one) -> Params:
+def generator(seed: int, device) -> torch.Generator | None:
+    """The init generator on ``device`` seeded with ``seed``; None on
+    ``meta``, where a ``Builder`` draws nothing."""
+    if device.type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def stack_layers(gen: torch.Generator | None, n_layers: int, make_one):
     """n identical layers' params stacked on a leading layer axis, as the
-    reference's scanned blocks. ``make_one(gen) -> params``.
+    reference's scanned blocks, and their axes with ``layers`` prefixed.
+    ``make_one(gen) -> (params, axes)``.
 
     The layers are drawn in order, as a list of them would be, and each is
     copied into a stack allocated after the first, leaf by leaf, so the
@@ -99,10 +125,17 @@ def stack_layers(gen: torch.Generator, n_layers: int, make_one) -> Params:
             else:
                 stacked[k][i] = leaf
 
-    stacked = first_into_stack(make_one(gen))
+    first, axes = make_one(gen)
+    stacked = first_into_stack(first)
     for i in range(1, n_layers):
-        fill(stacked, make_one(gen), i)
-    return stacked
+        fill(stacked, make_one(gen)[0], i)
+    return stacked, prefix_axes(axes, "layers")
+
+
+def prefix_axes(axes: Axes, name: str) -> Axes:
+    """``name`` prepended to every leaf's axes tuple."""
+    return {k: prefix_axes(v, name) if isinstance(v, dict) else (name,) + v
+            for k, v in axes.items()}
 
 
 def layer(stacked: Params, i: int) -> Params:
@@ -203,14 +236,14 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
-def init_embedding(gen: torch.Generator, vocab: int, d_model: int, dtype,
-                   tied: bool = False) -> Params:
+def init_embedding(gen: torch.Generator | None, vocab: int, d_model: int, dtype,
+                   tied: bool = False) -> tuple[Params, Axes]:
     """``embedding`` [vocab, d_model] with stddev 0.02, and ``unembed``
     [d_model, vocab] where the output projection is not tied to it."""
     b = Builder(gen, dtype)
-    b.normal("embedding", (vocab, d_model), stddev=0.02)
+    b.normal("embedding", (vocab, d_model), ("vocab", "embed"), stddev=0.02)
     if not tied:
-        b.normal("unembed", (d_model, vocab), stddev=0.02)
+        b.normal("unembed", (d_model, vocab), ("embed", "vocab"), stddev=0.02)
     return b.build()
 
 
@@ -227,11 +260,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return -torch.sum(torch.where(valid, ll, 0.0)) / n
 
 
-def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype) -> Params:
+def init_mlp(gen: torch.Generator | None, d_model: int, d_ff: int,
+             dtype) -> tuple[Params, Axes]:
     b = Builder(gen, dtype)
-    b.normal("w_gate", (d_model, d_ff))
-    b.normal("w_up", (d_model, d_ff))
-    b.normal("w_down", (d_ff, d_model))
+    b.normal("w_gate", (d_model, d_ff), ("embed", "mlp"))
+    b.normal("w_up", (d_model, d_ff), ("embed", "mlp"))
+    b.normal("w_down", (d_ff, d_model), ("mlp", "embed"))
     return b.build()
 
 
@@ -260,20 +294,21 @@ class MoEConfig:
     tokens_per_group: int = 4096
 
 
-def init_moe(gen: torch.Generator, cfg: MoEConfig, dtype) -> Params:
+def init_moe(gen: torch.Generator | None, cfg: MoEConfig,
+             dtype) -> tuple[Params, Axes]:
     """The router (std 0.02), ``router_bias`` (fp32 zeros whatever the
     param dtype: DeepSeek-V3's aux-loss-free bias), the experts' w_gate /
     w_up [E, d, f] and w_down [E, f, d] (drawn an expert at a time) and,
     with ``num_shared``, one shared MLP of width d_ff * num_shared."""
     b = Builder(gen, dtype)
     e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
-    b.normal("router", (d, e), stddev=0.02)
-    b.zeros("router_bias", (e,), torch.float32)
-    b.normal("w_gate", (e, d, f), by_expert=True)
-    b.normal("w_up", (e, d, f), by_expert=True)
-    b.normal("w_down", (e, f, d), by_expert=True)
+    b.normal("router", (d, e), ("embed", "experts"), stddev=0.02)
+    b.zeros("router_bias", (e,), ("experts",), torch.float32)
+    b.normal("w_gate", (e, d, f), ("experts", "embed", "mlp"), by_expert=True)
+    b.normal("w_up", (e, d, f), ("experts", "embed", "mlp"), by_expert=True)
+    b.normal("w_down", (e, f, d), ("experts", "mlp", "embed"), by_expert=True)
     if cfg.num_shared:
-        b.sub("shared", init_mlp(gen, d, cfg.d_ff * cfg.num_shared, dtype))
+        b.sub("shared", *init_mlp(gen, d, cfg.d_ff * cfg.num_shared, dtype))
     return b.build()
 
 
@@ -419,19 +454,20 @@ class MLAConfig:
     rope_theta: float = 10_000.0
 
 
-def init_mla(gen: torch.Generator, cfg: MLAConfig, dtype) -> Params:
+def init_mla(gen: torch.Generator | None, cfg: MLAConfig,
+             dtype) -> tuple[Params, Axes]:
     b = Builder(gen, dtype)
     d, h = cfg.d_model, cfg.n_heads
     qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
     qd = cfg.qk_nope_dim + cfg.qk_rope_dim
-    b.normal("wq_a", (d, qr))
-    b.ones("q_norm", (qr,))
-    b.normal("wq_b", (qr, h, qd))
-    b.normal("wkv_a", (d, kr + cfg.qk_rope_dim))
-    b.ones("kv_norm", (kr,))
-    b.normal("wk_b", (kr, h, cfg.qk_nope_dim))
-    b.normal("wv_b", (kr, h, cfg.v_head_dim))
-    b.normal("wo", (h, cfg.v_head_dim, d))
+    b.normal("wq_a", (d, qr), ("embed", "q_lora"))
+    b.ones("q_norm", (qr,), ("q_lora",))
+    b.normal("wq_b", (qr, h, qd), ("q_lora", "heads", "head_dim"))
+    b.normal("wkv_a", (d, kr + cfg.qk_rope_dim), ("embed", "kv_lora"))
+    b.ones("kv_norm", (kr,), ("kv_lora",))
+    b.normal("wk_b", (kr, h, cfg.qk_nope_dim), ("kv_lora", "heads", "head_dim"))
+    b.normal("wv_b", (kr, h, cfg.v_head_dim), ("kv_lora", "heads", "head_dim"))
+    b.normal("wo", (h, cfg.v_head_dim, d), ("heads", "head_dim", "embed"))
     return b.build()
 
 

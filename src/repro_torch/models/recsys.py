@@ -46,8 +46,8 @@ N_NEG = 512                  # sampled-softmax negatives
 def _mlp_tower(gen, dims, dtype, prefix="mlp"):
     b = L.Builder(gen, dtype)
     for i in range(len(dims) - 1):
-        b.normal(f"{prefix}_w{i}", (dims[i], dims[i + 1]))
-        b.zeros(f"{prefix}_b{i}", (dims[i + 1],))
+        b.normal(f"{prefix}_w{i}", (dims[i], dims[i + 1]), ("rs_in", "rs_out"))
+        b.zeros(f"{prefix}_b{i}", (dims[i + 1],), ("rs_out",))
     return b.build()
 
 
@@ -100,12 +100,10 @@ class RecSysArch(Arch):
         if optimizer is not None:
             self.optimizer = optimizer
 
-    def init(self, seed: int = 0, device=None):
-        gen = torch.Generator(device=resolve_device(device))
-        gen.manual_seed(seed)
-        return self._init(gen)
+    def init_with_axes(self, seed: int = 0, device=None):
+        return self._init(L.generator(seed, resolve_device(device)))
 
-    # subclasses implement: _init(gen), user_vectors(params, batch) -> [B, I, d],
+    # subclasses implement: _init(gen) -> (params, axes), user_vectors(params, batch) -> [B, I, d],
     # score(params, batch) -> [B] logits, loss(params, batch)
     def user_vectors(self, params, batch):
         raise NotImplementedError
@@ -133,21 +131,28 @@ class RecSysArch(Arch):
             "rng": spec((2,), torch.uint32),
         }
 
+    _HIST_AXES = {
+        "hist": ("batch", None), "hist_mask": ("batch", None),
+        "target": ("batch",), "labels": ("batch",), "rng": (None,),
+    }
+
     def step(self, shape_name: str) -> StepSpec:
         sh = self.shapes[shape_name]
         B = sh.dim("batch")
         if sh.kind == "train":
-            return StepSpec(self.make_train_step(), self._hist_specs(B), "train")
+            return StepSpec(self.make_train_step(), self._hist_specs(B), "train",
+                            dict(self._HIST_AXES))
         if sh.kind == "retrieval":
             def fn(params, batch):
                 return self.retrieve(params, batch)
             specs = self._hist_specs(B)
             specs.pop("labels")
-            return StepSpec(fn, specs, "serve")
+            axes = {k: v for k, v in self._HIST_AXES.items() if k != "labels"}
+            return StepSpec(fn, specs, "serve", axes)
 
         def fn(params, batch):
             return self.score(params, batch)
-        return StepSpec(fn, self._hist_specs(B), "serve")
+        return StepSpec(fn, self._hist_specs(B), "serve", dict(self._HIST_AXES))
 
 
 # -----------------------------------------------------------------------------
@@ -176,10 +181,11 @@ class MIND(RecSysArch):
         cfg = self.cfg
         b = L.Builder(gen, cfg.param_dtype)
         d = cfg.embed_dim
-        b.normal("item_emb", (cfg.n_items, d), stddev=0.02)
-        b.normal("bilinear", (d, d))  # B2I capsule map
+        b.normal("item_emb", (cfg.n_items, d), ("item_vocab", "rs_feat"),
+                 stddev=0.02)
+        b.normal("bilinear", (d, d), ("rs_in", "rs_out"))  # B2I capsule map
         # label-aware attention pow + profile projection (bag feature)
-        b.normal("profile_proj", (d, d))
+        b.normal("profile_proj", (d, d), ("rs_in", "rs_out"))
         return b.build()
 
     def _interests(self, params, hist_emb, mask):
@@ -268,23 +274,24 @@ class BERT4Rec(RecSysArch):
         cfg = self.cfg
         d = cfg.embed_dim
         b = L.Builder(gen, cfg.param_dtype)
-        b.normal("item_emb", (cfg.n_items + 1, d), stddev=0.02)  # +1 = [MASK]
-        b.normal("pos_emb", (cfg.seq_len, d), stddev=0.02)
+        b.normal("item_emb", (cfg.n_items + 1, d), ("item_vocab", "rs_feat"),
+                 stddev=0.02)  # +1 = [MASK]
+        b.normal("pos_emb", (cfg.seq_len, d), (None, "rs_feat"), stddev=0.02)
 
         def blk(g):
             bb = L.Builder(g, cfg.param_dtype)
             hd = d // cfg.n_heads
-            bb.normal("wq", (d, cfg.n_heads, hd))
-            bb.normal("wk", (d, cfg.n_heads, hd))
-            bb.normal("wv", (d, cfg.n_heads, hd))
-            bb.normal("wo", (cfg.n_heads, hd, d))
-            bb.sub("mlp", L.init_mlp(g, d, 4 * d, cfg.param_dtype))
-            bb.ones("ln1", (d,))
-            bb.ones("ln2", (d,))
+            bb.normal("wq", (d, cfg.n_heads, hd), ("embed", "heads", "head_dim"))
+            bb.normal("wk", (d, cfg.n_heads, hd), ("embed", "heads", "head_dim"))
+            bb.normal("wv", (d, cfg.n_heads, hd), ("embed", "heads", "head_dim"))
+            bb.normal("wo", (cfg.n_heads, hd, d), ("heads", "head_dim", "embed"))
+            bb.sub("mlp", *L.init_mlp(g, d, 4 * d, cfg.param_dtype))
+            bb.ones("ln1", (d,), ("embed",))
+            bb.ones("ln2", (d,), ("embed",))
             return bb.build()
 
-        b.sub("blocks", L.stack_layers(gen, cfg.n_blocks, blk))
-        b.ones("final_norm", (d,))
+        b.sub("blocks", *L.stack_layers(gen, cfg.n_blocks, blk))
+        b.ones("final_norm", (d,), ("embed",))
         return b.build()
 
     def encode(self, params, hist, mask):
@@ -353,9 +360,9 @@ class DIENConfig:
 
 def _init_gru(gen, d_in, d_h, dtype, prefix):
     b = L.Builder(gen, dtype)
-    b.normal(f"{prefix}_wx", (d_in, 3 * d_h))
-    b.normal(f"{prefix}_wh", (d_h, 3 * d_h))
-    b.zeros(f"{prefix}_b", (3 * d_h,))
+    b.normal(f"{prefix}_wx", (d_in, 3 * d_h), ("rs_in", "rs_out"))
+    b.normal(f"{prefix}_wh", (d_h, 3 * d_h), ("rs_in", "rs_out"))
+    b.zeros(f"{prefix}_b", (3 * d_h,), ("rs_out",))
     return b.build()
 
 
@@ -381,13 +388,14 @@ class DIEN(RecSysArch):
         cfg = self.cfg
         b = L.Builder(gen, cfg.param_dtype)
         d, g = cfg.embed_dim, cfg.gru_dim
-        b.normal("item_emb", (cfg.n_items, d), stddev=0.02)
-        b.sub("gru1", _init_gru(gen, d, g, cfg.param_dtype, "gru1"))
-        b.sub("augru", _init_gru(gen, g, g, cfg.param_dtype, "augru"))
-        b.normal("att_w", (g, d))  # attention bilinear
+        b.normal("item_emb", (cfg.n_items, d), ("item_vocab", "rs_feat"),
+                 stddev=0.02)
+        b.sub("gru1", *_init_gru(gen, d, g, cfg.param_dtype, "gru1"))
+        b.sub("augru", *_init_gru(gen, g, g, cfg.param_dtype, "augru"))
+        b.normal("att_w", (g, d), ("rs_in", "rs_out"))  # attention bilinear
         mlp_dims = (g + d,) + cfg.mlp_dims + (1,)
-        b.sub("mlp", _mlp_tower(gen, mlp_dims, cfg.param_dtype))
-        b.normal("retrieval_proj", (g, d))
+        b.sub("mlp", *_mlp_tower(gen, mlp_dims, cfg.param_dtype))
+        b.normal("retrieval_proj", (g, d), ("rs_in", "rs_out"))
         return b.build()
 
     def _interest(self, params, batch):
@@ -462,9 +470,10 @@ class FM(RecSysArch):
     def _init(self, gen):
         cfg = self.cfg
         b = L.Builder(gen, cfg.param_dtype)
-        b.zeros("w0", ())
-        b.normal("w", (self.vocab,), stddev=0.01)
-        b.normal("v", (self.vocab, cfg.embed_dim), stddev=0.01)
+        b.zeros("w0", (), ())
+        b.normal("w", (self.vocab,), ("item_vocab",), stddev=0.01)
+        b.normal("v", (self.vocab, cfg.embed_dim), ("item_vocab", "rs_feat"),
+                 stddev=0.01)
         return b.build()
 
     def _field_ids(self, fields):
@@ -510,15 +519,16 @@ class FM(RecSysArch):
     def step(self, shape_name: str) -> StepSpec:
         sh = self.shapes[shape_name]
         B = sh.dim("batch")
+        axes = {"fields": ("batch", None), "labels": ("batch",)}
         if sh.kind == "train":
-            return StepSpec(self.make_train_step(), self._fm_specs(B), "train")
+            return StepSpec(self.make_train_step(), self._fm_specs(B), "train", axes)
         if sh.kind == "retrieval":
             def fn(params, batch):
                 return self.retrieve(params, batch)
             specs = self._fm_specs(B)
             specs.pop("labels")
-            return StepSpec(fn, specs, "serve")
+            return StepSpec(fn, specs, "serve", {"fields": ("batch", None)})
 
         def fn(params, batch):
             return self.score(params, batch)
-        return StepSpec(fn, self._fm_specs(B), "serve")
+        return StepSpec(fn, self._fm_specs(B), "serve", axes)

@@ -63,8 +63,10 @@ class LMConfig:
     use_flash: bool = False            # streaming-softmax attention
     flash_block_k: int = 512
     train_microbatches: int = 1        # grad-accum splits inside train_step
-    # sharding hints of the reference; inert until training-side
-    # distribution (ROADMAP A10)
+    # sharding: ``fsdp`` maps the embed axis onto ``data`` in the specs
+    # (distributed/sharding.py); ``shard_seq`` is the reference's flag for
+    # sequence-sharded attention, which it applies by activation
+    # constraints, placement hints with no effect in one process
     fsdp: bool = False
     shard_seq: bool = False
 
@@ -79,14 +81,14 @@ class LMConfig:
 def _init_attn(gen, cfg: LMConfig):
     b = L.Builder(gen, cfg.param_dtype)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    b.normal("wq", (d, h, hd))
-    b.normal("wk", (d, kv, hd))
-    b.normal("wv", (d, kv, hd))
-    b.normal("wo", (h, hd, d))
+    b.normal("wq", (d, h, hd), ("embed", "heads", "head_dim"))
+    b.normal("wk", (d, kv, hd), ("embed", "kv_heads", "head_dim"))
+    b.normal("wv", (d, kv, hd), ("embed", "kv_heads", "head_dim"))
+    b.normal("wo", (h, hd, d), ("heads", "head_dim", "embed"))
     if cfg.qkv_bias:
-        b.zeros("bq", (h, hd))
-        b.zeros("bk", (kv, hd))
-        b.zeros("bv", (kv, hd))
+        b.zeros("bq", (h, hd), ("heads", "head_dim"))
+        b.zeros("bk", (kv, hd), ("kv_heads", "head_dim"))
+        b.zeros("bv", (kv, hd), ("kv_heads", "head_dim"))
     return b.build()
 
 
@@ -94,15 +96,16 @@ def _init_block(gen, cfg: LMConfig, kind: str):
     """kind: 'dense' | 'moe'."""
     b = L.Builder(gen, cfg.param_dtype)
     if cfg.mla is not None:
-        b.sub("attn", L.init_mla(gen, cfg.mla, cfg.param_dtype))
+        b.sub("attn", *L.init_mla(gen, cfg.mla, cfg.param_dtype))
     else:
-        b.sub("attn", _init_attn(gen, cfg))
-    b.ones("ln1", (cfg.d_model,))
-    b.ones("ln2", (cfg.d_model,))
+        b.sub("attn", *_init_attn(gen, cfg))
+    b.ones("ln1", (cfg.d_model,), ("embed",))
+    b.ones("ln2", (cfg.d_model,), ("embed",))
     if kind == "moe":
-        b.sub("moe", L.init_moe(gen, cfg.moe, cfg.param_dtype))
+        b.sub("moe", *L.init_moe(gen, cfg.moe, cfg.param_dtype))
     else:
-        b.sub("mlp", L.init_mlp(gen, cfg.d_model, cfg.dense_ff or cfg.d_ff, cfg.param_dtype))
+        b.sub("mlp", *L.init_mlp(gen, cfg.d_model, cfg.dense_ff or cfg.d_ff,
+                                 cfg.param_dtype))
     return b.build()
 
 
@@ -242,26 +245,27 @@ class TransformerLM(Arch):
                      "noted in DESIGN.md §Arch-applicability")
 
     # -- init -----------------------------------------------------------------
-    def init(self, seed: int = 0, device=None):
+    def init_with_axes(self, seed: int = 0, device=None):
         """The embeddings, ``dense_layers`` (the first ``first_k_dense``
         layers of a MoE config, every layer of a dense one), ``moe_layers``
         (the rest), ``final_norm`` and, with ``mtp``, ``mtp_block`` and
-        ``mtp_proj`` [2d, d]; drawn in that order from one generator."""
+        ``mtp_proj`` [2d, d]; drawn in that order from one generator, and
+        their axes."""
         cfg = self.cfg
-        gen = torch.Generator(device=resolve_device(device))
-        gen.manual_seed(seed)
+        gen = L.generator(seed, resolve_device(device))
         b = L.Builder(gen, cfg.param_dtype)
-        b.sub("embed", L.init_embedding(gen, cfg.vocab, cfg.d_model, cfg.param_dtype,
-                                        tied=cfg.tied_embeddings))
+        b.sub("embed", *L.init_embedding(gen, cfg.vocab, cfg.d_model, cfg.param_dtype,
+                                         tied=cfg.tied_embeddings))
         n_moe = cfg.n_layers - cfg.first_k_dense if cfg.moe else 0
         for name, kind, n in (("dense_layers", "dense", cfg.n_layers - n_moe),
                               ("moe_layers", "moe", n_moe)):
             if n:
-                b.sub(name, L.stack_layers(gen, n, lambda g, k=kind: _init_block(g, cfg, k)))
-        b.ones("final_norm", (cfg.d_model,))
+                b.sub(name, *L.stack_layers(gen, n,
+                                            lambda g, k=kind: _init_block(g, cfg, k)))
+        b.ones("final_norm", (cfg.d_model,), ("embed",))
         if cfg.mtp:
-            b.sub("mtp_block", _init_block(gen, cfg, "moe" if cfg.moe else "dense"))
-            b.normal("mtp_proj", (2 * cfg.d_model, cfg.d_model))
+            b.sub("mtp_block", *_init_block(gen, cfg, "moe" if cfg.moe else "dense"))
+            b.normal("mtp_proj", (2 * cfg.d_model, cfg.d_model), ("embed", "embed"))
         return b.build()
 
     # -- forward --------------------------------------------------------------
@@ -474,16 +478,19 @@ class TransformerLM(Arch):
                 # reference's: make_train_step splits entries whose leading dim is M
                 assert B % M == 0, (B, M)
                 return StepSpec(self.make_train_step(),
-                                {"tokens": spec((M, B // M, S), torch.int32)}, "train")
+                                {"tokens": spec((M, B // M, S), torch.int32)}, "train",
+                                {"tokens": (None, "batch", "seq")})
             return StepSpec(self.make_train_step(), {"tokens": spec((B, S), torch.int32)},
-                            "train")
+                            "train", {"tokens": ("batch", "seq")})
         if sh.kind == "prefill":
             return StepSpec(lambda params, batch: self.prefill(params, batch["tokens"]),
-                            {"tokens": spec((B, S), torch.int32)}, "serve")
+                            {"tokens": spec((B, S), torch.int32)}, "serve",
+                            {"tokens": ("batch", "seq")})
         # decode: one new token against a seq_len-deep cache
         return StepSpec(
             lambda params, batch: self.decode_step(params, batch["cache"], batch["token"]),
-            {"token": spec((B,), torch.int32), "cache": self.cache_specs(B, S)}, "serve")
+            {"token": spec((B,), torch.int32), "cache": self.cache_specs(B, S)}, "serve",
+            {"token": ("batch",), "cache": None})
 
 
 # ---------------------------------------------------------------------------
@@ -519,16 +526,15 @@ class EncoderEmbedder(Arch):
                         vocab=c.vocab, tied_embeddings=True, remat=False,
                         param_dtype=c.param_dtype)
 
-    def init(self, seed: int = 0, device=None):
+    def init_with_axes(self, seed: int = 0, device=None):
         cfg = self._lm()
-        gen = torch.Generator(device=resolve_device(device))
-        gen.manual_seed(seed)
+        gen = L.generator(seed, resolve_device(device))
         b = L.Builder(gen, cfg.param_dtype)
-        b.sub("embed", L.init_embedding(gen, cfg.vocab, cfg.d_model, cfg.param_dtype,
-                                        tied=True))
-        b.sub("layers", L.stack_layers(gen, cfg.n_layers,
-                                       lambda g: _init_block(g, cfg, "dense")))
-        b.ones("final_norm", (cfg.d_model,))
+        b.sub("embed", *L.init_embedding(gen, cfg.vocab, cfg.d_model, cfg.param_dtype,
+                                         tied=True))
+        b.sub("layers", *L.stack_layers(gen, cfg.n_layers,
+                                        lambda g: _init_block(g, cfg, "dense")))
+        b.ones("final_norm", (cfg.d_model,), ("embed",))
         return b.build()
 
     def embed(self, params, tokens, mask):
@@ -570,11 +576,13 @@ class EncoderEmbedder(Arch):
         sh = self.shapes[shape_name]
         B, S = sh.dim("batch"), sh.dim("seq")
         if sh.kind == "train":
+            names = ("anchor", "anchor_mask", "positive", "positive_mask")
             return StepSpec(self.make_train_step(), {
                 "anchor": spec((B, S), torch.int32),
                 "anchor_mask": spec((B, S), torch.bool),
                 "positive": spec((B, S), torch.int32),
-                "positive_mask": spec((B, S), torch.bool)}, "train")
+                "positive_mask": spec((B, S), torch.bool)}, "train",
+                {k: ("batch", "seq") for k in names})
         return StepSpec(lambda params, batch: self.embed(params, batch["tokens"], batch["mask"]),
                         {"tokens": spec((B, S), torch.int32), "mask": spec((B, S), torch.bool)},
-                        "serve")
+                        "serve", {"tokens": ("batch", "seq"), "mask": ("batch", "seq")})

@@ -210,8 +210,12 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, abstract_tree, step: int | None = None) -> tuple[Any, dict]:
-        """Restore onto the abstract tree's devices."""
+    def restore(self, abstract_tree, step: int | None = None,
+                shardings=None) -> tuple[Any, dict]:
+        """Restore onto the abstract tree's devices, then, given a tree of
+        ``sharding.NamedSharding``s, place it on their mesh (the elastic
+        restore: a checkpoint holds global arrays, so it restores onto any
+        mesh, or none)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -221,4 +225,8 @@ class CheckpointManager:
             meta = json.load(f)
         z = np.load(os.path.join(d, "arrays.npz"))
         arrays = {k.replace("╱", "/"): z[k] for k in z.files}
-        return unflatten_arrays(abstract_tree, arrays), meta
+        tree = unflatten_arrays(abstract_tree, arrays)
+        if shardings is not None:
+            from repro_torch.distributed.sharding import place
+            tree = place(tree, shardings)
+        return tree, meta

@@ -13,9 +13,17 @@
     ``grad_accum`` > 1 runs the step once per slice of the batch's leading
     axis, each slice an optimizer update (the reference's scan), and logs
     the mean of their metrics
-
-The mesh (sharded train state) waits for training-side distribution
-(ROADMAP A8b / A10).
+  * a mesh: the train state lives on it, each leaf placed by its spec
+    (``sharding.train_state_pspecs``); ``resume_or_init`` and the rollback
+    restore onto it, and a checkpoint holds global arrays (the elastic
+    restore, onto any mesh or none). A step gathers the state onto the
+    trainer's device, runs the step without a mesh and places the new
+    state back: the reference's jit with in/out shardings keeps the
+    program's math and only places its state, and so does this. (A loss
+    per data shard with its gradients summed would be another function
+    wherever the loss does not decompose over examples: the embedder's
+    in-batch negatives, the MoE's balance loss and per-group capacity,
+    MIND's negatives drawn once a batch.)
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ from typing import Callable, Iterator
 
 import torch
 
+from repro_torch.distributed.sharding import (place, shardings_from_pspecs,
+                                              train_state_pspecs, unshard)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.api import Arch, TrainState
 from repro_torch.train.checkpoint import CheckpointManager
@@ -47,13 +57,21 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, arch: Arch, cfg: TrainerConfig, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded train state waits for training-side distribution "
-                "(ROADMAP A8b / A10): the port trains on one device")
+        """``device`` (``cuda`` unless given) runs the step; ``mesh`` (see
+        ``launch.mesh``), whose devices must be of the same type, holds
+        the state."""
         self.arch = arch
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.state_shardings = None
+        if mesh is not None:
+            kinds = {d.type for d in mesh.devices.ravel()}
+            if kinds != {self.device.type}:
+                raise ValueError(f"a mesh on {sorted(kinds)} for a trainer on "
+                                 f"{self.device}: the state and the step share a device type")
+            self.state_shardings = shardings_from_pspecs(
+                train_state_pspecs(arch, mesh), mesh)
         if cfg.ckpt_dir is None:
             cfg = dataclasses.replace(cfg, ckpt_dir=tempfile.mkdtemp(prefix="repro_ckpt_"))
             self.cfg = cfg
@@ -73,14 +91,25 @@ class Trainer:
                                for k in ms[0]}
 
             step_fn = accum_fn
+        if mesh is not None:
+            local = step_fn
+
+            def mesh_fn(state, batch):
+                new, metrics = local(unshard(state, self.device),
+                                     unshard(batch, self.device))
+                return place(new, self.state_shardings), metrics
+
+            step_fn = mesh_fn
         self.step_fn = step_fn
 
     # ------------------------------------------------------------------ state
     def init_state(self, seed: int = 0) -> TrainState:
-        return self.arch.init_train_state(seed, self.device)
+        state = self.arch.init_train_state(seed, self.device)
+        return state if self.mesh is None else place(state, self.state_shardings)
 
     def _restore(self) -> tuple[TrainState, dict]:
-        return self.ckpt.restore(self.arch.abstract_train_state(self.device))
+        return self.ckpt.restore(self.arch.abstract_train_state(self.device),
+                                 shardings=self.state_shardings)
 
     def resume_or_init(self, seed: int = 0) -> tuple[TrainState, dict]:
         latest = self.ckpt.latest_step()
@@ -133,7 +162,8 @@ class Trainer:
                 else:
                     log.info("step %d %s", step, m)
             if step % cfg.ckpt_interval == 0:
-                self.ckpt.save_async(step, state, metadata={
+                # global arrays, gathered to the host
+                self.ckpt.save_async(step, unshard(state, torch.device("cpu")), metadata={
                     "step": step,
                     "data_offset": int(getattr(data, "offset", 0) or 0),
                 })

@@ -38,7 +38,9 @@ def test_port_and_chip_smoke_import_no_jax():
                      "repro_torch.models.transformer", "repro_torch.configs.streaming_rag",
                      "repro_torch.configs.lm_common", "repro_torch.configs.qwen2_1_5b",
                      "repro_torch.configs.h2o_danube_1_8b",
-                     "repro_torch.configs.h2o_danube_3_4b", "repro_torch.convert"):
+                     "repro_torch.configs.h2o_danube_3_4b", "repro_torch.convert",
+                     "repro_torch.distributed.sharding",
+                     "repro_torch.distributed.compression"):
             assert name in names, name
         print(len(names))
     """)
@@ -55,7 +57,7 @@ def test_entry_points_run_on_the_card_by_default():
     from repro_torch.core import baselines, pipeline
     from repro_torch.engine.engine import Engine
     from repro_torch.engine.sharded import ShardedEngine
-    from repro_torch.launch.mesh import make_streaming_mesh
+    from repro_torch.launch.mesh import make_debug_mesh, make_streaming_mesh
     from repro_torch.launch.serve import main as launch_serve
     from repro_torch.models.api import get_arch
     from repro_torch.serve.server import RAGServer, ServerConfig
@@ -70,13 +72,16 @@ def test_entry_points_run_on_the_card_by_default():
               lambda: get_arch("h2o-danube-1.8b").init()["final_norm"],
               lambda: get_arch("h2o-danube-3-4b").init()["final_norm"],
               lambda: ShardedEngine(cfg, make_streaming_mesh(2, 2)).shards[1].route_labels,
+              lambda: make_debug_mesh((2, 2)).device(1, 1),
+              lambda: make_debug_mesh((2, 2, 2), ("pod", "data", "model")).device(1, 0, 1),
               lambda: baselines.make_static_rag(16, capacity=8).init(0).index.vectors,
               lambda: baselines.make_sakr(16, k=8, capacity=8).init(0).route_labels,
               lambda: baselines.make_ivfpq(16, capacity=8, nlist=2, m=2).init(
                   0, np.ones((4, 16), np.float32)).vecs)
     for make in makers:
         if torch.cuda.is_available():
-            assert make().device.type == "cuda"
+            out = make()
+            assert (out if isinstance(out, torch.device) else out.device).type == "cuda"
         else:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make()
@@ -123,9 +128,11 @@ def test_unported_server_options_raise(tmp_path):
 
 
 def test_training_entry_points_run_on_the_card_by_default(tmp_path):
-    """``init_train_state``, ``abstract_train_state``, the ``Trainer`` and
-    the train launcher take ``cuda`` unless told otherwise; without a card
-    they raise rather than fall back to the CPU."""
+    """``init_train_state``, ``abstract_train_state``, the ``Trainer`` (with
+    and without a mesh) and the train launcher take ``cuda`` unless told
+    otherwise; without a card they raise rather than fall back to the
+    CPU."""
+    from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.train import main as launch_train
     from repro_torch.models.api import get_arch
     from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -134,10 +141,13 @@ def test_training_entry_points_run_on_the_card_by_default(tmp_path):
     cfg = TrainerConfig(ckpt_dir=str(tmp_path))
     makers = (lambda: arch.init_train_state().params["v"],
               lambda: arch.abstract_train_state().opt.mu["v"],
-              lambda: Trainer(arch, cfg).init_state().params["v"])
+              lambda: Trainer(arch, cfg).init_state().params["v"],
+              lambda: Trainer(arch, cfg, mesh=make_debug_mesh((2, 2))).init_state()
+              .params["v"].pieces[1, 1])
     for make in makers:
         if torch.cuda.is_available():
-            assert make().device.type == "cuda"
+            out = make()
+            assert (out if isinstance(out, torch.device) else out.device).type == "cuda"
         else:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make()

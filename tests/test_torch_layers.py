@@ -83,8 +83,9 @@ def test_gqa_attention_matches_reference(causal, window, with_valid, KV):
 def test_init_embedding_shapes_and_scale(tied):
     gen = torch.Generator()
     gen.manual_seed(0)
-    p = L.init_embedding(gen, 300, 40, torch.float32, tied=tied)
-    jp, _ = JL.init_embedding(jax.random.key(0), 300, 40, jnp.float32, tied=tied)
+    p, axes = L.init_embedding(gen, 300, 40, torch.float32, tied=tied)
+    jp, jaxes = JL.init_embedding(jax.random.key(0), 300, 40, jnp.float32, tied=tied)
+    assert axes == jaxes
     assert {k: tuple(v.shape) for k, v in p.items()} == \
         {k: tuple(v.shape) for k, v in jp.items()}
     assert abs(float(p["embedding"].std()) - 0.02) < 0.002

@@ -178,7 +178,7 @@ def test_moe_capacity_drops_are_bounded_and_outputs_finite():
     cfg = L.MoEConfig(num_experts=4, num_shared=0, top_k=2, d_model=16,
                       d_ff=8, capacity_factor=1.0, tokens_per_group=32)
     gen = torch.Generator().manual_seed(0)
-    p = L.init_moe(gen, cfg, torch.float32)
+    p, _ = L.init_moe(gen, cfg, torch.float32)
     x = torch.randn((64, 16), generator=gen)
     y, aux = L.moe_ffn(p, x, cfg)
     assert y.shape == x.shape
@@ -191,7 +191,7 @@ def test_moe_capacity_drops_are_bounded_and_outputs_finite():
 def test_moe_router_bias_update_direction():
     cfg = L.MoEConfig(num_experts=4, num_shared=0, top_k=1, d_model=8,
                       d_ff=8, router="sigmoid_norm")
-    p = L.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32)
+    p, _ = L.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32)
     load = torch.tensor([1.0, 0.0, 0.0, 0.0])  # expert 0 overloaded
     b = L.router_bias_update(p, load, lr=0.1)["router_bias"]
     assert b.dtype == torch.float32
@@ -204,7 +204,7 @@ def test_property_moe_is_token_permutation_equivariant(k, T):
     """Permuting tokens permutes outputs (dispatch must not mix tokens)."""
     cfg = L.MoEConfig(num_experts=4, num_shared=0, top_k=k, d_model=8,
                       d_ff=8, capacity_factor=8.0, tokens_per_group=T)
-    p = L.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32)
+    p, _ = L.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32)
     x = torch.randn((T, 8), generator=torch.Generator().manual_seed(T))
     perm = torch.from_numpy(np.random.default_rng(k).permutation(T))
     y1, _ = L.moe_ffn(p, x, cfg)
@@ -430,9 +430,12 @@ def test_stack_layers_fills_a_preallocated_stack_with_the_same_draws(n_layers):
     cfg = lm_pair("mla_moe_mtp")[1].cfg
     for kind in ("dense", "moe"):
         def make(g, k=kind):
-            return _init_block(g, cfg, k)
-        new = L.stack_layers(torch.Generator().manual_seed(3), n_layers, make)
+            return _init_block(g, cfg, k)[0]
+        new, axes = L.stack_layers(torch.Generator().manual_seed(3), n_layers,
+                                   lambda g: _init_block(g, cfg, kind))
         old = _old_stack_layers(torch.Generator().manual_seed(3), n_layers, make)
+        assert jax.tree.structure(new) == jax.tree.structure(
+            axes, is_leaf=lambda x: isinstance(x, tuple))
         assert jax.tree.structure(new) == jax.tree.structure(old)
         for a, b in zip(jax.tree.leaves(new), jax.tree.leaves(old)):
             assert a.dtype == b.dtype and torch.equal(a, b)
@@ -442,8 +445,8 @@ def test_experts_drawn_one_at_a_time_and_dense_draws_unchanged():
     """An experts leaf is its experts' draws in turn, in the param dtype;
     a dense leaf is one draw, as before."""
     b = L.Builder(torch.Generator().manual_seed(5), torch.bfloat16)
-    b.normal("w", (3, 16, 8), by_expert=True)
-    b.normal("d", (16, 8))
+    b.normal("w", (3, 16, 8), ("experts", "embed", "mlp"), by_expert=True)
+    b.normal("d", (16, 8), ("embed", "mlp"))
     g = torch.Generator().manual_seed(5)
     want = torch.stack([(torch.randn((16, 8), generator=g) / 4.0).to(torch.bfloat16)
                         for _ in range(3)])
