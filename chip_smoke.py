@@ -381,7 +381,27 @@
    gather and split ms, the state bytes a position holds, peak memory,
    launches a step, device ms of the collectives, each beside the card's
    name and power limit.
-12. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
+12. Analysis path: (a) ``python -m repro_torch.launch.dryrun`` in its own
+   process for mind train_batch and retrieval_cand, meshgraphnet
+   minibatch_lg, qwen2-1.5b and deepseek-v3-671b decode_32k on 16 x 16:
+   status ok, under 120 s, CUDA never initialised; flops, bytes, peak, the
+   three roofline terms (modeled against the H100 SXM's published peaks
+   at 700 W, printed beside the card's name and power limit) and the
+   dominant one. (b) Each kernel entry, through its dispatcher at the
+   main path's shapes, under ``obs.kern.profile_kernel`` on the card: its
+   modeled flops and bytes equal the ``kernels/cost.py`` formula from
+   which its phase computes the bound (so the bound column reads the same
+   digits), its launch count moves by one per call and no plain version
+   runs; wall us beside the bound and the share. These calls are made in
+   the phase that holds each entry's inputs (2, 3b, 5, 8, 10), so that no
+   phase keeps another's tensors alive, and read here. (c) The four port
+   examples (``examples/torch/``) in-process through ``runpy`` on
+   ``cuda``, counts reset just before each: quickstart launches admit,
+   heavy_hitter, mips and serve; recsys_retrieval bag and mips;
+   streaming_news_serve admit, heavy_hitter and serve; train_embedder
+   (60 steps) none of the port's kernels; no plain version; each one's
+   lines and seconds printed.
+13. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository beside it.
@@ -391,8 +411,10 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
+import runpy
 import subprocess
 import sys
 import tempfile
@@ -406,6 +428,7 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
+from repro_torch.analysis.roofline import HBM_BW  # noqa: E402
 from repro_torch.configs.streaming_rag import paper_pipeline_config  # noqa: E402
 from repro_torch.core import baselines, heavy_hitter, pipeline, theory  # noqa: E402
 from repro_torch.core import index as index_lib  # noqa: E402
@@ -415,9 +438,11 @@ from repro_torch.distributed import collectives, compression, sharding  # noqa: 
 from repro_torch.engine import stages  # noqa: E402
 from repro_torch.engine.engine import (Engine, ingest_impl,  # noqa: E402
                                        staged_ingest_impl)
-from repro_torch.kernels import build, counts  # noqa: E402
+from repro_torch.kernels import build, cost, counts  # noqa: E402
+from repro_torch.kernels.admit import ops as admit_ops  # noqa: E402
 from repro_torch.kernels.admit.admit import admit_cuda, admit_launcher  # noqa: E402
 from repro_torch.kernels.admit.ref import admit_ref  # noqa: E402
+from repro_torch.kernels.assign import ops as assign_ops  # noqa: E402
 from repro_torch.kernels.assign.assign import assign_cuda  # noqa: E402
 from repro_torch.kernels.assign.ref import assign_ref  # noqa: E402
 from repro_torch.kernels.bag import ops as bag_ops  # noqa: E402
@@ -430,14 +455,19 @@ from repro_torch.kernels.bag.ref import (embedding_bag_backward_ref,  # noqa: E4
 from repro_torch.kernels.common import (NEG_INF, l2_normalize,  # noqa: E402
                                         l2_normalize_queries, require_full_fp32,
                                         stable_topk)
+from repro_torch.kernels.heavy_hitter import ops as hh_ops  # noqa: E402
 from repro_torch.kernels.heavy_hitter.heavy_hitter import update_batch_cuda  # noqa: E402
 from repro_torch.kernels.heavy_hitter.ref import update_batch_ref  # noqa: E402
+from repro_torch.kernels.mips import ops as mips_ops  # noqa: E402
 from repro_torch.kernels.mips.mips import mips_launcher, mips_topk_cuda  # noqa: E402
 from repro_torch.kernels.mips.ref import mips_topk_ref  # noqa: E402
+from repro_torch.kernels.prefilter import ops as prefilter_ops  # noqa: E402
 from repro_torch.kernels.prefilter.prefilter import prefilter_scores_cuda  # noqa: E402
 from repro_torch.kernels.prefilter.ref import prefilter_scores_ref  # noqa: E402
+from repro_torch.kernels.rerank import ops as rerank_ops  # noqa: E402
 from repro_torch.kernels.rerank.ref import rerank_topk_ref  # noqa: E402
 from repro_torch.kernels.rerank.rerank import rerank_topk_cuda  # noqa: E402
+from repro_torch.kernels.serve import ops as serve_ops  # noqa: E402
 from repro_torch.kernels.serve.ref import serve_routes_ref, serve_topk_ref  # noqa: E402
 from repro_torch.kernels.serve.serve import (serve_launcher, serve_routes_cuda,  # noqa: E402
                                              serve_topk_cuda)
@@ -459,8 +489,6 @@ from repro_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.train import optimizer as opt_lib  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
-PEAK_FP32 = 67e12      # H100 SXM fp32 FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12   # H100 SXM HBM3 bytes/s
 RTOL, ATOL, TIE = 1e-5, 1e-6, 1e-5
 SPIN_CYCLES = 300_000_000   # about 0.2 s of one spinning kernel at H100 clocks
 SEED = 0
@@ -592,6 +620,17 @@ GNN_LAUNCH_FLAGS = ("--arch", "meshgraphnet", "--full", "--shape", "molecule",
 # 2 x 2 (pod, data) grid (within 1e-5 of fold_sum's max |value|)
 MESH_SPEC_MESHES = (((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model")))
 MESH_SHAPE, MESH_STEPS, MESH_SHARDS, MESH_EF_ROUNDS, MESH_TOL = (2, 2), 3, 4, 8, 1e-5
+# the analysis path (12): dry runs of five cells on 16 x 16, each in its own
+# process within 120 s; the four port examples in-process on the card, with
+# the kernels each must launch
+DRYRUN_CELLS = (("mind", "train_batch"), ("mind", "retrieval_cand"),
+                ("meshgraphnet", "minibatch_lg"), ("qwen2-1.5b", "decode_32k"),
+                ("deepseek-v3-671b", "decode_32k"))
+DRYRUN_LIMIT_S = 120
+EXAMPLES = (("quickstart", (), ("admit", "heavy_hitter", "mips", "serve")),
+            ("recsys_retrieval", (), ("bag", "mips")),
+            ("streaming_news_serve", (), ("admit", "heavy_hitter", "serve")),
+            ("train_embedder", ("--steps", "60"), ()))
 # BERT4Rec's serve_bulk attention scores: 262144 x 2 heads x 200 x 200 fp32
 BERT4REC_BULK_SKIP = ("bert4rec serve_bulk skipped on one card: its attention "
                       "scores [262144, 2, 200, 200] fp32 alone are 84 GB (the "
@@ -660,9 +699,41 @@ def launch_floor_ms() -> float:
     return cuda_ms(lambda: build.check(lib, lib.empty_launch(stream), "empty_launch"))[0]
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+# 12b: one row per kernel entry, profiled where its phase holds the
+# main path's inputs (so that no phase keeps another's tensors alive)
+PROFILES: list[dict] = []
+
+
+def profile_entry(label: str, name: str, fn, want: cost.Work):
+    """12b. ``kern.profile_kernel`` of one kernel entry called through its
+    dispatcher on the card: its modeled work must equal ``want`` (the
+    ``kernels/cost.py`` formula on these inputs, from which the phase's
+    bound is computed), ``name``'s launch count must move by one per call
+    of ``fn`` and no plain version may run."""
+    calls = [0]
+
+    def counted():
+        calls[0] += 1
+        return fn()
+
+    before = counts.snapshot()
+    prof = kern.profile_kernel(label, counted, reps=20, rounds=3)
+    after = counts.snapshot()
+    fails = []
+    got = cost.Work(prof["modeled_flops"], prof["modeled_hbm_bytes"])
+    if got != want:
+        fails.append(f"modeled {got} != the formula's {want}")
+    launched = after[name]["kernel"] - before[name]["kernel"]
+    if launched != calls[0]:
+        fails.append(f"{launched} launches in {calls[0]} calls")
+    plain = {k: v["plain"] - before[k]["plain"] for k, v in after.items()
+             if v["plain"] != before[k]["plain"]}
+    if plain:
+        fails.append(f"plain versions ran: {plain}")
+    b_ms, b_by = cost.bound(got)
+    PROFILES.append(dict(label=label, name=name, wall_us=prof["wall_us"], bound_ms=b_ms,
+                         bound_by=b_by, calls=calls[0], launches=launched,
+                         kernels=prof.get("launches"), fails=fails))
 
 
 def close(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -759,12 +830,6 @@ def admit_split(x, basis, cent, alpha, live, iters: int = 20) -> str:
             f"decode included), both {both:.4f} ms device")
 
 
-def admit_bound(B, d, K, n, int8):
-    flops = 2.0 * B * d * (K + n) + 2.0 * K * d + 4.0 * B * d
-    nbytes = 4 * (B * d + n * d + K * d) + B + B * 13 + B * d * (1 if int8 else 4) + 4 * B
-    return bound(flops, nbytes)
-
-
 # -------------------------------------------------------------------- mips
 def check_mips(q, index, valid, k, chk: Check):
     s_k, i_k = mips_topk_cuda(q, index, valid, k)
@@ -775,10 +840,6 @@ def check_mips(q, index, valid, k, chk: Check):
     got = S.gather(1, i_k.long())
     chk.decisions("ids", i_k != i_p, (got - s_p).abs() < TIE)
     return s_k, i_k
-
-
-def mips_bound(Q, N, d, k):
-    return bound(2.0 * Q * N * d, 4 * (Q * d + N * d) + N + 8 * Q * k)
 
 
 def mips_split(q, index, valid, k) -> str:
@@ -877,15 +938,6 @@ def hold_answers(qr, qn, vectors, valid, embs, live, scales, got, want, chk: Che
     chk.decisions("pos", (p_k != p_p) & same[:, None], (entry - s_p).abs() < TIE)
 
 
-def serve_bound(Q, d, cap, routes, depth, nprobe, k, itemsize, int8):
-    """Bytes: queries, the index, and each distinct routed ring once."""
-    distinct = int(torch.unique(routes[routes >= 0]).numel())
-    ring = depth * (d * itemsize + 1 + (4 if int8 else 0))
-    nbytes = 2 * Q * d * 4 + cap * (d * 4 + 5) + distinct * ring + Q * (k * 8 + nprobe * 4)
-    flops = 2.0 * Q * (cap + nprobe * depth) * d
-    return bound(flops, nbytes)
-
-
 def check_serve_routes(qr, vectors, valid, labels, fused_routes, nprobe, chk: Check):
     """The route-only entry against the fused kernel's routes on the same
     index (bit for bit: one computation) and its plain version (the
@@ -898,11 +950,6 @@ def check_serve_routes(qr, vectors, valid, labels, fused_routes, nprobe, chk: Ch
                         "otherwise than the fused kernel routes them")
     hold_routes(qr, vectors, valid, r_k, r_p, chk)
     return r_k
-
-
-def route_bound(Q, d, cap, nprobe):
-    """Bytes: the queries, the index (rows, valid, labels) and the routes."""
-    return bound(2.0 * Q * cap * d, 4 * Q * d + cap * (4 * d + 5) + 4 * Q * nprobe)
 
 
 def synthetic_store(C, depth, d, int8, gen, fill=0.6):
@@ -930,14 +977,6 @@ def check_rerank(q, embs, live, routes, k, scales, chk: Check):
     return s_k, p_k
 
 
-def rerank_bound(Q, d, routes, depth, k, itemsize, int8):
-    """Bytes: queries, routes, each distinct routed ring once, outputs."""
-    distinct = int(torch.unique(routes[routes >= 0]).numel())
-    ring = depth * (d * itemsize + 1 + (4 if int8 else 0))
-    nbytes = Q * d * 4 + routes.numel() * 4 + distinct * ring + Q * k * 8
-    return bound(2.0 * Q * routes.shape[1] * depth * d, nbytes)
-
-
 # --------------------------------------------------------------- prefilter
 def check_prefilter(x, basis, alpha, chk: Check):
     r_k = prefilter_scores_cuda(x, basis)
@@ -946,10 +985,6 @@ def check_prefilter(x, basis, alpha, chk: Check):
     chk.floats("r", r_k, r_p)
     chk.decisions("keep", (r_k >= alpha) != (r_p >= alpha),
                   (r_p - alpha).abs() < TIE)
-
-
-def prefilter_bound(B, n, d):
-    return bound(2.0 * B * n * d + 3.0 * B * d, 4 * (B * d + n * d + B))
 
 
 # ------------------------------------------------------------------ assign
@@ -970,10 +1005,6 @@ def check_assign(x, cent, chk: Check):
     chk.decisions("labels", i_k != i_p, label_ties(x, cent, i_k, i_p))
 
 
-def assign_bound(B, K, d):
-    return bound(2.0 * B * K * d + 3.0 * (B + K) * d, 4 * (B * d + K * d) + 8 * B)
-
-
 def check_stage_kernels(results, x, st, alpha, q, vectors, valid, labels, gen):
     """The staged path's kernels against their plain versions at the main
     path's shapes, plus edge cases; device, host, plain and library times."""
@@ -991,7 +1022,10 @@ def check_stage_kernels(results, x, st, alpha, q, vectors, valid, labels, gen):
     ms, host = cuda_ms(lambda: rerank_topk_cuda(q, embs, live_r, routes, TOPK, scales))
     plain, _ = cuda_ms(lambda: rerank_topk_ref(q, embs, live_r, routes, TOPK, scales),
                        iters=5)
-    b_ms, b_by = rerank_bound(QUERIES, d, routes, 64, TOPK, 1, True)
+    want = cost.rerank(QUERIES, d, routes.shape[1], 64, TOPK, 1, True, cost.distinct(routes))
+    b_ms, b_by = cost.bound(want)
+    profile_entry("rerank", "rerank", lambda: rerank_ops.rerank_topk(
+        q, embs, live_r, routes, TOPK, scales=scales), want)
     del embs, live_r, scales
     e32, l32, _ = synthetic_store(K, 16, d, False, gen)
     _, p32 = check_rerank(q, e32, l32, routes, 100, None, chk)
@@ -1015,7 +1049,10 @@ def check_stage_kernels(results, x, st, alpha, q, vectors, valid, labels, gen):
     plain, _ = cuda_ms(lambda: prefilter_scores_ref(x, basis))
     F = torch.nn.functional
     lib, _ = cuda_ms(lambda: torch.mean(torch.mm(F.normalize(x), F.normalize(basis).T), 1))
-    b_ms, b_by = prefilter_bound(BATCH, basis.shape[0], d)
+    want = cost.prefilter(BATCH, basis.shape[0], d)
+    b_ms, b_by = cost.bound(want)
+    profile_entry("prefilter", "prefilter", lambda: prefilter_ops.prefilter_scores(x, basis),
+                  want)
     results["prefilter"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=lib, host_ms=host)
     print("  prefilter library_ms is four calls: "
@@ -1032,7 +1069,9 @@ def check_stage_kernels(results, x, st, alpha, q, vectors, valid, labels, gen):
     plain, _ = cuda_ms(lambda: assign_ref(x, cent))
     xn, cn = l2_normalize(x), l2_normalize(cent)
     lib, _ = cuda_ms(lambda: torch.max(torch.mm(xn, cn.T), 1))
-    b_ms, b_by = assign_bound(BATCH, K, d)
+    want = cost.assign(BATCH, K, d)
+    b_ms, b_by = cost.bound(want)
+    profile_entry("assign", "assign", lambda: assign_ops.assign(x, cent), want)
     results["assign"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                              bound_by=b_by, library_ms=lib, host_ms=host)
     print("  assign library_ms is two calls on unit rows: torch.max(torch.mm(xn, cn.T), 1)")
@@ -1123,14 +1162,6 @@ def check_bag(table, idx, seg, bags, w, mode, chk: Check, plain_on_cpu=False):
     return int(empty.sum())
 
 
-def bag_bound(table, idx, bags):
-    """Bytes: each distinct row once, 12 bytes per entry, the bags out."""
-    d, L = table.shape[1], idx.numel()
-    distinct = int(torch.unique(idx).numel())
-    nbytes = distinct * d * table.element_size() + L * 12 + bags * d * 4
-    return bound(2.0 * L * d, nbytes) + (distinct,)
-
-
 def time_bag(label, table, idx, seg, bags, w, mode):
     """Device ms of MIND's path (the sorted entry: one launch on MIND's own
     tensors) and of the sorting wrapper, host ms, plain ms, library ms
@@ -1154,7 +1185,11 @@ def time_bag(label, table, idx, seg, bags, w, mode):
 
     lib_err = max_err(library(), embedding_bag_ref(table, idx, seg, bags, w, mode))
     lib, _ = cuda_ms(library)
-    b_ms, b_by, distinct = bag_bound(table, idx, bags)
+    distinct = cost.distinct(idx)
+    want = cost.bag(idx.numel(), table.shape[1], bags, table.element_size(), distinct)
+    b_ms, b_by = cost.bound(want)
+    profile_entry(f"bag {label}", "bag", lambda: bag_ops.embedding_bag_sorted(
+        table, idx, seg, bags, w, mode), want)
     print(f"  bag {label}: L={idx.numel()} bags={bags} distinct rows {distinct}; "
           f"MIND's path (sorted entry, one launch) {ms:.4f} ms device ({host:.4f} ms a "
           f"call from the host), sorting wrapper {wrap:.4f} ms device ({wrap_host:.4f} ms "
@@ -1213,7 +1248,10 @@ def phase_recsys_kernels(results):
     ms, host = cuda_ms(lambda: mips_topk_cuda(u, table, valid, 100))
     plain, plain_how = device_ms(lambda: mips_topk_ref(u, table, valid, 100))
     lib, lib_how = device_ms(lambda: torch.topk(torch.mm(u, table.T), 100))
-    b_ms, b_by = mips_bound(u.shape[0], table.shape[0], table.shape[1], 100)
+    want = cost.mips(u.shape[0], table.shape[0], table.shape[1], 100)
+    b_ms, b_by = cost.bound(want)
+    profile_entry("mips retrieval", "mips", lambda: mips_ops.mips_topk(u, table, valid, 100),
+                  want)
     print(f"  mips at MIND's retrieval shape ({u.shape[0]} x {u.shape[1]} vs "
           f"{table.shape[0]} x {table.shape[1]}, k=100): {ms:.4f} ms device ({host:.4f} ms "
           f"a call from the host), plain {plain:.4f} ms ({plain_how}), library "
@@ -1229,7 +1267,7 @@ def phase_recsys_kernels(results):
         ms, _ = cuda_ms(lambda: mips_topk_cuda(u1, t, valid, 100))
         plain, plain_how = device_ms(lambda: mips_topk_ref(u1, t, valid, 100))
         lib, _ = device_ms(lambda: torch.topk(torch.mm(u1, t.T), 100))
-        b_ms, b_by = mips_bound(1, t.shape[0], d, 100)
+        b_ms, b_by = cost.bound(cost.mips(1, t.shape[0], d, 100))
         print(f"  mips at 1 x {d} vs {t.shape[0]} x {d}, k=100: {ms:.4f} ms device, plain "
               f"{plain:.4f} ms ({plain_how}), library {lib:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}); {mips_split(u1, t, valid, 100)}")
@@ -1422,7 +1460,10 @@ def phase_kernels(results: dict):
     print(f"  admit launches apart at B={BATCH} vs {K} x {d}: "
           f"{admit_split(x, basis, cent, alpha, live)}")
     plain, _ = cuda_ms(lambda: admit_ref(x, basis, cent, alpha, live, store_dtype="int8"))
-    b_ms, b_by = admit_bound(BATCH, d, K, basis.shape[0], True)
+    want = cost.admit(BATCH, d, K, basis.shape[0], True)
+    b_ms, b_by = cost.bound(want)
+    profile_entry("admit", "admit", lambda: admit_ops.admit(
+        x, basis, cent, alpha, live, store_dtype="int8"), want)
     results["admit"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain,
                             bound_ms=b_ms, bound_by=b_by, library_ms=None, host_ms=host)
 
@@ -1438,7 +1479,9 @@ def phase_kernels(results: dict):
     ms, host = cuda_ms(lambda: mips_topk_cuda(q, vectors, valid, TOPK))
     plain, _ = cuda_ms(lambda: mips_topk_ref(q, vectors, valid, TOPK))
     lib, _ = cuda_ms(lambda: torch.topk(torch.addmm(bias, q, vectors.T), TOPK))
-    b_ms, b_by = mips_bound(QUERIES, K, d, TOPK)
+    want = cost.mips(QUERIES, K, d, TOPK)
+    b_ms, b_by = cost.bound(want)
+    profile_entry("mips", "mips", lambda: mips_ops.mips_topk(q, vectors, valid, TOPK), want)
     results["mips"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain,
                            bound_ms=b_ms, bound_by=b_by, library_ms=lib, host_ms=host)
     print("  mips library_ms is two calls: torch.topk(torch.addmm(bias, q, X.T), k)")
@@ -1461,7 +1504,10 @@ def phase_kernels(results: dict):
     chk_r.done("== fused routes, vs plain")
     ms_r, host_r = cuda_ms(lambda: serve_routes_cuda(q, vectors, valid, labels, NPROBE))
     plain_r, _ = cuda_ms(lambda: serve_routes_ref(q, vectors, valid, labels, NPROBE))
-    b_ms, b_by = route_bound(QUERIES, d, K, NPROBE)
+    want = cost.serve_route(QUERIES, d, K, NPROBE)
+    b_ms, b_by = cost.bound(want)
+    profile_entry("serve_route", "serve_route", lambda: serve_ops.serve_routes(
+        q, vectors, valid, labels, NPROBE), want)
     results["serve_route"] = dict(max_abs_err=chk_r.err, ms=ms_r, plain_ms=plain_r,
                                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
                                   host_ms=host_r)
@@ -1469,7 +1515,10 @@ def phase_kernels(results: dict):
                                                live_r, TOPK, NPROBE, scales))
     plain, _ = cuda_ms(lambda: serve_topk_ref(q, q, vectors, valid, labels, embs,
                                               live_r, TOPK, NPROBE, scales), iters=5)
-    b_ms, b_by = serve_bound(QUERIES, d, K, out[2], 64, NPROBE, TOPK, 1, True)
+    want = cost.serve(QUERIES, d, K, 64, NPROBE, TOPK, 1, True, cost.distinct(out[2]))
+    b_ms, b_by = cost.bound(want)
+    profile_entry("serve", "serve", lambda: serve_ops.serve_topk(
+        q, q, vectors, valid, labels, embs, live_r, TOPK, NPROBE, scales=scales), want)
     print(f"  serve launches apart at Q={QUERIES} vs {K} x {d}, int8 depth 64: "
           f"{serve_split(q, q, vectors, valid, labels, embs, live_r, scales, TOPK, NPROBE)}")
     del embs, live_r, scales
@@ -1821,17 +1870,12 @@ def hh_check(cfg, state, labels, draws, what, chk: Check):
     return got[0], want[0]
 
 
-def hh_bound(cfg, B, bmax, rows):
-    """Bytes these inputs need: labels and draws in, the state in and out
-    once, the info out, and for RANDOM_EVICT the Gumbel rows of the
-    ``rows`` arrivals that evict (no other arrival reads its row); no
-    arithmetic worth a bound (integer compares)."""
+def hh_work(cfg, B, bmax, rows) -> cost.Work:
+    """``cost.heavy_hitter`` of one update in which ``rows`` arrivals
+    evict."""
     cells = cfg.cms_depth * cfg.cms_width if cfg.policy == heavy_hitter.Policy.COUNT_MIN else 0
-    state = 8 * bmax + 4 * cells + 28
-    draws = 4 * B * (1 + int(cfg.morris))
-    if cfg.policy == heavy_hitter.Policy.RANDOM_EVICT:
-        draws += 4 * rows * bmax
-    return bound(0.0, 4 * B + draws + 2 * state + 10 * B)
+    return cost.heavy_hitter(B, bmax, cells, cfg.morris,
+                             cfg.policy == heavy_hitter.Policy.RANDOM_EVICT, rows)
 
 
 def hh_tally(state, new, labels, info) -> dict:
@@ -1849,7 +1893,7 @@ def hh_timed(what, cfg, st, lab, dr):
     t = hh_tally(st, new, lab, info)
     ms, host = cuda_ms(lambda: update_batch_cuda(cfg, st, lab, dr))
     plain = hh_plain_ms(lambda: update_batch_ref(cfg, st, lab, dr), iters=1)
-    b_ms, b_by = hh_bound(cfg, lab.shape[0], st.labels.shape[0], t["evictions"])
+    b_ms, b_by = cost.bound(hh_work(cfg, lab.shape[0], st.labels.shape[0], t["evictions"]))
     print(f"  hh {what}: {ms:.4f} ms device, {host:.4f} ms a call from the host, "
           f"{ms * 1e3 / max(t['valid'], 1):.3f} us per valid arrival; {t}; plain loop "
           f"{plain:.2f} ms (host clock); bound {b_ms:.6f} ms ({b_by})")
@@ -1934,6 +1978,10 @@ def phase_heavy_hitter(results, calls):
         f"valid of {BATCH})", cfg, st, lab, dr)
     results["heavy_hitter"].update(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
                                    bound_by=b_by, library_ms=None, host_ms=host)
+    new, _ = update_batch_cuda(cfg, st, lab, dr)
+    evicting = int(new.total_evictions) - int(st.total_evictions)
+    profile_entry("heavy_hitter", "heavy_hitter", lambda: hh_ops.update_batch(cfg, st, lab, dr),
+                  hh_work(cfg, lab.shape[0], st.labels.shape[0], evicting))
     for policy, cap in ((heavy_hitter.Policy.MIN_EVICT, st.labels.shape[0]),
                         (heavy_hitter.Policy.RANDOM_EVICT, st.labels.shape[0]),
                         (heavy_hitter.Policy.MIN_EVICT, HH_ZIPF_CAPACITY)):
@@ -3062,19 +3110,6 @@ def check_bag_backward(table, idx, seg, bags, w, grad, mode, chk: Check,
     del want_t, mag_t, again_t
 
 
-def bag_backward_bound(table, idx, seg, bags, w, weights_grad=False):
-    """Bytes: the dense d_table written once, grad_out and each entry's
-    (index, segment, weight) read once; with d_w, each distinct row read
-    and d_w written."""
-    V, d = table.shape
-    L, es = idx.numel(), table.element_size()
-    nbytes = (V * d * es + bags * d * 4
-              + L * (idx.element_size() + seg.element_size() + (4 if w is not None else 0)))
-    if weights_grad:
-        nbytes += int(torch.unique(idx).numel()) * d * es + L * 4
-    return bound(3.0 * L * d, nbytes)
-
-
 def time_bag_backward(table, idx, seg, bags, w, grad, mode):
     """Device ms of the kernel's call (its sort, counts and dense pass
     included), a stable torch.sort of the ids (the library yardstick of
@@ -3097,7 +3132,12 @@ def time_bag_backward(table, idx, seg, bags, w, grad, mode):
     lib_err = max_err(torch.autograd.grad(out, tbl, grad, retain_graph=True)[0],
                       embedding_bag_backward_ref(table, idx, seg, bags, grad, w, mode)[0])
     lib, lib_how = device_ms(lambda: torch.autograd.grad(out, tbl, grad, retain_graph=True))
-    b_ms, b_by = bag_backward_bound(table, idx, seg, bags, w)
+    V, d = table.shape
+    want = cost.bag_backward(V, d, idx.numel(), bags, table.element_size(),
+                             idx.element_size(), seg.element_size(), w is not None)
+    b_ms, b_by = cost.bound(want)
+    profile_entry("bag_backward", "bag_backward", lambda: bag_ops.embedding_bag_backward(
+        table, idx, seg, bags, grad, w, mode), want)
     print(f"  bag_backward at MIND's train shape: L={idx.numel()} bags={bags} V={table.shape[0]}"
           f" d={table.shape[1]}: {ms:.4f} ms device ({host:.4f} ms a call from the host; "
           f"torch.sort of its ids {sort_ms:.4f} ms), plain {plain:.4f} ms ({plain_how}), "
@@ -3142,8 +3182,10 @@ def time_gather_backward(table, ids, grad):
     lib, lib_how = device_ms(lambda: torch.autograd.grad(out, tbl, grad, retain_graph=True),
                              iters=2)
     V, d = table.shape
-    b_ms, b_by = bound(float(ids.numel() * d), V * d * table.element_size()
-                       + grad.numel() * 4 + ids.numel() * ids.element_size())
+    want = cost.gather_backward(V, d, ids.numel(), table.element_size(), ids.element_size())
+    b_ms, b_by = cost.bound(want)
+    profile_entry("gather_backward", "gather_backward",
+                  lambda: bag_ops.gather_backward(table, ids, grad), want)
     print(f"  gather_backward at MIND's history gather: ids {tuple(ids.shape)} into "
           f"{V} x {d}: {ms:.4f} ms device ({host:.4f} ms a call from the host), plain "
           f"{plain:.4f} ms ({plain_how}), library {lib:.4f} ms (PyTorch's backward of "
@@ -3898,7 +3940,7 @@ def decode_floor(params, B: int) -> str:
     used = {k: v for k, v in params.items() if k not in ("mtp_block", "mtp_proj")}
     nbytes = sum(t.numel() * t.element_size() for t in opt_lib.leaves(used)) \
         - emb.numel() * emb.element_size() + B * emb.shape[1] * emb.element_size()
-    return (f"decode floor {nbytes / PEAK_BYTES * 1e3:.2f} ms a step ({nbytes / 1e9:.2f} GB "
+    return (f"decode floor {nbytes / HBM_BW * 1e3:.2f} ms a step ({nbytes / 1e9:.2f} GB "
             f"of weights read once at 3.35 TB/s)")
 
 
@@ -4216,7 +4258,9 @@ def time_segment_sum(x, ids, n: int):
     lib_fn = lambda: torch.zeros((n, d), device="cuda").index_add_(0, ids, x)  # noqa: E731
     lib_err = max_err(lib_fn(), segment_sum_ref(x, ids, n))
     lib, lib_how = device_ms(lib_fn, iters=5)
-    b_ms, b_by = bound(float(E * d), E * d * 4 + n * d * 4 + E * ids.element_size())
+    want = cost.segment_sum(E, d, n, x.element_size(), ids.element_size())
+    b_ms, b_by = cost.bound(want)
+    profile_entry("segment_sum", "segment_sum", lambda: bag_ops.segment_sum(x, ids, n), want)
     print(f"  segment_sum at minibatch_lg: {E} entries into {n} x {d}: {ms:.4f} ms device "
           f"({host:.4f} ms a call from the host), plain {plain:.4f} ms ({plain_how}), "
           f"library {lib:.4f} ms (zeros + index_add_, float atomics; {lib_how}; max|d| vs "
@@ -4810,6 +4854,108 @@ def phase_mesh():
     assert not fails, "mesh path: " + "; ".join(fails)
 
 
+def dry_runs(smi: str, fails: list):
+    """12a. ``python -m repro_torch.launch.dryrun`` in its own process for
+    each of DRYRUN_CELLS on 16 x 16: status ok, within DRYRUN_LIMIT_S, CUDA
+    never initialised (the cell's process asserts it at its end)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape in DRYRUN_CELLS:
+            path = os.path.join(tmp, f"{arch}__{shape}.json")
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", shape, "--out", path]
+            t = time.perf_counter()
+            try:
+                out = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                                     timeout=DRYRUN_LIMIT_S)
+            except subprocess.TimeoutExpired:
+                fails.append(f"dry run {arch} {shape}: over {DRYRUN_LIMIT_S} s")
+                continue
+            took = time.perf_counter() - t
+            if out.returncode != 0:
+                fails.append(f"dry run {arch} {shape}: exit {out.returncode}\n"
+                             f"{out.stderr[-2000:]}")
+                continue
+            with open(path) as f:
+                r = json.load(f)
+            if r["status"] != "ok" or took >= DRYRUN_LIMIT_S:
+                fails.append(f"dry run {arch} {shape}: {r['status']}, {took:.1f} s")
+            print(f"  dry run {arch} {shape} on 16 x 16: flops {r['flops_per_chip']:.4e} "
+                  f"{ {k: f'{v:.3e}' for k, v in r['flops_by_dtype'].items()} }, bytes "
+                  f"{r['bytes_per_chip']:.4e}, peak {r['memory_per_chip']:.4e} B, collective "
+                  f"{r['collective_bytes_per_chip']:.4e} B; terms compute "
+                  f"{r['compute_term']:.4e} s, memory {r['memory_term']:.4e} s, collective "
+                  f"{r['collective_term']:.4e} s, dominant {r['dominant']} (modeled against "
+                  f"the H100 SXM's published peaks at 700 W; this card: {smi}); "
+                  f"{took:.1f} s in its own process, CUDA not initialised")
+
+
+def entry_profiles(smi: str, fails: list):
+    """12b. The kernel entries ``profile_entry`` profiled in the phases
+    that hold their inputs."""
+    want = {"admit", "serve", "serve_route", "mips", "rerank", "prefilter", "assign", "bag",
+            "bag_backward", "gather_backward", "segment_sum", "heavy_hitter"}
+    missing = want - {p["name"] for p in PROFILES}
+    if missing:
+        fails.append(f"entries not profiled: {sorted(missing)}")
+    for p in PROFILES:
+        share = p["bound_ms"] * 1e3 / p["wall_us"]
+        print(f"  profile {p['label']:22s} modeled == kernels/cost.py: "
+              f"{'yes' if not p['fails'] else 'NO'}; wall {p['wall_us']:.2f} us, bound "
+              f"{p['bound_ms']:.6f} ms ({p['bound_by']}), share {share:.3f}; launches "
+              f"{p['launches']} in {p['calls']} calls, kernels a call "
+              f"{p['kernels'] or 'not recorded by torch.profiler'} [{smi}]")
+        fails.extend(f"profile {p['label']}: {f}" for f in p["fails"])
+
+
+def run_examples(fails: list):
+    """12c. Each port example in-process through ``runpy`` on ``cuda``,
+    the launch counts reset just before it: it must exit cleanly, launch
+    each kernel named in EXAMPLES and run no plain version."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    for name, args, kernels in EXAMPLES:
+        path = os.path.join(root, "examples", "torch", f"{name}.py")
+        argv, buf = sys.argv, io.StringIO()
+        sys.argv = [path, "--device", "cuda", *args]
+        counts.reset_all()
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(path, run_name="__main__")
+            torch.cuda.synchronize()
+        except BaseException as e:   # SystemExit included: an example must end cleanly
+            fails.append(f"example {name}: {type(e).__name__}: {e}")
+            traceback.print_exc()
+        finally:
+            sys.argv = argv
+        took = time.perf_counter() - t
+        snap = counts.snapshot()
+        for line in buf.getvalue().splitlines():
+            print(f"  [{name}] {line}")
+        launched = {k: v["kernel"] for k, v in snap.items() if v["kernel"]}
+        print(f"  example {name}: {took:.2f} s, launches {launched}")
+        fails.extend(f"example {name}: {k} never launched" for k in kernels
+                     if not snap[k]["kernel"])
+        plain = {k: v["plain"] for k, v in snap.items() if v["plain"]}
+        if plain:
+            fails.append(f"example {name}: plain versions ran {plain}")
+
+
+def phase_analysis():
+    """12. The dry runs, the kernel entries' modeled cost on the card, the
+    examples."""
+    smi = nvidia_smi()
+    t = time.perf_counter()
+    fails: list[str] = []
+    print("Analysis path:")
+    dry_runs(smi, fails)
+    entry_profiles(smi, fails)
+    run_examples(fails)
+    print(f"  analysis path {time.perf_counter() - t:.1f} s")
+    assert not fails, "analysis path: " + "; ".join(fails)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4841,6 +4987,8 @@ def main() -> int:
     phase_gnn(results)
     torch.cuda.empty_cache()
     phase_mesh()
+    torch.cuda.empty_cache()
+    phase_analysis()
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name:9s} kernel {r['ms']:.4f} ms device ({r['host_ms']:.4f} ms a call "

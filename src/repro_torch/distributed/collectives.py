@@ -6,7 +6,10 @@ collective is an explicit function of the list: an all-gather is a
 ``.to(device)`` of each shard's part, concatenated in shard order; a
 ``pmax`` an elementwise max in shard order; a psum a fold from shard 0
 upward. The merge order is the reference's, so a sharded answer equals
-the single-device one.
+the single-device one. While an ``analysis.hlo_cost`` counter is active,
+``fold_sum``, ``all_gather`` and ``hierarchical_psum`` record their
+result bytes by collective type (the distributed top-k and rerank through
+their all-gathers).
 
   * ``fold_sum`` / ``all_gather`` / ``hierarchical_psum`` — psum, the
     all-gather and the reduce-scatter / inter-pod sum / all-gather of the
@@ -26,10 +29,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.hlo_cost import collective
 from repro_torch.core import clustering, heavy_hitter
 from repro_torch.kernels.common import NEG_INF, stable_topk
 
 
+@collective("all-reduce")
 def fold_sum(parts: list[torch.Tensor], device) -> torch.Tensor:
     """``psum``: the parts summed from shard 0 upward, on ``device``."""
     out = parts[0].to(device)
@@ -38,11 +43,13 @@ def fold_sum(parts: list[torch.Tensor], device) -> torch.Tensor:
     return out
 
 
+@collective("all-gather")
 def all_gather(parts: list[torch.Tensor], device, dim: int = 0) -> torch.Tensor:
     """The shards' parts concatenated in shard order along ``dim``."""
     return torch.cat([p.to(device) for p in parts], dim=dim)
 
 
+@collective("all-reduce")
 def hierarchical_psum(parts, device, pod_axis: str | None = "pod") -> torch.Tensor:
     """Explicit hierarchical all-reduce over a ``[pod][data]`` grid of
     parts: reduce-scatter along dim 0 within each pod (data shard j sums

@@ -1,5 +1,6 @@
 """Dispatcher for EmbeddingBag: a CPU tensor runs the plain version, a
-CUDA tensor launches the kernel, anything else raises.
+CUDA tensor launches the kernel, a ``meta`` tensor gets the outputs'
+shapes and dtypes (forward and backward alike), anything else raises.
 
 ``embedding_bag`` takes segment ids in any order (the kernel's wrapper
 sorts them first, as the reference's wrapper does); ``embedding_bag_sorted``
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.bag.ref import (embedding_bag_backward_ref, embedding_bag_ref,
                                          embedding_bag_sorted_ref, gather_backward_ref,
                                          segment_sum_ref)
@@ -38,13 +40,60 @@ def _check_mode(mode: str) -> None:
 
 
 def _forward(table, indices, segment_ids, num_bags, weights, mode, is_sorted, kernel):
-    if kernel:
-        from repro_torch.kernels.bag import bag
+    def run():
+        if table.is_meta:
+            return torch.empty((num_bags, table.shape[1]), dtype=torch.float32,
+                               device=table.device)
+        if kernel:
+            from repro_torch.kernels.bag import bag
 
-        fn = bag.embedding_bag_sorted_cuda if is_sorted else bag.embedding_bag_cuda
-    else:
-        fn = embedding_bag_sorted_ref if is_sorted else embedding_bag_ref
-    return fn(table, indices, segment_ids, num_bags, weights, mode)
+            fn = bag.embedding_bag_sorted_cuda if is_sorted else bag.embedding_bag_cuda
+        else:
+            fn = embedding_bag_sorted_ref if is_sorted else embedding_bag_ref
+        return fn(table, indices, segment_ids, num_bags, weights, mode)
+
+    return cost.entry("bag", run, lambda out: cost.bag(
+        indices.numel(), table.shape[1], num_bags, table.element_size(),
+        cost.distinct(indices)))
+
+
+def _backward(table, indices, segment_ids, num_bags, grad_out, weights, mode,
+              weights_grad, kernel):
+    """(d_table, d_w | None) by the ``bag_backward`` kernel (``kernel``),
+    its plain version, or on ``meta`` their shapes and dtypes."""
+    def run():
+        if table.is_meta:
+            V, d = table.shape
+            d_w = (torch.empty((indices.shape[0],), dtype=torch.float32, device=table.device)
+                   if weights_grad else None)
+            return torch.empty((V, d), dtype=table.dtype, device=table.device), d_w
+        if kernel:
+            from repro_torch.kernels.bag.bag import embedding_bag_backward_cuda as fn
+        else:
+            fn = embedding_bag_backward_ref
+        return fn(table, indices, segment_ids, num_bags, grad_out, weights, mode,
+                  weights_grad=weights_grad)
+
+    V, d = table.shape
+    return cost.entry("bag_backward", run, lambda out: cost.bag_backward(
+        V, d, indices.numel(), num_bags, table.element_size(), indices.element_size(),
+        segment_ids.element_size(), weights is not None, weights_grad,
+        cost.distinct(indices) if weights_grad else 0))
+
+
+def _gather_backward(table, ids, grad_out, kernel):
+    def run():
+        if table.is_meta:
+            return torch.empty(table.shape, dtype=table.dtype, device=table.device)
+        if kernel:
+            from repro_torch.kernels.bag.bag import gather_backward_cuda as fn
+        else:
+            fn = gather_backward_ref
+        return fn(table, ids, grad_out)
+
+    V, d = table.shape
+    return cost.entry("gather_backward", run, lambda out: cost.gather_backward(
+        V, d, ids.numel(), table.element_size(), ids.element_size()))
 
 
 class _Bag(torch.autograd.Function):
@@ -62,13 +111,9 @@ class _Bag(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         table, weights, indices, segment_ids = ctx.saved_tensors
-        if ctx.kernel:
-            from repro_torch.kernels.bag.bag import embedding_bag_backward_cuda as fn
-        else:
-            fn = embedding_bag_backward_ref
-        d_table, d_w = fn(table, indices, segment_ids, ctx.num_bags,
-                          grad_out.contiguous(), weights, ctx.mode,
-                          weights_grad=ctx.needs_input_grad[1])
+        d_table, d_w = _backward(table, indices, segment_ids, ctx.num_bags,
+                                 grad_out.contiguous(), weights, ctx.mode,
+                                 ctx.needs_input_grad[1], ctx.kernel)
         if d_w is not None:
             d_w = d_w.to(weights.dtype)
         return (d_table if ctx.needs_input_grad[0] else None, d_w,
@@ -110,6 +155,28 @@ def embedding_bag_sorted(table: torch.Tensor, indices: torch.Tensor,
     return bag_apply(table, indices, segment_ids, num_bags, weights, mode, True, kernel)
 
 
+def embedding_bag_backward(table: torch.Tensor, indices: torch.Tensor,
+                           segment_ids: torch.Tensor, num_bags: int, grad_out: torch.Tensor,
+                           weights: torch.Tensor | None = None, mode: str = "sum",
+                           weights_grad: bool = False):
+    """The gradient of ``embedding_bag`` given ``grad_out`` [num_bags, d]:
+    (d_table [V, d] in the table's dtype, d_w [L] f32 or None) (see
+    ``ref.embedding_bag_backward_ref``)."""
+    _check_mode(mode)
+    kernel = check_same_device(table, indices, segment_ids, grad_out,
+                               weights).type == "cuda"
+    return _backward(table, indices, segment_ids, num_bags, grad_out, weights, mode,
+                     weights_grad, kernel)
+
+
+def gather_backward(table: torch.Tensor, ids: torch.Tensor,
+                    grad_out: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``table[ids]`` given ``grad_out`` [*ids.shape, d]:
+    dense [V, d] in the table's dtype (see ``ref.gather_backward_ref``)."""
+    kernel = check_same_device(table, ids, grad_out).type == "cuda"
+    return _gather_backward(table, ids, grad_out, kernel)
+
+
 class _Gather(torch.autograd.Function):
     """``table[ids]`` whose gradient is ``gather_backward`` (``kernel``) or
     its plain version."""
@@ -123,11 +190,7 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_out):
         table, ids = ctx.saved_tensors
-        if ctx.kernel:
-            from repro_torch.kernels.bag.bag import gather_backward_cuda as fn
-        else:
-            fn = gather_backward_ref
-        return fn(table, ids, grad_out), None, None
+        return _gather_backward(table, ids, grad_out, ctx.kernel), None, None
 
 
 def gather_apply(table: torch.Tensor, ids: torch.Tensor, kernel: bool) -> torch.Tensor:
@@ -146,11 +209,19 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 def _segment_sum(data, segment_ids, num_segments, kernel):
-    if kernel:
-        from repro_torch.kernels.bag.bag import segment_sum_cuda as fn
-    else:
-        fn = segment_sum_ref
-    return fn(data, segment_ids, num_segments)
+    def run():
+        if data.is_meta:
+            return torch.empty((num_segments, data.shape[1]), dtype=data.dtype,
+                               device=data.device)
+        if kernel:
+            from repro_torch.kernels.bag.bag import segment_sum_cuda as fn
+        else:
+            fn = segment_sum_ref
+        return fn(data, segment_ids, num_segments)
+
+    L, d = data.shape
+    return cost.entry("segment_sum", run, lambda out: cost.segment_sum(
+        L, d, num_segments, data.element_size(), segment_ids.element_size()))
 
 
 class _SegmentSum(torch.autograd.Function):

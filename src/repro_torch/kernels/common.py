@@ -4,7 +4,9 @@ Every kernel package under ``repro_torch/kernels/<name>/`` is a triad:
 ``ref.py`` (the plain PyTorch version), ``<name>.py`` (the ctypes wrapper
 that launches the hand-written CUDA kernel from ``repro_torch/csrc``) and
 ``ops.py`` (the dispatcher: a CPU tensor runs the plain version, a CUDA
-tensor launches the kernel, anything else raises).
+tensor launches the kernel, a ``meta`` tensor gets outputs of the
+kernel's shapes and dtypes with nothing computed, anything else raises;
+``kernels/cost.py`` models each entry's work).
 """
 from __future__ import annotations
 
@@ -132,7 +134,7 @@ def check_same_device(*tensors: torch.Tensor) -> torch.device:
     for t in tensors[1:]:
         if t is not None and t.device != dev:
             raise ValueError(f"tensors on {dev} and {t.device}")
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel or plain version for device {dev}")
     return dev
 

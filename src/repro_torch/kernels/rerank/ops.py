@@ -1,9 +1,11 @@
 """Dispatcher for the routed rerank: a CPU tensor runs the plain version,
-a CUDA tensor launches the kernel, anything else raises."""
+a CUDA tensor launches the kernel, a ``meta`` tensor gets the outputs'
+shapes and dtypes, anything else raises."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.common import check_same_device
 from repro_torch.kernels.rerank.ref import rerank_topk_ref
 
@@ -16,8 +18,20 @@ def rerank_topk(q: torch.Tensor, embs: torch.Tensor, live: torch.Tensor,
     route list), -1 for dead entries. int8 rings need ``scales``."""
     assert 1 <= k <= routes.shape[1] * embs.shape[1], \
         "k must be in [1, nprobe * depth]"
-    if check_same_device(q, embs, live, routes, scales).type == "cuda":
-        from repro_torch.kernels.rerank.rerank import rerank_topk_cuda
+    dev = check_same_device(q, embs, live, routes, scales)
 
-        return rerank_topk_cuda(q, embs, live, routes, k, scales)
-    return rerank_topk_ref(q, embs, live, routes, k, scales)
+    def run():
+        if dev.type == "cuda":
+            from repro_torch.kernels.rerank.rerank import rerank_topk_cuda
+
+            return rerank_topk_cuda(q, embs, live, routes, k, scales)
+        if dev.type == "meta":
+            Q = q.shape[0]
+            return (torch.empty((Q, k), dtype=torch.float32, device=dev),
+                    torch.empty((Q, k), dtype=torch.int32, device=dev))
+        return rerank_topk_ref(q, embs, live, routes, k, scales)
+
+    Q, d = q.shape
+    return cost.entry("rerank", run, lambda out: cost.rerank(
+        Q, d, routes.shape[1], embs.shape[1], k, embs.element_size(),
+        embs.dtype == torch.int8, cost.distinct(routes)))

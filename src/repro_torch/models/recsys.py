@@ -65,9 +65,12 @@ def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return gather_rows(table, ids)
 
 
-def _generator(batch, device) -> torch.Generator:
+def _generator(batch, device) -> torch.Generator | None:
     """A generator on ``device`` seeded from the batch's two uint32 key
-    words."""
+    words. On ``meta`` there is no key to read and a draw has a shape and
+    no values: None, the draws' default."""
+    if torch.device(device).type == "meta":
+        return None
     hi, lo = (int(x) for x in batch["rng"].tolist())
     gen = torch.Generator(device=device)
     gen.manual_seed((hi << 32) | lo)

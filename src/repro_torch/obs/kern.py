@@ -1,4 +1,5 @@
-"""Per-kernel observability: device time and the kernels a call launches.
+"""Per-kernel observability: device time, the kernels a call launches,
+and its modeled cost.
 
 Kernels run inside larger serving calls, so they cannot be timed in
 production without a device sync — exactly what the query hot path must
@@ -7,14 +8,14 @@ times warm calls of a zero-argument entry between CUDA events (host
 wall clock on the CPU), and ``profile_kernel`` adds the kernels one warm
 call queues, by name, as ``torch.profiler`` records them.
 
-Results land in the active metrics registry (``kernel_<name>_wall_us``)
-when observability is enabled, so a profiling run exports kernel cost
+Results land in the active metrics registry (``kernel_<name>_wall_us``,
+``kernel_<name>_modeled_hbm_bytes``, ...) when observability is enabled, so a profiling run exports kernel cost
 next to serving metrics in one dump.
 
-``modeled_cost`` is the reference's HLO cost model (modeled HBM bytes and
-flops of the compiled program). The port compiles no HLO; its counterpart
-waits on the rebuild of ``analysis/hlo_cost.py`` (ROADMAP A10), so it
-raises until then.
+``modeled_cost`` is the reference's cost model of a call: modeled HBM
+bytes, flops and collective bytes, counted op by op on PyTorch's
+dispatch by ``analysis/hlo_cost.py`` (the port compiles no HLO); a kernel
+entry inside the call counts as its model (``kernels/cost.py``).
 """
 from __future__ import annotations
 
@@ -26,12 +27,19 @@ from typing import Callable
 import torch
 
 from repro_torch import obs
+from repro_torch.analysis import hlo_cost
 
 
 def modeled_cost(fn: Callable[[], object]) -> dict:
-    raise NotImplementedError(
-        "modeled_cost reads XLA HLO cost; the port's counterpart waits on "
-        "analysis/hlo_cost.py rebuilt for PyTorch (ROADMAP A10)")
+    """Run ``fn`` (a zero-arg callable closed over its example inputs)
+    once under ``hlo_cost``'s counter: modeled HBM bytes, flops, and
+    collective traffic."""
+    cost = hlo_cost.analyze(fn)
+    return {
+        "modeled_hbm_bytes": float(cost["bytes"]),
+        "modeled_flops": float(cost["flops"]),
+        "modeled_collective_bytes": float(cost["collective_bytes"]),
+    }
 
 
 def _on_card(out) -> torch.device | None:
@@ -100,14 +108,17 @@ def launched_kernels(fn: Callable[[], object]) -> list[str]:
 
 
 def profile_kernel(name: str, fn: Callable[[], object], *, reps: int = 50,
-                   rounds: int = 3) -> dict:
-    """Time per call (``wall_us``) and, on a card, the kernels a call
-    launches (``kernels``, ``launches``) for one kernel entry, recorded
-    into the active registry (if any) and returned as a plain dict.
+                   rounds: int = 3, time_it: bool = True) -> dict:
+    """Modeled cost (``modeled_cost``), time per call (``wall_us``, when
+    ``time_it``) and, on a card, the kernels a call launches
+    (``kernels``, ``launches``) for one kernel entry, recorded into the
+    active registry (if any) and returned as a plain dict.
 
     ``fn`` must be a zero-arg callable over device-resident inputs, so
     the timing measures the kernel launches, not host staging."""
-    out: dict = {"wall_us": 1e6 * time_wall(fn, reps=reps, rounds=rounds)}
+    out: dict = modeled_cost(fn)
+    if time_it:
+        out["wall_us"] = 1e6 * time_wall(fn, reps=reps, rounds=rounds)
     if _on_card(fn()) is not None:
         out["kernels"] = launched_kernels(fn)
         out["launches"] = len(out["kernels"])
@@ -115,5 +126,5 @@ def profile_kernel(name: str, fn: Callable[[], object], *, reps: int = 50,
     if reg is not None:
         reg.set_many(f"kernel_{name}_",
                      {k: v for k, v in out.items() if k != "kernels"},
-                     help="kernel profile (CUDA-event time, launches)")
+                     help="kernel profile (modeled cost, CUDA-event time, launches)")
     return out

@@ -196,3 +196,21 @@ def hold_cache(got, want):
     for name in ("k", "v"):
         assert tuple(got[name].shape) == want[name].shape
         close_to_largest(got[name].numpy(), want[name])
+
+
+class _Foreign(torch.Tensor):
+    """A tensor on a device with no kernel and no plain version (``meta``
+    gets outputs of the kernel's shapes and dtypes, so it is not one)."""
+
+    @staticmethod
+    def __new__(cls, t):
+        return torch.Tensor._make_wrapper_subclass(cls, t.shape, dtype=t.dtype, device="xpu")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError("no data on this device")
+
+
+def foreign(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s shape and dtype on the ``xpu`` device, with no data."""
+    return _Foreign(t)

@@ -25,7 +25,7 @@ from repro_torch.kernels.heavy_hitter import ops as hh_ops
 from repro_torch.kernels.heavy_hitter.heavy_hitter import (heavy_hitter_plan,
                                                           update_batch_cuda)
 
-from _torch_parity import assert_trees, hh_draws, jax_tree
+from _torch_parity import assert_trees, foreign, hh_draws, jax_tree
 
 
 def _cfgs(policy, **kw):
@@ -267,8 +267,8 @@ def test_heavy_hitter_wrapper_refuses_what_the_kernel_does_not_take(case):
 def test_heavy_hitter_dispatch_refuses_other_and_mixed_devices():
     cfg, state, labels, draws = _hh_inputs()
     with pytest.raises(ValueError, match="no kernel or plain version"):
-        hh_ops.update_batch(cfg, thh.init(cfg, "meta"), labels.to("meta"),
-                            {k: v.to("meta") for k, v in draws.items()})
+        hh_ops.update_batch(cfg, type(state)(*map(foreign, state)), foreign(labels),
+                            {k: foreign(v) for k, v in draws.items()})
     with pytest.raises(ValueError, match="tensors on"):
         hh_ops.update_batch(cfg, state, labels,
                             {k: v.to("meta") for k, v in draws.items()})

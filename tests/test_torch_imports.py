@@ -40,7 +40,9 @@ def test_port_and_chip_smoke_import_no_jax():
                      "repro_torch.configs.h2o_danube_1_8b",
                      "repro_torch.configs.h2o_danube_3_4b", "repro_torch.convert",
                      "repro_torch.distributed.sharding",
-                     "repro_torch.distributed.compression"):
+                     "repro_torch.distributed.compression",
+                     "repro_torch.analysis.hlo_cost", "repro_torch.analysis.roofline",
+                     "repro_torch.launch.dryrun", "repro_torch.kernels.cost"):
             assert name in names, name
         print(len(names))
     """)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import foreign
 from repro.kernels.admit.admit import admit_pallas
 from repro.kernels.admit.ref import admit_ref as j_admit
 from repro.kernels.mips.mips import mips_topk_pallas
@@ -209,6 +210,6 @@ def test_serve_dispatcher_all_dead_routes():
 
 
 def test_dispatchers_refuse_other_devices():
-    x = torch.zeros((2, 4), device="meta")
+    x = foreign(torch.zeros((2, 4)))
     with pytest.raises(ValueError):
-        mips_ops.mips_topk(x, x, torch.ones(2, dtype=torch.bool, device="meta"), 1)
+        mips_ops.mips_topk(x, x, foreign(torch.ones(2, dtype=torch.bool)), 1)

@@ -506,5 +506,11 @@ def test_kern_profile_records_wall_time_and_modeled_cost_waits():
     snap = obs.metrics().snapshot()["gauges"]
     assert snap["kernel_matmul_wall_us"] == out["wall_us"]
     assert kern.time_wall(lambda: x @ x, reps=2, rounds=1) > 0.0
-    with pytest.raises(NotImplementedError, match="A10"):
-        kern.modeled_cost(lambda: x @ x)
+    # the modeled cost (analysis/hlo_cost.py): 2 * 64^3 flops, two inputs
+    # and the result of 64 x 64 f32 each
+    modeled = {"modeled_hbm_bytes": 3 * 64 * 64 * 4.0, "modeled_flops": 2 * 64.0 ** 3,
+               "modeled_collective_bytes": 0.0}
+    assert kern.modeled_cost(lambda: x @ x) == modeled
+    assert {k: out[k] for k in modeled} == modeled
+    assert snap["kernel_matmul_modeled_flops"] == modeled["modeled_flops"]
+    assert set(kern.profile_kernel("matmul", lambda: x @ x, time_it=False)) == set(modeled)

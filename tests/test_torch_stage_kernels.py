@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import foreign
 from repro.kernels.assign.assign import assign_pallas
 from repro.kernels.assign.ref import assign_ref as j_assign
 from repro.kernels.common import normalize_basis_rows as j_normalize_basis_rows
@@ -226,15 +227,15 @@ def test_dispatchers_count_plain_calls_and_refuse_other_devices():
     for name in ("prefilter", "assign", "rerank"):
         assert after[name]["plain"] == before[name]["plain"] + 1
         assert after[name]["kernel"] == before[name]["kernel"]
-    m = torch.zeros((2, 4), device="meta")
+    m = foreign(torch.zeros((2, 4)))
     with pytest.raises(ValueError):
         prefilter_ops.prefilter_scores(m, m)
     with pytest.raises(ValueError):
         assign_ops.assign(m, m)
     with pytest.raises(ValueError):
-        rerank_ops.rerank_topk(m, torch.zeros((2, 1, 4), device="meta"),
-                               torch.ones((2, 1), dtype=torch.bool, device="meta"),
-                               torch.zeros((2, 1), dtype=torch.int32, device="meta"), 1)
+        rerank_ops.rerank_topk(m, foreign(torch.zeros((2, 1, 4))),
+                               foreign(torch.ones((2, 1), dtype=torch.bool)),
+                               foreign(torch.zeros((2, 1), dtype=torch.int32)), 1)
 
 
 def test_fused_plain_versions_do_not_count_as_staged_calls():
