@@ -42,12 +42,29 @@
    and draws), on a Zipf label stream over 4218 clusters at capacity 100
    for every policy with exact counts, Morris, adaptive (max capacity 200)
    and gate_below_capacity, on an all-dropped batch whose window is full,
-   and at B = 1. Then timed: the main path's busiest batch, and 256 valid
+   and at B = 1; and the large path (bmax past one block's shared
+   memory: 28,125 and 112,501, the 1 GB and 4 GB budgets' counters), a
+   counter 97% full, two batches of 256 Zipf labels, every policy with
+   exact counts, Morris, adaptive and gate_below_capacity, one launch a
+   call. Then timed: the main path's busiest batch, and 256 valid
    Zipf arrivals at bmax 4218 (MIN_EVICT; RANDOM_EVICT) and at capacity
-   100 (full), each with its device ms, the wrapper's host ms a call, us
+   100 (full), and at bmax 28,125 256 novel arrivals on a full counter, each
+   evicting (MIN_EVICT; RANDOM_EVICT), each with its device ms, the
+   wrapper's host ms a call, us
    per valid arrival, its hits, inserts, evictions and dropped arrivals,
    the bound (the Gumbel rows of the arrivals that evict, not all B x
    bmax) and the plain loop's host ms.
+3c. The main path at a 1 GB budget (``budget_to_config(1000.0, ...)``, int8
+   depth 64: k = B = 28,125, about 800 MB of rings): a ``RAGServer`` seeded
+   from a fresh NYT-like stream's warmup ingests 16 batches of 256 and
+   answers 64-query flushes two-stage, then prototype-only; counts reset
+   just before: admit, serve, mips and the counter's large path launch
+   (once a batch), its one-block kernel never, no plain version. Answers
+   against the plain versions (near-tie rule); admit against 28,125
+   centroids, each of the 16 counter calls against the plain loop (exact),
+   serve at cap 28,125 and mips over 28,125 rows at k = 10 and 8 against
+   theirs. Prints ingest ms a batch, flush p50/p99, peak memory and each
+   kernel's device ms there, beside the card's name and power limit.
 4. Staged path: the same config, seed, warmup and the main path's own 16
    batches, from a fresh init, through ``engine.staged_ingest_impl``
    (``screen -> assign_update -> count -> update_representatives ->
@@ -401,7 +418,9 @@
    streaming_news_serve admit, heavy_hitter and serve; train_embedder
    (60 steps) none of the port's kernels; no plain version; each one's
    lines and seconds printed.
-13. One JSON line of kernel numbers, then ``{"ok": true, "device": ...}``.
+13. One JSON line of kernel numbers (the counter's large path as
+   ``heavy_hitter_large``, its launches and times from 3c), then
+   ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository beside it.
@@ -508,6 +527,8 @@ SOURCES = {"admit": "src/repro/kernels/admit/admit.py:177",
            "serve_route": "src/repro/kernels/serve/serve.py:230",
            # port-side: no pallas_call; the reference's lax.scan of update_one
            "heavy_hitter": "src/repro/core/heavy_hitter.py:289",
+           # the same file's large path (bmax past one block's shared memory)
+           "heavy_hitter_large": "src/repro/core/heavy_hitter.py:289",
            "bag_backward": ("port-side: no pallas_call; autodiff of "
                             "src/repro/kernels/bag/ref.py:13 embedding_bag_ref"),
            # bag_backward.cu's gather entry: one entry a bag, no segments
@@ -518,11 +539,15 @@ SOURCES = {"admit": "src/repro/kernels/admit/admit.py:177",
                            "jax.ops.segment_sum")}
 # a kernel whose source is another's file
 CSRC_OF = {"serve_route": "serve", "gather_backward": "bag_backward",
-           "segment_sum": "bag_backward"}
+           "segment_sum": "bag_backward", "heavy_hitter_large": "heavy_hitter"}
 RECSYS_STEPS = ("serve_p99", "serve_bulk", "retrieval_cand")
 LOOP_INGEST_MS = 250.59   # fused ingest ms/batch with the per-arrival loop in place
 #                           of the heavy-hitter kernel (PERF.md; H100 80GB HBM3, 700 W)
 HH_ZIPF_CLUSTERS, HH_ZIPF_CAPACITY, HH_ZIPF_BATCHES = 4218, 100, 3
+# the counter past one block's shared memory (the large path):
+# budget_to_config's bmax at 1 GB and at 4 GB; the main path at 1 GB (3c)
+HH_LARGE_BMAX = (28_125, 112_501)
+BUDGET_1GB_MB = 1000.0
 ASYNC_PUBLISH_EVERY = 4
 # the cached path (4c): table 21's gate cell, Zipf alpha 1.1 over a pool
 # larger than the cache; 8 MB of pinned tier = 256 clusters of 25,348 B
@@ -1595,21 +1620,15 @@ def timed_heavy_hitter():
         heavy_hitter.update_batch = real_update
 
 
-def phase_main(stream, warm, results):
-    """``stream`` continues the stream the warmup came from. Returns the
-    ingested batches."""
-    cfg = full_config("int8", 64)
-    scfg = ServerConfig(max_batch=QUERIES, topk=TOPK, two_stage=True, nprobe=NPROBE)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    server = RAGServer(cfg, scfg, seed=SEED, warmup=warm, device="cuda")
-    torch.cuda.synchronize()
-    print(f"main path: k={cfg.clus.num_clusters} B={cfg.hh.bmax()} int8 depth "
-          f"{cfg.store_depth}, state {pipeline.state_memory_bytes(cfg) / 1e6:.1f} MB, "
-          f"init {time.perf_counter() - t0:.2f} s")
-
-    batches = [stream.next_batch(BATCH) for _ in range(MAIN_BATCHES)]
-    queries = stream.queries(QUERIES * 12)["embedding"]
+def serve_main_path(server, cfg, batches, queries, counter: str) -> dict:
+    """The main path's traffic on ``server``: counts reset just before, it
+    ingests ``batches`` and flushes 64 queries two-stage after each from the
+    fifth, then a prototype-only server on the same engine answers 128.
+    Asserts that admit, serve, mips and the counter's ``counter`` entry
+    (once a batch) launched, the other counter entry never, no plain
+    version ran, and every ticket was answered once. Returns the answers,
+    the prototype-only server, the launches and the ingest and counter
+    times (host clock between synchronizes) with the counter's calls."""
     counts.reset_all()
     ingest_ms, submitted, answers = [], 0, []
     with timed_heavy_hitter() as (hh_ms, hh_calls):
@@ -1632,19 +1651,44 @@ def phase_main(stream, warm, results):
         proto_answers = proto.drain()
     torch.cuda.synchronize()
     launches = counts.snapshot()
-    print(f"  launches on the main path: {launches}")
+    print(f"  launches on the path: {launches}")
     for name in ("admit", "serve", "mips"):
         assert launches[name]["kernel"] > 0, f"{name} kernel never launched"
-        results[name]["launches"] = launches[name]["kernel"]
-    # one heavy-hitter launch per ingest batch (its plain version: none)
-    assert launches["heavy_hitter"]["kernel"] == len(batches), launches["heavy_hitter"]
-    results["heavy_hitter"] = dict(launches=launches["heavy_hitter"]["kernel"])
+    # one counter launch per ingest batch, on the path its bmax takes
+    other = "heavy_hitter" if counter == "heavy_hitter_large" else "heavy_hitter_large"
+    assert launches[counter]["kernel"] == len(batches), launches[counter]
+    assert launches[other]["kernel"] == 0, launches[other]
     assert all(c["plain"] == 0 for c in launches.values()), "a plain version ran"
     assert len(answers) == submitted, (len(answers), submitted)
     assert sorted(a["ticket"] for a in answers) == list(range(submitted))
     assert len(proto_answers) == 2 * QUERIES
     answers_ok(answers, TOPK)
     answers_ok(proto_answers, TOPK)
+    return dict(answers=answers, submitted=submitted, proto=proto, proto_answers=proto_answers,
+                launches=launches, ingest_ms=ingest_ms, hh_ms=hh_ms, hh_calls=hh_calls)
+
+
+def phase_main(stream, warm, results):
+    """``stream`` continues the stream the warmup came from. Returns the
+    ingested batches."""
+    cfg = full_config("int8", 64)
+    scfg = ServerConfig(max_batch=QUERIES, topk=TOPK, two_stage=True, nprobe=NPROBE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = RAGServer(cfg, scfg, seed=SEED, warmup=warm, device="cuda")
+    torch.cuda.synchronize()
+    print(f"main path: k={cfg.clus.num_clusters} B={cfg.hh.bmax()} int8 depth "
+          f"{cfg.store_depth}, state {pipeline.state_memory_bytes(cfg) / 1e6:.1f} MB, "
+          f"init {time.perf_counter() - t0:.2f} s")
+
+    batches = [stream.next_batch(BATCH) for _ in range(MAIN_BATCHES)]
+    queries = stream.queries(QUERIES * 12)["embedding"]
+    run = serve_main_path(server, cfg, batches, queries, "heavy_hitter")
+    answers, proto, proto_answers = run["answers"], run["proto"], run["proto_answers"]
+    ingest_ms, hh_ms, hh_calls = run["ingest_ms"], run["hh_ms"], run["hh_calls"]
+    for name in ("admit", "serve", "mips"):
+        results[name]["launches"] = run["launches"][name]["kernel"]
+    results["heavy_hitter"] = dict(launches=run["launches"]["heavy_hitter"]["kernel"])
 
     eng = server.engine
     # device->host syncs the port makes in one more ingest batch, as torch
@@ -1681,7 +1725,7 @@ def phase_main(stream, warm, results):
           f"{eng.host_syncs / (len(batches) + 1):.0f} counted by the engine; at {sync_sites}")
     print(f"  two-stage flush p50 {lat['p50_ms']:.3f} ms p99 {lat['p99_ms']:.3f} ms over "
           f"{lat['batches']} flushes; prototype-only p50 {proto.latency_stats()['p50_ms']:.3f} ms")
-    print(f"  answered {len(answers)}/{submitted} two-stage + {len(proto_answers)}/"
+    print(f"  answered {len(answers)}/{run['submitted']} two-stage + {len(proto_answers)}/"
           f"{2 * QUERIES} prototype-only; upserts {eng.state.upserts}; index size "
           f"{eng.index_size()}; store fill {ctr['store_fill']:.4f}; admit rate "
           f"{ctr['admit_rate']:.3f}; max memory {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
@@ -1922,6 +1966,34 @@ def hh_zipf_cfg(policy, option):
     return heavy_hitter.HHConfig(**kw)
 
 
+def hh_large_cfg(policy, option, bmax):
+    """A counter of ``bmax`` slots past one block (adaptive: B_t from bmax
+    / 2 up to bmax), u_t 0.3."""
+    kw = dict(capacity=bmax, admit_prob=0.3, policy=policy)
+    if option == "morris":
+        kw["morris"] = True
+    elif option == "adaptive":
+        kw.update(capacity=bmax // 2, max_capacity=bmax, adaptive=True, window=32)
+    elif option == "gate":
+        kw["gate_below_capacity"] = True
+    return heavy_hitter.HHConfig(**kw)
+
+
+def hh_filled(cfg, rng, fill: float):
+    """A state whose first ``fill`` of the active slots hold distinct labels
+    (of 3 x capacity) with small counts, 5% of them emptied again."""
+    cap, bmax = cfg.capacity, cfg.bmax()
+    n = int(cap * fill)
+    labels = np.full(bmax, -1, np.int32)
+    labels[:n] = rng.permutation(3 * cap)[:n]
+    counts = np.zeros(bmax, np.int32)
+    counts[:n] = rng.integers(0, 6 if cfg.morris else 9, n)
+    holes = np.flatnonzero(rng.random(cap) < 0.05)
+    labels[holes], counts[holes] = -1, 0
+    return heavy_hitter.init(cfg, "cuda")._replace(labels=torch.from_numpy(labels).cuda(),
+                                                    counts=torch.from_numpy(counts).cuda())
+
+
 def phase_heavy_hitter(results, calls):
     """The heavy-hitter kernel against its plain loop, every leaf exact:
     on the main path's own 16 calls (MIN_EVICT, bmax 4218, the masked
@@ -1965,7 +2037,30 @@ def phase_heavy_hitter(results, calls):
             one = torch.from_numpy(zipf_ids(rng, HH_ZIPF_CLUSTERS, (1,))).cuda()
             hh_check(cfg, st_k, one, heavy_hitter.draw(cfg, 1, gen, "cuda"),
                      f"{policy.name} {option} B=1", chk)
-    chk.done(f"main x{len(calls)}, zipf 4 policies x 4 options, dropped, B=1")
+    # ---- the large path: the 1 GB and 4 GB budgets' bmax, a counter 97%
+    # full, two batches of 256 Zipf labels over 3 x capacity (20% dropped)
+    launched = counts.COUNTS["heavy_hitter_large"].kernel
+    for bmax in HH_LARGE_BMAX:
+        for policy in heavy_hitter.Policy:
+            for option in ("exact", "morris", "adaptive", "gate"):
+                cfg = hh_large_cfg(policy, option, bmax)
+                st_k = st_p = hh_filled(cfg, rng, 0.97)
+                for b in range(2):
+                    lab = ((rng.zipf(1.3, size=BATCH) - 1) % (3 * cfg.capacity)).astype(np.int32)
+                    lab[rng.random(BATCH) < 0.2] = -1
+                    lab = torch.from_numpy(lab).cuda()
+                    dr = heavy_hitter.draw(cfg, BATCH, gen, "cuda")
+                    got = update_batch_cuda(cfg, st_k, lab, dr)
+                    want = update_batch_ref(cfg, st_p, lab, dr)
+                    torch.cuda.synchronize()
+                    hh_hold(got, want, f"large {bmax} {policy.name} {option} batch {b}", chk)
+                    st_k, st_p = got[0], want[0]
+    launched = counts.COUNTS["heavy_hitter_large"].kernel - launched
+    if launched != 2 * 16 * len(HH_LARGE_BMAX):
+        chk.fail.append(f"the large path launched {launched} times in "
+                        f"{2 * 16 * len(HH_LARGE_BMAX)} calls")
+    chk.done(f"main x{len(calls)}, zipf 4 policies x 4 options, dropped, B=1; large path "
+             f"at bmax {HH_LARGE_BMAX} x 4 policies x 4 options")
     print(f"  hh: valid arrivals per main batch {valid}; zipf (writes, evictions) "
           f"after {HH_ZIPF_BATCHES} batches: {writes}")
     # ---- times: the main path's busiest batch; 256 valid Zipf arrivals at
@@ -1996,9 +2091,125 @@ def phase_heavy_hitter(results, calls):
         hh_check(cfg, st_z, lab, dr, f"{policy.name} bmax {cfg.capacity} zipf", chk)
         hh_timed(f"{policy.name} at bmax {cfg.capacity}, {BATCH} valid Zipf arrivals",
                  cfg, st_z, lab, dr)
+    # the large path with every arrival evicting: a full counter at the 1 GB
+    # bmax, u_t = 1, 256 novel labels (each reads the minimum, or its row)
+    bmax = HH_LARGE_BMAX[0]
+    for policy in (heavy_hitter.Policy.MIN_EVICT, heavy_hitter.Policy.RANDOM_EVICT):
+        cfg = heavy_hitter.HHConfig(capacity=bmax, admit_prob=1.0, policy=policy)
+        st_z = heavy_hitter.init(cfg, "cuda")._replace(
+            labels=torch.from_numpy(rng.permutation(4 * bmax)[:bmax].astype(np.int32)).cuda(),
+            counts=torch.from_numpy(rng.integers(0, 9, bmax).astype(np.int32)).cuda())
+        lab = torch.arange(10 * bmax, 10 * bmax + BATCH, dtype=torch.int32, device="cuda")
+        dr = heavy_hitter.draw(cfg, BATCH, gen, "cuda")
+        hh_check(cfg, st_z, lab, dr, f"{policy.name} bmax {bmax} every arrival evicts", chk)
+        hh_timed(f"{policy.name} at bmax {bmax} (large path), {BATCH} novel arrivals on a "
+                 "full counter, each evicting", cfg, st_z, lab, dr)
     chk.done("timed inputs")
     print("  heavy_hitter: no PyTorch call computes the same function (library_ms null)")
 
+
+
+def phase_main_1gb(results):
+    """3c. The main path at a 1 GB budget: ``budget_to_config(1000.0,
+    ...)`` with int8 rings of depth 64, k = B = 28,125, so the counter takes
+    the large path. A ``RAGServer`` seeded from the NYT-like stream's
+    warmup ingests 16 batches of 256 and flushes 64 queries two-stage from
+    the fifth, then a prototype-only server answers 128 on the same engine;
+    counts reset just before: admit, serve and mips launch, the large
+    counter once a batch, the one-block counter never, no plain version.
+    Answers against the plain versions on the card (near-tie rule); every
+    kernel of the path against its plain version at these shapes (admit
+    against 28,125 centroids, each of the 16 counter calls exact, serve at
+    cap 28,125, mips over 28,125 rows at k = 10 and 8). Prints ingest ms a
+    batch, flush p50/p99, peak memory and the card."""
+    smi = nvidia_smi()
+    cfg = pipeline.budget_to_config(BUDGET_1GB_MB, dim=384, base=paper_pipeline_config(
+        dim=384, store_depth=64, store_dtype="int8"))
+    K, d = cfg.clus.num_clusters, cfg.clus.dim
+    stream = make_stream("nyt", dim=d)
+    t0 = time.perf_counter()
+    warm = warmup_rows(stream, K)
+    batches = [stream.next_batch(BATCH) for _ in range(MAIN_BATCHES)]
+    queries = stream.queries(QUERIES * 12)["embedding"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scfg = ServerConfig(max_batch=QUERIES, topk=TOPK, two_stage=True, nprobe=NPROBE)
+    server = RAGServer(cfg, scfg, seed=SEED, warmup=warm, device="cuda")
+    torch.cuda.synchronize()
+    print(f"main path at {BUDGET_1GB_MB:.0f} MB: k={K} B={cfg.hh.bmax()} int8 depth "
+          f"{cfg.store_depth}, state {pipeline.state_memory_bytes(cfg) / 1e6:.1f} MB, "
+          f"warmup {warm.shape[0]} rows, init {time.perf_counter() - t0:.2f} s ({smi})")
+    run = serve_main_path(server, cfg, batches, queries, "heavy_hitter_large")
+    peak = torch.cuda.max_memory_allocated()
+    proto, ingest_ms, hh_ms, hh_calls = run["proto"], run["ingest_ms"], run["hh_ms"], run["hh_calls"]
+    results["heavy_hitter_large"] = dict(launches=run["launches"]["heavy_hitter_large"]["kernel"])
+    eng = server.engine
+    lat, plat = server.latency_stats(), proto.latency_stats()
+    steady = ingest_ms[1:]
+    print(f"  ingest ms/batch at 1 GB: median {np.median(steady):.2f} (first "
+          f"{ingest_ms[0]:.2f}); heavy-hitter update {np.median(hh_ms[1:]):.3f} ms (host clock "
+          f"between synchronizes, the large path); two-stage flush p50 {lat['p50_ms']:.3f} ms "
+          f"p99 {lat['p99_ms']:.3f} ms over {lat['batches']} flushes; prototype-only p50 "
+          f"{plat['p50_ms']:.3f} ms p99 {plat['p99_ms']:.3f} ms; peak memory "
+          f"{peak / 1e6:.1f} MB; upserts {eng.state.upserts}, index size {eng.index_size()} "
+          f"({smi})")
+    q = torch.from_numpy(queries[:QUERIES]).cuda()
+    for two in (True, False):
+        n = compare_with_plain(eng, q, two)
+        print(f"  {'two-stage' if two else 'prototype-only'} answers at 1 GB vs plain "
+              f"versions on the card: agree, {n} near-tie id swaps")
+
+    # every kernel of the path against its plain version at these shapes
+    st = eng.state
+    x = torch.from_numpy(batches[-1]["embedding"]).cuda()
+    live = torch.ones((BATCH,), dtype=torch.bool, device="cuda")
+    chk = Check("admit@1GB")
+    check_admit(x, st.pre.basis, st.clus.centroids, cfg.pre.alpha, live, "int8", chk)
+    chk.done(f"{BATCH} rows vs {K} centroids")
+    chk = Check("heavy_hitter_large")
+    valid = [int((lab >= 0).sum()) for _, _, lab, _ in hh_calls]
+    for i, (hcfg, hst, lab, dr) in enumerate(hh_calls):
+        hh_check(hcfg, hst, lab, dr, f"1 GB batch {i}", chk)
+    chk.done(f"the 1 GB path's {len(hh_calls)} calls, valid arrivals {valid}")
+    i = int(np.argmax(valid))
+    hcfg, hst, lab, dr = hh_calls[i]
+    ms, host, plain, b_ms, b_by = hh_timed(
+        f"at the 1 GB path's batch {i} (MIN_EVICT, bmax {hst.labels.shape[0]}, large path, "
+        f"{valid[i]} valid of {BATCH})", hcfg, hst, lab, dr)
+    results["heavy_hitter_large"].update(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                         bound_by=b_by, library_ms=None, host_ms=host)
+    new, _ = update_batch_cuda(hcfg, hst, lab, dr)
+    evicting = int(new.total_evictions) - int(hst.total_evictions)
+    profile_entry("heavy_hitter_large", "heavy_hitter_large",
+                  lambda: hh_ops.update_batch(hcfg, hst, lab, dr),
+                  hh_work(hcfg, lab.shape[0], hst.labels.shape[0], evicting))
+    qn = l2_normalize(q)
+    chk = Check("mips@1GB")
+    check_mips(qn, st.index.vectors, st.index.valid, TOPK, chk)
+    check_mips(qn, st.index.vectors, st.index.valid, NPROBE, chk)
+    chk.done(f"{QUERIES} x {st.index.vectors.shape[0]}, k {TOPK} and {NPROBE}")
+    chk = Check("serve@1GB")
+    scales = st.store.scales if st.store.embs.dtype == torch.int8 else None
+    check_serve(qn, qn, st.index.vectors, st.index.valid, st.route_labels, st.store.embs,
+                st.store.ids >= 0, scales, TOPK, NPROBE, chk)
+    chk.done(f"cap {st.index.vectors.shape[0]}, int8 depth {cfg.store_depth}")
+    m_ms = cuda_ms(lambda: mips_topk_cuda(qn, st.index.vectors, st.index.valid, TOPK))[0]
+    s_ms = cuda_ms(lambda: serve_topk_cuda(qn, qn, st.index.vectors, st.index.valid,
+                                           st.route_labels, st.store.embs, st.store.ids >= 0,
+                                           TOPK, NPROBE, scales))[0]
+    a_ms = cuda_ms(lambda: admit_cuda(x, st.pre.basis, st.clus.centroids, cfg.pre.alpha, live,
+                                      store_dtype="int8"))[0]
+    print(f"  at 1 GB: mips {m_ms:.4f} ms, serve {s_ms:.4f} ms, admit {a_ms:.4f} ms device "
+          f"({mips_split(qn, st.index.vectors, st.index.valid, TOPK)})")
+    more = iter([stream.next_batch(BATCH) for _ in range(3)])   # a warm call, two profiled
+
+    def ingest_one():
+        b = next(more)
+        eng.ingest(b["embedding"], b["doc_id"])
+
+    step_breakdown(ingest_one, what="one ingest batch at 1 GB")
+    del server, proto, eng, st, hh_calls
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------- async
@@ -3341,7 +3552,7 @@ def kernels_by_name(launches) -> list[tuple[str, float, int]]:
     return sorted(((n, ms, k) for n, (ms, k) in by_name.items()), key=lambda r: -r[1])
 
 
-def step_breakdown(fn, top: int = 8):
+def step_breakdown(fn, top: int = 8, what: str = "one mind train step"):
     """One warm call of ``fn`` under torch.profiler: the device time by
     kernel name (the top ``top``), their sum against the host clock."""
     wall, launches = profiled_launches(fn)
@@ -3351,7 +3562,7 @@ def step_breakdown(fn, top: int = 8):
     # counted twice) shows as a negative share and is flagged
     idle = 1 - total / wall
     flag = "; KERNEL TIME EXCEEDS THE WALL: the count is suspect" if idle < 0 else ""
-    print(f"  one mind train step under torch.profiler: {wall:.2f} ms host clock, "
+    print(f"  {what} under torch.profiler: {wall:.2f} ms host clock, "
           f"{total:.2f} ms of kernels ({len(launches)} launches; "
           f"device idle share {idle:.3f}{flag}); by device time:")
     for name, ms, n in rows[:top]:
@@ -4895,7 +5106,8 @@ def entry_profiles(smi: str, fails: list):
     """12b. The kernel entries ``profile_entry`` profiled in the phases
     that hold their inputs."""
     want = {"admit", "serve", "serve_route", "mips", "rerank", "prefilter", "assign", "bag",
-            "bag_backward", "gather_backward", "segment_sum", "heavy_hitter"}
+            "bag_backward", "gather_backward", "segment_sum", "heavy_hitter",
+            "heavy_hitter_large"}
     missing = want - {p["name"] for p in PROFILES}
     if missing:
         fails.append(f"entries not profiled: {sorted(missing)}")
@@ -4967,6 +5179,7 @@ def main() -> int:
     batches, hh_calls, sync_lat = phase_main(stream, warm, results)
     phase_heavy_hitter(results, hh_calls)
     del hh_calls
+    phase_main_1gb(results)
     phase_staged(stream, warm, batches, results)
     phase_async(stream, warm, batches, sync_lat)
     phase_async(stream, warm, batches, sync_lat, switch_s=0.0005)

@@ -97,14 +97,46 @@
 // The other warps serve the scans until warp 0's chain ends, then write
 // the valid arrivals' info in parallel. The wrapper's plan
 // (kernels/heavy_hitter/heavy_hitter.py::heavy_hitter_plan) sizes the
-// block, the table and the staging, and refuses a bmax past shared memory.
+// block, the table and the staging; it takes bmax up to 21,392 slots with
+// no sketch (18,308 beside a 8,192-cell sketch).
+//
+// The large path, past that (update_plan picks it from the shape; a 1 GB
+// budget gives bmax 28,125, 4 GB 112,501): the same chain, on the state in
+// device memory, where it stays L2-resident (32 bytes a slot with the
+// table: 3.6 MB at 112,501 of the 50 MB L2). Two launches.
+// (1) heavy_hitter_prep_kernel over the card copies the state into the
+//   outputs, which the chain then updates in place, and builds the empty
+//   bitmap and the label -> slot table with 32-bit slot indices (the same
+//   atomicCAS insert, on device memory), each slot group's least count,
+//   and the chain's starting counts: what one block of 512 threads would
+//   take about 28,000 slots / 16 warps of dependent device-memory round
+//   trips to build, many blocks build at once.
+// (2) heavy_hitter_kernel<true>, one block, the chain above unchanged but
+//   for where its arrays live. A miss on a full counter reads the least
+//   count below B_t; a pass over bmax counts in device memory would make
+//   every such arrival (all of them under MIN_EVICT once full) cost about
+//   bmax * 8 bytes of L2 traffic through one SM. Instead shared memory
+//   holds the least count of each group of 64 slots (larger groups where
+//   the minima would not fit: past 3.4 M slots) and a dirty bit a group;
+//   every count the chain writes sets its group's bit, and a scan refreshes
+//   the dirty groups, then reads the minima (block_min_grouped): its cost
+//   barely moves with bmax. RANDOM_EVICT's Gumbel rows are read from device
+//   memory (two rows of bmax floats do not fit beside the chunk), as the
+//   one-block kernel reads them past 8,436 slots.
+// Design weighed against: a cluster of up to 8 (16) blocks striping the
+// slots and the table over distributed shared memory. Each block's share
+// (16 bytes a slot with the table) still caps it near 110 K slots, so a
+// device-memory tier is needed past that anyway, and every probe of the
+// chain would cross the cluster. One path whose only ceiling is device
+// memory (and int32 slot arithmetic: bmax <= 2^29) covers every size.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kEmpty = -1;
 constexpr int kChunk = 256;             // arrivals staged a chunk
-constexpr unsigned kNoSlot = 0xffffu;   // an unused table entry
 constexpr unsigned kNone = 0xffffffffu;
 constexpr int kCand = 1 << 16;          // chunk flag: a Gumbel-row candidate
 constexpr int kAfterDrop = 1 << 17;     // chunk flag: a dropped run ends here
@@ -148,6 +180,13 @@ struct HHPtrs {
   unsigned char* hit;
   int* evicted_label;
   int* slot;
+  // the large path's scratch (null for the one-block kernel)
+  // table, gmin and scratch lie end to end, set to all ones by one memset
+  unsigned* table;   // [table] 32-bit label -> slot entries, all ones = unused
+  unsigned* gmin;    // [ceil(bmax / 2^gshift)] least count of each slot group, as
+                     // its order key (count ^ 0x80000000: all ones is INT_MAX)
+  unsigned* scratch; // [4]: duplicate holders - 1, occupied below B_t - 1, first empty
+  unsigned* bits;    // [ceil(bmax / 32)] empty slots
 };
 
 struct HHConf {
@@ -156,6 +195,7 @@ struct HHConf {
   float u0, novel_hi, novel_lo, u_growth, u_max;
   int table;   // entries of the label -> slot table
   int stage;   // 1: stage Gumbel rows in shared memory (RANDOM_EVICT)
+  int gshift;  // large path: log2 of the slots a minimum-summary group holds
 };
 
 struct HHArgs {
@@ -216,17 +256,24 @@ __device__ __forceinline__ unsigned next_pos(unsigned p, unsigned T) {
   return p + 1 == T ? 0u : p + 1;
 }
 
+// An unused table entry: all ones in the entry's type (16-bit slot indices
+// in the one-block kernel, 32-bit in the large path)
+template <typename E>
+__host__ __device__ __forceinline__ constexpr unsigned no_slot() {
+  return sizeof(E) == 2 ? 0xffffu : 0xffffffffu;
+}
+
 struct Probe {
   unsigned pos;  // the label's entry, or the empty entry that ends its chain
   int slot;      // the lowest slot holding the label, -1 if none
 };
 
-__device__ __forceinline__ Probe probe(const unsigned short* tab, const int* lab, unsigned T,
-                                       int label) {
+template <typename E>
+__device__ __forceinline__ Probe probe(const E* tab, const int* lab, unsigned T, int label) {
   unsigned p = table_home(label, T);
   while (true) {
     const unsigned e = tab[p];
-    if (e == kNoSlot) return {p, -1};
+    if (e == no_slot<E>()) return {p, -1};
     if (lab[e] == label) return {p, (int)e};
     p = next_pos(p, T);
   }
@@ -234,19 +281,24 @@ __device__ __forceinline__ Probe probe(const unsigned short* tab, const int* lab
 
 // Every thread inserts its slots in parallel: claim an empty entry, or
 // lower the label's entry to this slot. Returns 1 where the label already
-// had an entry (this slot or another is a duplicate holder).
-__device__ __forceinline__ int table_build_insert(unsigned short* tab, const int* lab,
-                                                  unsigned T, int label, unsigned s) {
+// had an entry (this slot or another is a duplicate holder). A 16-bit
+// entry is swapped within the 32-bit word that holds it; a 32-bit entry (the
+// large path's table, in device memory) is first tried as empty, which a
+// table cleared just before mostly is: one round trip, not two.
+template <typename E>
+__device__ __forceinline__ int table_build_insert(E* tab, const int* lab, unsigned T, int label,
+                                                  unsigned s) {
+  constexpr unsigned kNoSlot = no_slot<E>();
   unsigned p = table_home(label, T);
   while (true) {
-    unsigned* w = (unsigned*)tab + (p >> 1);
-    const unsigned sh = (p & 1u) * 16u;
-    unsigned old = *(volatile unsigned*)w;
+    unsigned* w = sizeof(E) == 2 ? (unsigned*)tab + (p >> 1) : (unsigned*)tab + p;
+    const unsigned sh = sizeof(E) == 2 ? (p & 1u) * 16u : 0u;
+    unsigned old = sizeof(E) == 4 ? kNoSlot : *(volatile unsigned*)w;
     while (true) {
-      const unsigned e = (old >> sh) & 0xffffu;
+      const unsigned e = (old >> sh) & kNoSlot;
       if (e != kNoSlot && lab[e] != label) break;   // another label's: probe on
       if (e != kNoSlot && e <= s) return 1;          // a lower holder is in
-      const unsigned want = (old & ~(0xffffu << sh)) | (s << sh);
+      const unsigned want = (old & ~(kNoSlot << sh)) | (s << sh);
       const unsigned got = atomicCAS(w, old, want);
       if (got == old) return e != kNoSlot;
       old = got;   // this entry or its neighbour changed: look again
@@ -257,20 +309,21 @@ __device__ __forceinline__ int table_build_insert(unsigned short* tab, const int
 
 // Backward-shift deletion of the entry at i (linear probing keeps every
 // chain unbroken without tombstones). One thread.
-__device__ void table_erase(unsigned short* tab, const int* lab, unsigned T, unsigned i) {
+template <typename E>
+__device__ void table_erase(E* tab, const int* lab, unsigned T, unsigned i) {
   unsigned j = i;
   while (true) {
     j = next_pos(j, T);
     const unsigned e = tab[j];
-    if (e == kNoSlot) break;
+    if (e == no_slot<E>()) break;
     const unsigned k = table_home(lab[e], T);
     // the entry stays where it is if its home lies cyclically in (i, j]
     const bool stays = i <= j ? (i < k && k <= j) : (i < k || k <= j);
     if (stays) continue;
-    tab[i] = (unsigned short)e;
+    tab[i] = (E)e;
     i = j;
   }
-  tab[i] = (unsigned short)kNoSlot;
+  tab[i] = (E)no_slot<E>();
 }
 
 // ---- warp-collective scans (warp 0, uniform arguments, uniform results)
@@ -376,6 +429,76 @@ __device__ __noinline__ int2 block_min_count(const int* cnt, int n, ScanParts& p
   first = kNone;
   for (int w = 0; w < nt >> 5; ++w) first = min(first, parts.u[w]);
   return make_int2(m, first == kNone ? 0 : (int)first);
+}
+
+// The large path's (count, slot) minimum over counts [0, n), all occupied:
+// block_min_count's answer, read through a summary instead of a pass over
+// every count in device memory. Slots are grouped 2^gs to a group; gmin[g]
+// (shared) is the least count of group g as of the last scan, and a set bit
+// of `dirty` (shared) marks a group one of whose counts was written since.
+// First the dirty groups are refreshed (a warp a word of dirty bits, a lane
+// a group, its counts read as 16-byte vectors), then the least of the whole
+// groups below n and of the slots of the partial group at n, then the
+// lowest whole group or partial slot that holds it, then, every warp alike,
+// the lowest slot of that group holding it: three barriers and about two
+// round trips to device memory, whatever bmax is.
+__device__ __noinline__ int2 block_min_grouped(const int* cnt, int bmax, int* gmin,
+                                               unsigned* dirty, int gs, int n,
+                                               ScanParts& parts) {
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = nt >> 5, size = 1 << gs;
+  const int dwords = ((((bmax - 1) >> gs) + 1) + 31) >> 5;
+  for (int w = warp; w < dwords; w += nw) {
+    const unsigned bits = dirty[w];   // warp-uniform
+    if (!bits) continue;
+    if ((bits >> lane) & 1u) {
+      const int gi = (w << 5) + lane, s0 = gi << gs, s1 = min(s0 + size, bmax);
+      int m = INT_MAX;
+      if (s1 - s0 == size) {   // a whole group: 16-byte loads (s0 is a multiple of 64)
+        const int4* c4 = (const int4*)(cnt + s0);
+        for (int q = 0; q < size >> 2; ++q) {
+          const int4 v = c4[q];
+          m = min(m, min(min(v.x, v.y), min(v.z, v.w)));
+        }
+      } else {
+        for (int s = s0; s < s1; ++s) m = min(m, cnt[s]);
+      }
+      gmin[gi] = m;
+    }
+    __syncwarp();
+    if (lane == 0) dirty[w] = 0u;
+  }
+  bar_named(2, nt);
+  const int full = max(n, 0) >> gs, rest0 = full << gs;   // whole groups below n
+  int m = INT_MAX;
+  for (int gi = tid; gi < full; gi += nt) m = min(m, gmin[gi]);
+  for (int s = rest0 + tid; s < n; s += nt) m = min(m, cnt[s]);
+  m = __reduce_min_sync(REPRO_FULL_MASK, m);
+  if (lane == 0) parts.i[warp] = m;
+  bar_named(2, nt);
+  m = INT_MAX;
+  for (int w = 0; w < nw; ++w) m = min(m, parts.i[w]);
+  unsigned first = kNone;   // a whole group's first slot, or a partial slot
+  for (int gi = tid; gi < full; gi += nt)
+    if (gmin[gi] == m) first = min(first, (unsigned)(gi << gs));
+  for (int s = rest0 + tid; s < n; s += nt)
+    if (cnt[s] == m) first = min(first, (unsigned)s);
+  first = __reduce_min_sync(REPRO_FULL_MASK, first);
+  if (lane == 0) parts.u[warp] = first;
+  bar_named(2, nt);
+  first = kNone;
+  for (int w = 0; w < nw; ++w) first = min(first, parts.u[w]);
+  if (first == kNone) return make_int2(m, 0);   // n <= 0
+  if ((int)first < rest0) {   // the group's lowest slot holding m
+    for (int s0 = (int)first;; s0 += 32) {
+      const unsigned hit = __ballot_sync(REPRO_FULL_MASK, cnt[s0 + lane] == m);
+      if (hit) {
+        first = (unsigned)(s0 + __ffs(hit) - 1);
+        break;
+      }
+    }
+  }
+  return make_int2(m, (int)first);
 }
 
 // torch.argmax over a Gumbel row: values p[j], j < n, at slots head + j,
@@ -495,25 +618,46 @@ __device__ __forceinline__ void copy_ints(int* __restrict__ dst, const int* __re
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
+// LARGE: the large path's chain (state, table and empty bitmap in device
+// memory, built by heavy_hitter_prep_kernel; a minimum summary in shared
+// memory); else the one-block kernel (everything in shared memory).
+template <bool LARGE>
 __global__ void __launch_bounds__(512, 1) heavy_hitter_kernel(const __grid_constant__ HHArgs args) {
+  using E = typename std::conditional<LARGE, unsigned, unsigned short>::type;
   const HHPtrs& g = args.p;
   const HHConf& a = args.c;
   // shared memory: every array starts on 16 bytes (heavy_hitter_plan's
-  // layout, in the same order)
+  // layout, in the same order; large_plan's for the large path)
   extern __shared__ __align__(16) int smem[];
   const int bmax = a.bmax, bmax4 = round4(bmax);
   const int cells = a.policy == kCountMin ? a.cms_depth * a.cms_width : 0;
   const int words = (bmax + 31) >> 5;
-  int* lab = smem;                                  // [bmax]
-  int* cnt = lab + bmax4;                           // [bmax]
-  int* sk = cnt + bmax4;                            // [depth * width] (COUNT_MIN)
-  unsigned* bits = (unsigned*)(sk + round4(cells)); // [words] empty slots
-  int* c_lab = (int*)bits + round4(words);          // [kChunk] label, then slot out
+  int *lab, *cnt, *sk, *c_lab, *gmin = nullptr;
+  unsigned *bits, *dirty = nullptr;
+  float* gbuf;
+  E* tab;
+  if constexpr (LARGE) {
+    lab = g.out_labels;   // the prep kernel copied the state in
+    cnt = g.out_counts;
+    sk = g.out_cms;
+    bits = g.bits;
+    tab = g.table;
+    c_lab = smem;
+    gmin = c_lab + 4 * kChunk;                                  // [groups]
+    dirty = (unsigned*)gmin + round4(((bmax - 1) >> a.gshift) + 1);   // [groups / 32]
+    gbuf = nullptr;
+  } else {
+    lab = smem;                                 // [bmax]
+    cnt = lab + bmax4;                          // [bmax]
+    sk = cnt + bmax4;                           // [depth * width] (COUNT_MIN)
+    bits = (unsigned*)(sk + round4(cells));     // [words] empty slots
+    c_lab = (int*)bits + round4(words);         // [kChunk] label, then slot out
+    gbuf = (float*)(c_lab + 4 * kChunk);        // [2][bmax] (staged Gumbel rows)
+    tab = (E*)(gbuf + (a.stage ? 2 * bmax4 : 0));
+  }
   int* c_u = c_lab + kChunk;                        // gate uniform, then evicted label
   int* c_m = c_u + kChunk;                          // Morris uniform, then the flags
   int* c_idx = c_m + kChunk;                        // arrival in the chunk | flags
-  float* gbuf = (float*)(c_idx + kChunk);           // [2][bmax] (staged Gumbel rows)
-  unsigned short* tab = (unsigned short*)(gbuf + (a.stage ? 2 * bmax4 : 0));
   const unsigned T = (unsigned)a.table;
   __shared__ __align__(8) unsigned long long bar[2];
   __shared__ int wcount[kChunk / 32];
@@ -548,34 +692,42 @@ __global__ void __launch_bounds__(512, 1) heavy_hitter_kernel(const __grid_const
     if (a.morris_on) pre_m = g.morris[tid];
     if (tid > 0) pre_prev = g.labels[tid - 1];
   }
-  // ---- the state in; the table cleared; the barriers armed
-  copy_ints(lab, g.slot_labels, bmax, tid, nt);
-  copy_ints(cnt, g.slot_counts, bmax, tid, nt);
-  if (cells) copy_ints(sk, g.cms, cells, tid, nt);
-  for (int q = tid; q < (int)(T + 7) / 8; q += nt)
-    ((int4*)tab)[q] = make_int4(-1, -1, -1, -1);
-  if (tid == 0) {
-    dup_sum = 0;
-    if (a.stage) {
-      mbar_init(&bar[0]);
-      mbar_init(&bar[1]);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  if constexpr (LARGE) {
+    // ---- the prep kernel's group minima in, no group dirty
+    const int groups = ((bmax - 1) >> a.gshift) + 1;
+    for (int q = tid; q < groups; q += nt) gmin[q] = (int)(g.gmin[q] ^ 0x80000000u);
+    for (int q = tid; q < (groups + 31) >> 5; q += nt) dirty[q] = 0u;
+    __syncthreads();
+  } else {
+    // ---- the state in; the table cleared; the barriers armed
+    copy_ints(lab, g.slot_labels, bmax, tid, nt);
+    copy_ints(cnt, g.slot_counts, bmax, tid, nt);
+    if (cells) copy_ints(sk, g.cms, cells, tid, nt);
+    for (int q = tid; q < (int)(T + 7) / 8; q += nt)
+      ((int4*)tab)[q] = make_int4(-1, -1, -1, -1);
+    if (tid == 0) {
+      dup_sum = 0;
+      if (a.stage) {
+        mbar_init(&bar[0]);
+        mbar_init(&bar[1]);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      }
     }
+    __syncthreads();
+    // ---- the table and the empty bitmap, in one pass: warp w takes words
+    // w, w + nw, ..., lane l the slot 32 * word + l
+    int dup = 0;
+    for (int w = warp; w < words; w += nw) {
+      const int s = 32 * w + lane;
+      const int l = s < bmax ? lab[s] : 0;
+      const unsigned empty = __ballot_sync(REPRO_FULL_MASK, s < bmax && l == kEmpty);
+      if (lane == 0) bits[w] = empty;
+      if (s < bmax && l >= 0) dup += table_build_insert(tab, lab, T, l, (unsigned)s);
+    }
+    dup = __reduce_add_sync(REPRO_FULL_MASK, dup);
+    if (lane == 0 && dup) atomicAdd(&dup_sum, dup);
+    __syncthreads();
   }
-  __syncthreads();
-  // ---- the table and the empty bitmap, in one pass: warp w takes words
-  // w, w + nw, ..., lane l the slot 32 * word + l
-  int dup = 0;
-  for (int w = warp; w < words; w += nw) {
-    const int s = 32 * w + lane;
-    const int l = s < bmax ? lab[s] : 0;
-    const unsigned empty = __ballot_sync(REPRO_FULL_MASK, s < bmax && l == kEmpty);
-    if (lane == 0) bits[w] = empty;
-    if (s < bmax && l >= 0) dup += table_build_insert(tab, lab, T, l, (unsigned)s);
-  }
-  dup = __reduce_add_sync(REPRO_FULL_MASK, dup);
-  if (lane == 0 && dup) atomicAdd(&dup_sum, dup);
-  __syncthreads();
 
   // ---- warp 0's registers: the scalars and the chain's bookkeeping
   int lim = 0, occ = 0, cursor = 0, dups = 0;
@@ -584,11 +736,28 @@ __global__ void __launch_bounds__(512, 1) heavy_hitter_kernel(const __grid_const
   int hd0 = 0, hd1 = 0, ni0 = 0, ni1 = 0;   // a row's head floats, interior floats
   if (warp == 0) {
     lim = min(st.cap, bmax);
-    occ = occupied_below(bits, lim, lane);
-    cursor = next_set(bits, words, 0, bmax, lane);
-    dups = dup_sum;
+    if constexpr (LARGE) {   // counted by the prep kernel, on all ones
+      dups = (int)(g.scratch[0] + 1u);
+      occ = (int)(g.scratch[1] + 1u);
+      cursor = g.scratch[2] < (unsigned)bmax ? (int)g.scratch[2] : bmax;
+    } else {
+      occ = occupied_below(bits, lim, lane);
+      cursor = next_set(bits, words, 0, bmax, lane);
+      dups = dup_sum;
+    }
     if (lane == 0) room_left = st.cap - occ;
   }
+  // the large path marks the summary group of every slot whose count it writes
+  auto mark = [&](int s) {
+    if constexpr (LARGE) {
+      const int gi = s >> a.gshift;
+      atomicOr(&dirty[gi >> 5], 1u << (gi & 31));
+    }
+  };
+  auto min_scan = [&](int n) -> int2 {
+    if constexpr (LARGE) return block_min_grouped(cnt, bmax, gmin, dirty, a.gshift, n, parts);
+    else return block_min_count(cnt, n, parts);
+  };
   // the largest u_t the batch can reach (a uniform above it never passes
   // the gate, so its arrival never evicts); +inf where a shrink can raise u
   float u_top = st.u;
@@ -710,7 +879,7 @@ __global__ void __launch_bounds__(512, 1) heavy_hitter_kernel(const __grid_const
             scan_req.n = lim;
           }
           bar_named(1, nt);
-          const int2 mv = block_min_count(cnt, lim, parts);
+          const int2 mv = min_scan(lim);
           min_count = mv.x;
           victim = mv.y;
         }
@@ -782,14 +951,15 @@ __global__ void __launch_bounds__(512, 1) heavy_hitter_kernel(const __grid_const
             }
           if (write) {
             if (old >= 0 && po.slot == slot) {
-              if (next_holder >= 0) tab[po.pos] = (unsigned short)next_holder;
+              if (next_holder >= 0) tab[po.pos] = (E)next_holder;
               else table_erase(tab, lab, T, po.pos);
             }
             lab[slot] = label;
             cnt[slot] = new_count;
+            mark(slot);
             if (!do_hit) {   // the label's entry now names this slot (its lowest)
               const unsigned pos = old >= 0 ? probe(tab, lab, T, label).pos : pn.pos;
-              tab[pos] = (unsigned short)slot;
+              tab[pos] = (E)slot;
               if (old == kEmpty) bits[slot >> 5] &= ~(1u << (slot & 31));
             }
           }
@@ -925,6 +1095,7 @@ __global__ void __launch_bounds__(512, 1) heavy_hitter_kernel(const __grid_const
         if (inserts) {   // before a table entry names the slot
           lab[islot] = label;
           if (!a.morris_on) cnt[islot] = 1;
+          mark(islot);
         }
         __syncwarp();
         int existed = 0;
@@ -936,7 +1107,10 @@ __global__ void __launch_bounds__(512, 1) heavy_hitter_kernel(const __grid_const
           for (int r = 0; r < a.cms_depth; ++r)
             atomicAdd(&sk[r * a.cms_width + cms_col(label, r, a.cms_width)], 1);
         if (!a.morris_on) {   // exact counts: every hit adds one, in any order
-          if (hit) atomicAdd(&cnt[slot], 1);
+          if (hit) {
+            atomicAdd(&cnt[slot], 1);
+            mark(slot);
+          }
         } else {   // Morris: each slot's lowest writer steps its count in arrival order
           const unsigned wsame = __match_any_sync(REPRO_FULL_MASK, writes ? slot : -1 - lane);
           if (writes && lane == __ffs(wsame) - 1) {
@@ -947,6 +1121,7 @@ __global__ void __launch_bounds__(512, 1) heavy_hitter_kernel(const __grid_const
               c = wrap_add(c, mu < exp2f(-(float)c) ? 1 : 0);
             }
             cnt[slot] = c;
+            mark(slot);
           }
         }
         __syncwarp();
@@ -986,7 +1161,7 @@ __global__ void __launch_bounds__(512, 1) heavy_hitter_kernel(const __grid_const
         const ScanReq r = scan_req;
         if (r.kind == kScanDone) break;
         if (r.kind == kScanMin) {
-          block_min_count(cnt, r.n, parts);
+          min_scan(r.n);
         } else {
           if (r.wait_bar >= 0)   // a staged row: its copy has landed (warp 0 saw it too)
             while (!mbar_try_wait(&bar[r.wait_bar], r.parity)) {
@@ -1010,10 +1185,12 @@ __global__ void __launch_bounds__(512, 1) heavy_hitter_kernel(const __grid_const
   // a dropped run that ends the batch takes its one window step
   if (warp == 0 && a.B > 0 && g.labels[a.B - 1] < 0) window_step(a, st);
 
-  // ---- the state out
-  copy_ints(g.out_labels, lab, bmax, tid, nt);
-  copy_ints(g.out_counts, cnt, bmax, tid, nt);
-  if (cells) copy_ints(g.out_cms, sk, cells, tid, nt);
+  // ---- the state out (the large path wrote it in place)
+  if constexpr (!LARGE) {
+    copy_ints(g.out_labels, lab, bmax, tid, nt);
+    copy_ints(g.out_counts, cnt, bmax, tid, nt);
+    if (cells) copy_ints(g.out_cms, sk, cells, tid, nt);
+  }
   if (tid == 0) {
     *g.out_admit_prob = st.u;
     *g.out_active_capacity = st.cap;
@@ -1025,15 +1202,84 @@ __global__ void __launch_bounds__(512, 1) heavy_hitter_kernel(const __grid_const
   }
 }
 
+// The large path's first launch, over the whole card: the state copied
+// into the outputs (the chain then updates it in place), the empty bitmap,
+// the label -> slot table (32-bit entries), each summary group's least
+// count, and what the chain starts from: the duplicate holders, the
+// occupied slots below B_t and the first empty slot. The table, the group
+// minima and the counts were set to all ones just before, so an empty entry,
+// INT_MAX's order key and a count of -1 need no other pass: minima are
+// atomicMin on order keys, counts atomicAdd onto -1, the first empty slot
+// atomicMin. A warp a word of 32 slots; every read is of the state in, so no
+// block waits on another.
+__global__ void __launch_bounds__(256) heavy_hitter_prep_kernel(const __grid_constant__ HHArgs args) {
+  const HHPtrs& g = args.p;
+  const HHConf& a = args.c;
+  const int bmax = a.bmax, words = (bmax + 31) >> 5, lane = threadIdx.x & 31;
+  const int thread = blockIdx.x * blockDim.x + threadIdx.x, threads = gridDim.x * blockDim.x;
+  const int lim = min(*g.active_capacity, bmax);
+  int dup = 0, occ = 0;
+  unsigned first_empty = kNone;
+  for (int w = thread >> 5; w < words; w += threads >> 5) {
+    const int s = 32 * w + lane;
+    int l = kEmpty, c = INT_MAX;
+    if (s < bmax) {
+      l = g.slot_labels[s];
+      c = g.slot_counts[s];
+      g.out_labels[s] = l;
+      g.out_counts[s] = c;
+    }
+    const unsigned empty = __ballot_sync(REPRO_FULL_MASK, s < bmax && l == kEmpty);
+    const int m = __reduce_min_sync(REPRO_FULL_MASK, c);
+    if (lane == 0) {
+      g.bits[w] = empty;
+      atomicMin(&g.gmin[(32 * w) >> a.gshift], (unsigned)m ^ 0x80000000u);
+    }
+    if (s < bmax && l >= 0)
+      dup += table_build_insert(g.table, g.slot_labels, (unsigned)a.table, l, (unsigned)s);
+    if (s < lim && l != kEmpty) ++occ;
+    if (s < bmax && l == kEmpty) first_empty = min(first_empty, (unsigned)s);
+  }
+  if (a.policy == kCountMin)
+    for (int i = thread; i < a.cms_depth * a.cms_width; i += threads) g.out_cms[i] = g.cms[i];
+  dup = __reduce_add_sync(REPRO_FULL_MASK, dup);
+  occ = __reduce_add_sync(REPRO_FULL_MASK, occ);
+  first_empty = __reduce_min_sync(REPRO_FULL_MASK, first_empty);
+  if (lane == 0) {
+    if (dup) atomicAdd(&g.scratch[0], (unsigned)dup);
+    if (occ) atomicAdd(&g.scratch[1], (unsigned)occ);
+    if (first_empty != kNone) atomicMin(&g.scratch[2], first_empty);
+  }
+}
+
 }  // namespace
 
 // threads and smem (dynamic bytes: the slots, the sketch, the bitmap, the
 // staged chunk, the Gumbel buffers, the table) are the wrapper's plan.
 extern "C" int heavy_hitter_launch(const HHPtrs* ptrs, const HHConf* conf, int threads,
                                    long long smem, void* stream) {
-  cudaError_t err = allow_smem(heavy_hitter_kernel, (size_t)smem);
+  cudaError_t err = allow_smem(heavy_hitter_kernel<false>, (size_t)smem);
   if (err != cudaSuccess) return (int)err;
   const HHArgs args{*ptrs, *conf};
-  heavy_hitter_kernel<<<1, threads, (size_t)smem, (cudaStream_t)stream>>>(args);
+  heavy_hitter_kernel<false><<<1, threads, (size_t)smem, (cudaStream_t)stream>>>(args);
+  return (int)cudaGetLastError();
+}
+
+// The large path (kernels/heavy_hitter/heavy_hitter.py::large_plan): the
+// table, the group minima and the counts (end to end) set to all ones, the
+// prep kernel on prep_blocks blocks of 256, then the chain, one block of
+// `threads` with smem dynamic bytes (the staged chunk, the group minima,
+// their dirty bits).
+extern "C" int heavy_hitter_large_launch(const HHPtrs* ptrs, const HHConf* conf, int threads,
+                                         long long smem, int prep_blocks, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = allow_smem(heavy_hitter_kernel<true>, (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  const size_t ones = (size_t)((char*)(ptrs->scratch + 4) - (char*)ptrs->table);
+  if ((err = cudaMemsetAsync(ptrs->table, 0xff, ones, st)) != cudaSuccess) return (int)err;
+  const HHArgs args{*ptrs, *conf};
+  heavy_hitter_prep_kernel<<<prep_blocks, 256, 0, st>>>(args);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  heavy_hitter_kernel<true><<<1, threads, (size_t)smem, st>>>(args);
   return (int)cudaGetLastError();
 }

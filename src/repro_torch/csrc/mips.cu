@@ -4,17 +4,37 @@
 //
 // Two paths, chosen from the shape by the wrapper (kernels/mips/mips.py,
 // mips_plan), each two launches: select per block of index rows, then
-// merge per query.
+// merge per query. Both paths merge with mips_threshold_merge_kernel.
 //
 // Blocked path — small index, small k (the streaming-RAG flush: Q = 64
-// queries against 4218 x 384 prototypes, k = 10). Bound there: about 0.2
-// GFLOP of fp32 (3 us at 67 TFLOP/s) against 6.5 MB read (2 us).
-// rows_topk_kernel (topk.cuh) scores blocks of 8
-// queries against bn rows (warp per row, each row read once per 8
-// queries) and keeps each query's top-k per block by k warp-wide passes;
-// mips_merge_kernel (one warp per query) merges the survivors in k passes.
-// Both costs grow with k and with the number of blocks, which is small
-// here.
+// queries against 4218 x 384 prototypes, k = 10, and the staged route at
+// k = nprobe = 8). Bound there: operations, about 0.2 GFLOP of fp32 (3.1 us
+// at 67 TFLOP/s) against 6.5 MB read (2 us). (1) mips_tile_kernel: a block
+// of 256 threads scores a tile of 16 * TQ queries x 32 index rows (TQ = 4,
+// 2 or 1, the least that holds Q: 64 queries, so 132 tiles at N = 4218
+// fill the 132 SMs), each index row read from device memory once for the
+// tile's queries. The tile's queries and rows are staged in slabs of 64
+// components by cp.async (16 bytes, zero-filled past Q, N and d), four
+// slabs deep. A thread holds a register block of TQ queries x 2 rows; the
+// 8 warps split the tile 4 x 2, so a warp's 32 lanes read 4 distinct
+// query rows and 8 distinct index rows a step (broadcasts in shared
+// memory, no bank conflict), TQ + 2 16-byte loads feeding 8 TQ FMAs.
+// Every dot is one fp32 sum over d in order (no split over d, no tensor
+// cores), so a query's scores do not depend on the other queries in the
+// call. The epilogue writes the tile's keys (keys.cuh's composite keys:
+// ordered score bits, then the lowest row; invalid rows NEG_INF, rows past
+// N key 0) to shared memory, and a warp a query sorts the query's 32 keys
+// by a bitonic network across its lanes (15 steps of a shuffle), keeping
+// the k largest and the k-th, the tile's bound. (2) The merge of the
+// threshold path (below), one block a query over the ceil(N / 32) * k
+// keys, pruned at the largest tile's k-th key: no k serial passes. It is a
+// programmatic dependent launch: its blocks start at the tiles' epilogue
+// and wait for their keys. The tile's shape was chosen on the card among
+// 2 or 4 rows a thread, 32- or 64-component slabs and 3 to 12 stages
+// (deeper staging did not help: the tile is bound by shared-memory loads
+// and its fixed costs, not by load latency). On an H100 80GB HBM3 at
+// 700 W: 0.023 ms against the first design's 0.042 (tools/kernel_ab.py
+// mips10; PERF.md).
 //
 // Threshold path — everything else, above all recsys retrieval: Q = 1 or
 // 4 queries against 1,000,000 item rows, k = 100. Bound: bytes (the 256
@@ -52,7 +72,6 @@
 // rows past N are never keys. Tensor cores are not used:
 // the contract is full-fp32 sums.
 #include "keys.cuh"
-#include "topk.cuh"
 
 namespace {
 
@@ -68,21 +87,6 @@ __device__ __forceinline__ key64 local_max_of(const key64 (&keys)[SLOTS]) {
 #pragma unroll
   for (int s = 0; s < SLOTS; ++s) m = max(m, keys[s]);
   return m;
-}
-
-__global__ void mips_merge_kernel(float* __restrict__ part_val,
-                                  const int* __restrict__ part_idx, int Q, int m,
-                                  int k, float* __restrict__ out_scores,
-                                  int* __restrict__ out_ids) {
-  const int qi = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (qi >= Q) return;  // warp-uniform
-  float* os = out_scores + (size_t)qi * k;
-  int* oi = out_ids + (size_t)qi * k;
-  topk_merge_warp(part_val + (size_t)qi * m, part_idx + (size_t)qi * m, m, k,
-                  [=](int t, float v, int i) {
-                    os[t] = v;
-                    oi[t] = i;
-                  });
 }
 
 // grid (nblk, ceil(Q / QB)). part_keys [Q, nblk, k], part_t [Q, nblk].
@@ -238,6 +242,9 @@ __global__ void __launch_bounds__(kSelectThreads)
 
   const int qi = blockIdx.x, m = nblk * k;
   const key64* keys = part_keys + (size_t)qi * m;
+  // a programmatic dependent launch starts before the kernel that wrote
+  // part_keys ends: wait for it (a no-op in an ordinary launch)
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   float* os = out_scores + (size_t)qi * k;
   int* oi = out_ids + (size_t)qi * k;
   auto write = [&](int r, key64 key) {
@@ -346,31 +353,228 @@ cudaError_t launch_select(const float* q, int Q, int d, const float* index, int 
   return cudaGetLastError();
 }
 
+// ---- blocked path: the tiles
+constexpr int kTileRows = 32;      // index rows a tile scores
+constexpr int kTileStages = 4;     // slabs in shared memory at once
+constexpr int kTR = 2;             // rows a thread holds
+constexpr int kSlab = 64;          // components staged a step
+constexpr int kLd = kSlab + 4;     // a staged row's stride in floats (16-byte aligned)
+constexpr int kRowLanes = 16 / kTR;          // lanes of a warp on distinct rows: 8
+constexpr int kQueryLanes = 32 / kRowLanes;  // lanes of a warp on distinct queries: 4
+constexpr int kTileThreads = 2 * 32 * (16 / kQueryLanes);   // 2 row halves x 4 query warps
+
+// Dynamic shared memory of a tile of 16 * tq queries: the staged slabs,
+// reused for the tile's keys once the dots are done.
+constexpr size_t tile_smem_bytes(int tq) {
+  const size_t slabs = (size_t)kTileStages * (16 * tq + kTileRows) * kLd * sizeof(float);
+  const size_t keys = (size_t)16 * tq * (kTileRows + 1) * sizeof(key64);
+  return slabs > keys ? slabs : keys;
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, bool full) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(full ? 16 : 0));
+}
+
+// grid (ceil(N / 32), ceil(Q / (16 * TQ))). part_keys [Q, k, nblk]: each
+// (query, tile)'s k largest keys (0 past the tile's rows), rank-major, so
+// that a tile's keys spread over the merge's warps and its warp bound
+// (block_topk_bound) holds; part_t [Q, nblk]: the k-th of them, a lower
+// bound of the query's k-th key (0 where the tile has fewer than k rows).
+// k <= 32.
+template <int TQ, bool VEC>
+__global__ void __launch_bounds__(kTileThreads)
+    mips_tile_kernel(const float* __restrict__ q, int Q, int d,
+                     const float* __restrict__ index, int N,
+                     const unsigned char* __restrict__ valid, int k,
+                     key64* __restrict__ part_keys, key64* __restrict__ part_t) {
+  constexpr int BQ = 16 * TQ;   // queries of the tile
+  extern __shared__ __align__(16) float tile_smem[];
+  float* qs = tile_smem;                             // [kTileStages][BQ][kLd]
+  float* rs = tile_smem + kTileStages * BQ * kLd;    // [kTileStages][kTileRows][kLd]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the thread's queries qw + kQueryLanes i (i < TQ) and rows rw +
+  // kRowLanes j (j < kTR): a warp's lanes read neighbouring query rows and
+  // neighbouring index rows, so each 16-byte load falls on distinct banks
+  const int qw = (warp >> 1) * kQueryLanes * TQ + lane / kRowLanes;
+  const int rw = (warp & 1) * 16 + lane % kRowLanes;
+  const int row0 = blockIdx.y * BQ, col0 = blockIdx.x * kTileRows;
+  const int steps = (d + kSlab - 1) / kSlab;
+
+  // slab s (components [s * kSlab, +kSlab)) of the tile's queries and rows
+  // into stage buffer b
+  auto issue = [&](int s, int b) {
+    if (s >= steps) return;
+    const int k0 = s * kSlab;
+    float* qb = qs + b * BQ * kLd;
+    float* rb = rs + b * kTileRows * kLd;
+    if (VEC) {
+      constexpr int kChunks = kSlab / 4;   // 16-byte chunks to a slab row
+      for (int e = tid; e < BQ * kChunks; e += kTileThreads) {
+        const int r = e / kChunks, c = 4 * (e % kChunks);
+        const bool ok = row0 + r < Q && k0 + c < d;
+        cp_async16(qb + r * kLd + c, ok ? q + (size_t)(row0 + r) * d + k0 + c : q, ok);
+      }
+      for (int e = tid; e < kTileRows * kChunks; e += kTileThreads) {
+        const int r = e / kChunks, c = 4 * (e % kChunks);
+        const bool ok = col0 + r < N && k0 + c < d;
+        cp_async16(rb + r * kLd + c, ok ? index + (size_t)(col0 + r) * d + k0 + c : index, ok);
+      }
+    } else {
+      for (int e = tid; e < BQ * kSlab; e += kTileThreads) {
+        const int r = e / kSlab, c = e % kSlab;
+        qb[r * kLd + c] = (row0 + r < Q && k0 + c < d) ? q[(size_t)(row0 + r) * d + k0 + c] : 0.f;
+      }
+      for (int e = tid; e < kTileRows * kSlab; e += kTileThreads) {
+        const int r = e / kSlab, c = e % kSlab;
+        rb[r * kLd + c] =
+            (col0 + r < N && k0 + c < d) ? index[(size_t)(col0 + r) * d + k0 + c] : 0.f;
+      }
+    }
+  };
+
+  float acc[TQ][kTR];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i)
+#pragma unroll
+    for (int j = 0; j < kTR; ++j) acc[i][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kTileStages - 1; ++s) {
+    issue(s, s);
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int s = 0; s < steps; ++s) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kTileStages - 2));  // slab s landed
+    __syncthreads();  // ... for every thread, and no one still reads slab s - 1
+    issue(s + kTileStages - 1, (s + kTileStages - 1) % kTileStages);
+    asm volatile("cp.async.commit_group;\n" ::);
+    const float* qb = qs + (s % kTileStages) * BQ * kLd + qw * kLd;
+    const float* rb = rs + (s % kTileStages) * kTileRows * kLd + rw * kLd;
+#pragma unroll
+    for (int kk = 0; kk < kSlab; kk += 4) {
+      float4 x[TQ], y[kTR];
+#pragma unroll
+      for (int i = 0; i < TQ; ++i) x[i] = *(const float4*)(qb + kQueryLanes * i * kLd + kk);
+#pragma unroll
+      for (int j = 0; j < kTR; ++j) y[j] = *(const float4*)(rb + kRowLanes * j * kLd + kk);
+#pragma unroll
+      for (int i = 0; i < TQ; ++i)
+#pragma unroll
+        for (int j = 0; j < kTR; ++j) {  // components in order: one sum over d
+          float t = fmaf(x[i].x, y[j].x, acc[i][j]);
+          t = fmaf(x[i].y, y[j].y, t);
+          t = fmaf(x[i].z, y[j].z, t);
+          acc[i][j] = fmaf(x[i].w, y[j].w, t);
+        }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  // the merge may start now: its blocks set up beside this epilogue
+  asm volatile("griddepcontrol.launch_dependents;\n");
+  __syncthreads();  // every slab read: the stage buffers hold the keys now
+
+  key64* keys = (key64*)tile_smem;   // [BQ][kTileRows + 1]
+#pragma unroll
+  for (int j = 0; j < kTR; ++j) {
+    const int c = col0 + rw + kRowLanes * j;
+    const bool ok = c < N && valid[c];
+#pragma unroll
+    for (int i = 0; i < TQ; ++i)
+      keys[(qw + kQueryLanes * i) * (kTileRows + 1) + rw + kRowLanes * j] =
+          c < N ? make_key(ordered_bits(ok ? acc[i][j] : REPRO_NEG_INF), (unsigned)c) : 0ull;
+  }
+  __syncthreads();
+  const int nblk = gridDim.x;
+  for (int qq = warp; qq < BQ && row0 + qq < Q; qq += kTileThreads / 32) {  // warp-uniform
+    key64 v = keys[qq * (kTileRows + 1) + lane];
+    // bitonic sort of the 32 keys across the lanes, descending
+#pragma unroll
+    for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        const key64 o = __shfl_xor_sync(REPRO_FULL_MASK, v, stride);
+        const bool keep_max = ((lane & stride) == 0) == ((lane & size) == 0);
+        v = keep_max ? max(v, o) : min(v, o);
+      }
+    const size_t qi = (size_t)(row0 + qq);
+    if (lane < k) part_keys[(qi * k + lane) * nblk + blockIdx.x] = v;
+    if (lane == k - 1) part_t[qi * nblk + blockIdx.x] = v;
+  }
+}
+
+template <int TQ>
+cudaError_t launch_tiles(const float* q, int Q, int d, const float* index, int N,
+                         const unsigned char* valid, int k, key64* part_keys, key64* part_t,
+                         cudaStream_t st) {
+  const dim3 grid((N + kTileRows - 1) / kTileRows, (Q + 16 * TQ - 1) / (16 * TQ));
+  const size_t smem = tile_smem_bytes(TQ);
+  cudaError_t err;
+  if (d % 4 == 0 && (uintptr_t)q % 16 == 0 && (uintptr_t)index % 16 == 0) {
+    if ((err = allow_smem(mips_tile_kernel<TQ, true>, smem)) != cudaSuccess) return err;
+    mips_tile_kernel<TQ, true><<<grid, kTileThreads, smem, st>>>(q, Q, d, index, N, valid, k,
+                                                                 part_keys, part_t);
+  } else {
+    if ((err = allow_smem(mips_tile_kernel<TQ, false>, smem)) != cudaSuccess) return err;
+    mips_tile_kernel<TQ, false><<<grid, kTileThreads, smem, st>>>(q, Q, d, index, N, valid, k,
+                                                                  part_keys, part_t);
+  }
+  return cudaGetLastError();
+}
+
+// The merge of either path: Q blocks over the [Q, nblk * k] keys; as a
+// programmatic dependent launch (it waits for the tiles' keys inside) where
+// `dependent`.
+cudaError_t launch_merge(const key64* pk, const key64* pt, int Q, int nblk, int k, int P,
+                         key64* spill, float* out_scores, int* out_ids, cudaStream_t st,
+                         bool dependent = false) {
+  const size_t smem = (size_t)max(P, kRankCap) * sizeof(key64);
+  cudaError_t err = allow_smem(mips_threshold_merge_kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Q);
+  cfg.blockDim = dim3(kSelectThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = dependent ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, mips_threshold_merge_kernel, pk, pt, nblk, k, P, spill,
+                            out_scores, out_ids);
+}
+
 }  // namespace
 
 // ---- blocked path
-extern "C" int mips_rows_per_block(int N, int Q, int k) { return rows_per_block(N, Q, k); }
+extern "C" int mips_tile_rows() { return kTileRows; }
 
-extern "C" long long mips_smem_bytes(int d, int N, int Q, int k) {
-  return (long long)rows_topk_smem(d, rows_per_block(N, Q, k));
-}
-
-// phases: 1 = select, 2 = merge, 3 = both (the merge retires its picks in
-// part_val, so a merge alone runs on what the last select left)
+// tq in {4, 2, 1} (the tile's queries / 16), k <= 32, P the power of two
+// >= k; part_keys and spill [Q, k * nblk], part_t [Q, nblk] (nblk =
+// ceil(N / 32)). phases: 1 = tiles, 2 = merge, 3 = both.
 extern "C" int mips_launch(const float* q, int Q, int d, const float* index, int N,
-                           const unsigned char* valid, int k, int bn, float* part_val,
-                           int* part_idx, float* out_scores, int* out_ids, int phases,
-                           void* stream) {
+                           const unsigned char* valid, int k, int tq, int P, void* part_keys,
+                           void* part_t, void* spill, float* out_scores, int* out_ids,
+                           int phases, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (k < 1 || k > kTileRows || P < k || (P & (P - 1))) return (int)cudaErrorInvalidValue;
+  key64* pk = (key64*)part_keys;
+  key64* pt = (key64*)part_t;
+  cudaError_t err = cudaSuccess;
   if (phases & 1) {
-    cudaError_t err = launch_rows_topk(q, Q, d, index, N, valid, k, bn, part_val,
-                                       part_idx, st);
+    switch (tq) {
+      case 4: err = launch_tiles<4>(q, Q, d, index, N, valid, k, pk, pt, st); break;
+      case 2: err = launch_tiles<2>(q, Q, d, index, N, valid, k, pk, pt, st); break;
+      case 1: err = launch_tiles<1>(q, Q, d, index, N, valid, k, pk, pt, st); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
     if (err != cudaSuccess) return (int)err;
   }
   if (phases & 2) {
-    const int m = ((N + bn - 1) / bn) * k;
-    mips_merge_kernel<<<(Q * 32 + 255) / 256, 256, 0, st>>>(part_val, part_idx, Q, m, k,
-                                                             out_scores, out_ids);
+    err = launch_merge(pk, pt, Q, (N + kTileRows - 1) / kTileRows, k, P, (key64*)spill,
+                       out_scores, out_ids, st, true);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }
@@ -408,12 +612,9 @@ extern "C" int mips_threshold_launch(const float* q, int Q, int d, const float* 
     if (err != cudaSuccess) return (int)err;
   }
   if (phases & 2) {
-    const int nblk = (int)((N + (long long)bn - 1) / bn);
-    const size_t smem = (size_t)max(P, kRankCap) * sizeof(key64);
-    if ((err = allow_smem(mips_threshold_merge_kernel, smem)) != cudaSuccess)
-      return (int)err;
-    mips_threshold_merge_kernel<<<Q, kSelectThreads, smem, st>>>(
-        pk, pt, nblk, k, P, (key64*)spill, out_scores, out_ids);
+    err = launch_merge(pk, pt, Q, (int)((N + (long long)bn - 1) / bn), k, P, (key64*)spill,
+                       out_scores, out_ids, st);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

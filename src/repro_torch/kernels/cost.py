@@ -120,7 +120,9 @@ def heavy_hitter(B: int, bmax: int, cells: int, morris: bool, random_evict: bool
     ``cells`` sketch counters, the scalars) in and out once, the info out,
     and for RANDOM_EVICT the Gumbel rows of the ``evicting`` arrivals that
     evict (no other arrival reads its row; 0 on ``meta``); no arithmetic
-    worth a bound (integer compares)."""
+    worth a bound (integer compares). Both of the kernel's paths compute
+    this one function: the large path's table, bitmap and group minima
+    are its own scratch, not the function's bytes."""
     state = 8 * bmax + 4 * cells + 28
     draws = 4 * B * (1 + int(morris))
     if random_evict:

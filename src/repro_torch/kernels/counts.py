@@ -37,6 +37,7 @@ COUNTS: dict[str, CallCounts] = {
     "gather_backward": CallCounts(),   # bag_backward.cu's gather transpose
     "segment_sum": CallCounts(),   # the same entry as a segment sum (the GNN's aggregation)
     "heavy_hitter": CallCounts(),
+    "heavy_hitter_large": CallCounts(),   # heavy_hitter.cu's large path (past one block)
 }
 
 

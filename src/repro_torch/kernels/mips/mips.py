@@ -2,10 +2,11 @@
 (``repro_torch/csrc/mips.cu``): top-k inner products for any N.
 
 ``mips_plan`` picks the kernel's path from the shape alone: the blocked
-path (per-block warp passes, one-warp merge) for a small index and a
-small k, the threshold path (per-block exact threshold search on
-composite keys, pruned block merge) for everything else, above all k =
-100 over 10^6 item rows."""
+path (register-blocked tiles of up to 64 queries x 32 rows with a
+per-tile bitonic top-k) for a small index and a small k, the threshold
+path (per-block exact threshold search on composite keys) for everything
+else, above all k = 100 over 10^6 item rows. Both merge with the same
+pruned block merge."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,10 +17,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.common import SMS, cdiv, round_up
 from repro_torch.kernels.counts import COUNTS
 
-# The blocked path's warp passes cost k passes per block and per merge:
-# cheap only while k and the number of row blocks stay small.
+# The blocked path keeps k keys of each tile's 32 rows (so k <= 32) and
+# merges ceil(N / 32) * k keys a query: in registers up to MERGE_CAP.
 BLOCKED_MAX_K = 32
 BLOCKED_MAX_ROWS = 65_536
+TILE_ROWS = 32             # mips.cu's kTileRows
 # mips.cu's constants (kSelectThreads, kSelectSlots, kMergeCap,
 # kMaxThresholdK)
 SELECT_THREADS = 1024
@@ -32,11 +34,11 @@ SELECT_SMEM = 160 * 1024   # score bytes a select block may hold
 
 @dataclasses.dataclass(frozen=True)
 class MipsPlan:
-    """How one call runs. Threshold path: ``qb`` queries per select block
-    (1, 2, 4 or 8), ``bn`` rows per block, ``nblk`` row blocks (each keeps
-    k keys per query for the merge), ``P`` the merge's sort width (a power
-    of two >= k). The blocked path takes its ``bn`` from the
-    library (``mips_rows_per_block``)."""
+    """How one call runs: ``qb`` queries per select block (threshold path:
+    1, 2, 4 or 8; blocked path: a tile of 16, 32 or 64), ``bn`` rows per
+    block (blocked: TILE_ROWS), ``nblk`` row blocks (each keeps k keys per
+    query for the merge), ``P`` the merge's sort width (a power of two >=
+    k)."""
 
     path: str
     qb: int = 0
@@ -50,8 +52,10 @@ def mips_plan(Q: int, N: int, k: int) -> MipsPlan:
     the same on every device)."""
     if not 1 <= k <= N:
         raise ValueError(f"k={k} must be in [1, N={N}]")
+    P = 1 << (k - 1).bit_length()
     if k <= BLOCKED_MAX_K and N <= BLOCKED_MAX_ROWS:
-        return MipsPlan("blocked")
+        qb = next(b for b in (16, 32, 64) if b >= min(Q, 64))
+        return MipsPlan("blocked", qb, TILE_ROWS, cdiv(N, TILE_ROWS), P)
     if k > THRESHOLD_MAX_K:
         raise ValueError(f"mips kernel takes k <= {THRESHOLD_MAX_K} (k={k})")
     qb = next(b for b in (1, 2, 4, 8) if b >= min(Q, 8))
@@ -64,7 +68,7 @@ def mips_plan(Q: int, N: int, k: int) -> MipsPlan:
         if k > cap:
             raise ValueError(f"mips kernel takes k <= {cap} at {Q} queries (k={k})")
         bn = cap
-    return MipsPlan("threshold", qb, bn, cdiv(N, bn), 1 << (k - 1).bit_length())
+    return MipsPlan("threshold", qb, bn, cdiv(N, bn), P)
 
 
 def spill_shape(plan: MipsPlan, Q: int, k: int) -> tuple[int, int]:
@@ -76,6 +80,9 @@ def spill_shape(plan: MipsPlan, Q: int, k: int) -> tuple[int, int]:
 
 
 def select_smem_bytes(plan: MipsPlan, d: int) -> int:
+    """Dynamic shared memory of a threshold-path select block (the
+    blocked path's tiles take a fixed amount, ``tile_smem_bytes`` in
+    mips.cu)."""
     return 8 * RANK_CAP + 4 * plan.qb * (d + plan.bn)
 
 
@@ -83,21 +90,17 @@ def _lib():
     lib = build.load("mips")
     if lib.mips_launch.argtypes is None:
         P, I = build.P, build.I
-        lib.mips_launch.argtypes = [P, I, I, P, I, P, I, I, P, P, P, P, I, P]
+        lib.mips_launch.argtypes = [P, I, I, P, I, P, I, I, I, P, P, P, P, P, I, P]
         lib.mips_launch.restype = I
         lib.mips_threshold_launch.argtypes = [P, I, I, P, I, P, I, I, I, I, P, P, P,
                                               P, P, I, P]
         lib.mips_threshold_launch.restype = I
-        lib.mips_rows_per_block.argtypes = [I, I, I]
-        lib.mips_rows_per_block.restype = I
-        lib.mips_smem_bytes.argtypes = [I, I, I, I]
-        lib.mips_smem_bytes.restype = build.L
         names = ("mips_select_threads", "mips_select_slots", "mips_merge_cap",
-                 "mips_threshold_max_k")
+                 "mips_threshold_max_k", "mips_tile_rows")
         for name in names:
             getattr(lib, name).restype = I
         have = tuple(getattr(lib, name)() for name in names)
-        if have != (SELECT_THREADS, SELECT_SLOTS, MERGE_CAP, THRESHOLD_MAX_K):
+        if have != (SELECT_THREADS, SELECT_SLOTS, MERGE_CAP, THRESHOLD_MAX_K, TILE_ROWS):
             raise RuntimeError(f"mips.cu's constants {have} differ from the wrapper's")
     return lib
 
@@ -127,32 +130,21 @@ def mips_launcher(q: torch.Tensor, index: torch.Tensor, valid: torch.Tensor, k: 
     ids = torch.empty((Q, k), dtype=torch.int32, device=dev)
     if Q == 0:
         return plan, scores, ids, lambda phases=3: None
-    lib = _lib()
-    stream = build.stream_of(dev)
-    if plan.path == "blocked":
-        smem = lib.mips_smem_bytes(d, N, Q, k)
-        if smem > build.SMEM_PER_BLOCK:
-            raise ValueError(f"mips kernel needs {smem} B of shared memory for "
-                             f"k={k}, d={d}; a block has {build.SMEM_PER_BLOCK} B")
-        bn = lib.mips_rows_per_block(N, Q, k)
-        m = cdiv(N, bn) * k
-        part_val = torch.empty((Q, m), dtype=torch.float32, device=dev)
-        part_idx = torch.empty((Q, m), dtype=torch.int32, device=dev)
-
-        def run(phases=3):
-            build.check(lib, lib.mips_launch(
-                q.data_ptr(), Q, d, index.data_ptr(), N, valid.data_ptr(), k, bn,
-                part_val.data_ptr(), part_idx.data_ptr(), scores.data_ptr(),
-                ids.data_ptr(), phases, stream), "mips_launch")
-        return plan, scores, ids, run
-
-    if select_smem_bytes(plan, d) > build.SMEM_PER_BLOCK:
+    if plan.path == "threshold" and select_smem_bytes(plan, d) > build.SMEM_PER_BLOCK:
         raise ValueError(f"mips kernel: d={d} leaves no shared memory for "
                          f"{plan.qb} queries")
-    m = plan.nblk * k
-    part_keys = torch.empty((Q, m), dtype=torch.int64, device=dev)
+    lib = _lib()
+    stream = build.stream_of(dev)
+    part_keys = torch.empty((Q, plan.nblk * k), dtype=torch.int64, device=dev)
     part_t = torch.empty((Q, plan.nblk), dtype=torch.int64, device=dev)
     spill = torch.empty(spill_shape(plan, Q, k), dtype=torch.int64, device=dev)
+    if plan.path == "blocked":
+        def run(phases=3):
+            build.check(lib, lib.mips_launch(
+                q.data_ptr(), Q, d, index.data_ptr(), N, valid.data_ptr(), k, plan.qb // 16,
+                plan.P, part_keys.data_ptr(), part_t.data_ptr(), spill.data_ptr(),
+                scores.data_ptr(), ids.data_ptr(), phases, stream), "mips_launch")
+        return plan, scores, ids, run
 
     def run(phases=3):
         build.check(lib, lib.mips_threshold_launch(

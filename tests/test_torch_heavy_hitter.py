@@ -2,13 +2,14 @@
 the ``kernels/heavy_hitter`` dispatcher (a CPU tensor runs the plain
 loop, ``ref.py``), and the kernel wrapper's plan and argument checks.
 
-MIN_EVICT, SPACE_SAVING and COUNT_MIN are deterministic given the gate
-uniforms, so the port is fed exactly the uniforms the reference draws
-(``split(key, B)`` then ``split(., 3)`` then ``uniform``) and every state
-leaf and info entry must match exactly (integer state; the one float,
-``admit_prob``, is only ever copied or scaled by the same constants).
-RANDOM_EVICT and Morris counting draw Gumbel and Morris noise; the port's
-own ``torch.Generator`` draws are checked by distribution instead.
+The port is fed exactly the draws the reference makes (``split(key, B)``
+then ``split(., 3)`` then the gate uniform, the Gumbel row and the Morris
+uniform), and every state leaf and info entry must match exactly (integer
+state; the one float, ``admit_prob``, is only ever copied or scaled by the
+same constants), for every policy, and for counters past the one-block
+kernel's ceiling (bmax 28,125, the 1 GB budget's, which the card runs on
+its large path) from a full state. The port's own ``torch.Generator``
+draws are checked by distribution.
 """
 import jax
 import jax.numpy as jnp
@@ -22,8 +23,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels.counts import COUNTS
 from repro_torch.kernels.heavy_hitter import heavy_hitter as hh_kernel
 from repro_torch.kernels.heavy_hitter import ops as hh_ops
-from repro_torch.kernels.heavy_hitter.heavy_hitter import (heavy_hitter_plan,
-                                                          update_batch_cuda)
+from repro_torch.kernels.heavy_hitter.heavy_hitter import (MAX_BMAX, call_bytes,
+                                                          heavy_hitter_plan, large_plan,
+                                                          update_batch_cuda, update_plan)
 
 from _torch_parity import assert_trees, foreign, hh_draws, jax_tree
 
@@ -37,21 +39,51 @@ def _as_np(state):
     return {n: v.numpy() for n, v in zip(state._fields, state)}
 
 
+LARGE = 28_125   # budget_to_config(1000.0, dim=384, int8 depth 64)'s bmax
+
+
+def _full(jc, rng):
+    """Labels 0..3 * capacity - 1 shuffled into every active slot (small
+    counts), the rest empty: a full counter, so misses evict."""
+    cap, bmax = jc.capacity, jc.bmax()
+    labels = np.full(bmax, -1, np.int32)
+    labels[:cap] = rng.permutation(3 * cap)[:cap]
+    counts = np.zeros(bmax, np.int32)
+    counts[:cap] = rng.integers(0, 4 if jc.morris else 9, cap)
+    return labels, counts
+
+
 @pytest.mark.parametrize("policy", [thh.Policy.MIN_EVICT,
                                     thh.Policy.SPACE_SAVING,
-                                    thh.Policy.COUNT_MIN])
+                                    thh.Policy.COUNT_MIN,
+                                    thh.Policy.RANDOM_EVICT])
 @pytest.mark.parametrize("extra", [{}, {"gate_below_capacity": True},
                                    {"adaptive": True, "max_capacity": 24,
-                                    "window": 16}])
+                                    "window": 16},
+                                   {"capacity": LARGE},
+                                   {"capacity": LARGE, "morris": True},
+                                   {"capacity": MAX_BMAX + 1, "adaptive": True,
+                                    "max_capacity": LARGE, "window": 16}])
 def test_update_batch_exact_with_reference_uniforms(policy, extra):
-    jc, tc = _cfgs(policy, capacity=8, admit_prob=0.4, cms_width=32, **extra)
+    """Four batches of 48 (a fifth dropped) through the reference's scan
+    and the port's plain loop; a counter past the one-block kernel starts
+    full, fed Zipf labels over three times its capacity."""
+    jc, tc = _cfgs(policy, **{"capacity": 8, "admit_prob": 0.4, "cms_width": 32, **extra})
     js, ts = jhh.init(jc), thh.init(tc, "cpu")
     rng = np.random.default_rng(int(policy))
+    large = jc.bmax() > MAX_BMAX
+    if large:
+        lab0, cnt0 = _full(jc, rng)
+        js = js._replace(labels=jnp.asarray(lab0), counts=jnp.asarray(cnt0))
+        ts = ts._replace(labels=torch.from_numpy(lab0), counts=torch.from_numpy(cnt0))
     key = jax.random.key(7)
     COUNTS["heavy_hitter"].reset()
     for step in range(4):
         # a skewed label stream with dropped (-1) arrivals
-        labels = rng.zipf(1.5, size=48).astype(np.int32) % 20
+        if large:
+            labels = ((rng.zipf(1.3, size=48) - 1) % (3 * jc.capacity)).astype(np.int32)
+        else:
+            labels = rng.zipf(1.5, size=48).astype(np.int32) % 20
         labels[rng.random(48) < 0.2] = -1
         key, sub = jax.random.split(key)
         js, jinfo = jhh.update_batch(jc, js, jnp.asarray(labels), sub)
@@ -160,6 +192,79 @@ def test_heavy_hitter_plan_ceiling():
 def test_heavy_hitter_plan_refuses_past_shared_memory(bmax, cells):
     with pytest.raises(ValueError, match="shared memory"):
         heavy_hitter_plan(bmax, cells)
+
+
+@pytest.mark.parametrize("bmax,cells,path", [
+    (4218, 0, "block"), (4218, 1024, "block"), (21392, 0, "block"),
+    (21393, 0, "large"), (28125, 0, "large"), (112501, 0, "large"),
+    (18308, 8192, "block"), (18309, 8192, "large"), (28125, 1024, "large"),
+    (112501, 8192, "large")])
+def test_update_plan_picks_the_path_from_the_shape(bmax, cells, path):
+    """The one-block kernel wherever its plan takes bmax beside the sketch
+    (21,392 with none, 18,308 beside 8,192 cells: its plan unchanged),
+    else the large path, whatever the sketch (it lives in device memory)."""
+    plan = update_plan(bmax, cells)
+    assert plan.path == path
+    assert plan == (heavy_hitter_plan(bmax, cells) if path == "block" else large_plan(bmax))
+
+
+@pytest.mark.parametrize("bmax", [21393, 28125, 112501, 2_250_035])
+def test_large_plan_sizes(bmax):
+    """The large path: one block of 512 threads for the chain, its dynamic
+    shared memory the chunk (4 KB), a minimum a group of 64 slots and a
+    dirty bit a group; the table at load 0.5 in 4-byte entries; a prep
+    warp a word of 32 slots; the scratch split on 16 bytes, the table, the
+    minima and the four counts end to end (one memset) before the bitmap."""
+    p = large_plan(bmax)
+    groups = -(-bmax // 64)
+    assert (p.threads, p.gshift, p.stage) == (512, 6, False)
+    assert p.smem == 16 * 256 + 4 * (-(-groups // 4) * 4) + 4 * (-(-(-(-groups // 32)) // 4) * 4)
+    assert p.smem + hh_kernel.STATIC_SMEM <= build.SMEM_PER_BLOCK
+    assert p.table == hh_kernel.table_size(bmax)[0] and p.table >= 2 * bmax
+    assert p.prep_blocks == min(-(-bmax // 256), 8 * 132)
+    split = p.scratch_split(bmax)
+    assert split[0] == p.table and split[2] == 4 and split[3] >= -(-bmax // 32)
+    assert split[1] >= groups and all(n % 4 == 0 for n in split)
+    assert sum(split) == p.scratch_ints
+
+
+def test_large_plan_groups_grow_past_shared_memory():
+    """Group minima and dirty bits fit shared memory beside the chunk up to
+    about 3.3 M slots at 64 slots a group; past that a group doubles."""
+    assert large_plan(3_000_000).gshift == 6
+    assert large_plan(4_000_000).gshift == 7
+    p = large_plan(hh_kernel.MAX_LARGE_BMAX)
+    assert p.gshift > 6 and p.smem + hh_kernel.STATIC_SMEM <= build.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="int32"):
+        large_plan(hh_kernel.MAX_LARGE_BMAX + 1)
+
+
+def test_update_plan_refuses_only_past_device_memory():
+    """No refusal for a bmax past shared memory; a refusal where the call
+    (state in and out, draws, info, scratch) would not fit the card's
+    memory: RANDOM_EVICT's Gumbel rows at 2^29 slots, or a card given too
+    little; the exact need is accepted."""
+    card = 80 * 10**9
+    for bmax in (28125, 112501, 2_250_035, 1 << 29):
+        assert update_plan(bmax, 0, B=256, card_bytes=card).path == "large"
+    with pytest.raises(ValueError, match="device memory"):
+        update_plan(1 << 29, 0, gumbel=True, B=256, card_bytes=card)
+    need = call_bytes(large_plan(28125), 256, 28125, 0, False, False)
+    assert need > 24 * 28125   # 8 B a slot in, 8 out, 8 of table
+    assert update_plan(28125, 0, B=256, card_bytes=need).path == "large"
+    with pytest.raises(ValueError, match="device memory"):
+        update_plan(28125, 0, B=256, card_bytes=need - 1)
+
+
+@pytest.mark.parametrize("policy", list(thh.Policy))
+def test_heavy_hitter_large_launch_layout(policy):
+    """The wrapper's launch data at the 1 GB budget's bmax: the large plan,
+    its table and group shift in the kernel's config, no staged rows."""
+    cfg = thh.HHConfig(capacity=LARGE, policy=policy)
+    L = hh_kernel._launch_for(cfg, 256, LARGE)
+    assert L.large and L.plan == large_plan(LARGE)
+    assert (L.conf.table, L.conf.stage, L.conf.gshift) == (L.plan.table, 0, 6)
+    assert L.split[0] == L.split[2] == LARGE and L.conf.bmax == LARGE
 
 
 @pytest.mark.parametrize("bmax", [1, 7, 100, 4218, 8436, 21392])

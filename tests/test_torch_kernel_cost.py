@@ -19,6 +19,7 @@ from repro_torch.kernels.admit import ops as admit_ops
 from repro_torch.kernels.assign import ops as assign_ops
 from repro_torch.kernels.bag import ops as bag_ops
 from repro_torch.kernels.heavy_hitter import ops as hh_ops
+from repro_torch.kernels.heavy_hitter.heavy_hitter import MAX_BMAX, update_plan
 from repro_torch.kernels.mips import ops as mips_ops
 from repro_torch.kernels.prefilter import ops as prefilter_ops
 from repro_torch.kernels.rerank import ops as rerank_ops
@@ -51,8 +52,8 @@ def _inputs():
         data=torch.randn((L, d), generator=g))
 
 
-def _hh(t):
-    cfg = thh.HHConfig(capacity=8, policy=thh.Policy.RANDOM_EVICT)
+def _hh(capacity=8):
+    cfg = thh.HHConfig(capacity=capacity, policy=thh.Policy.RANDOM_EVICT)
     labels = torch.tensor([0, 1, 2, 3, 4, -1, 5, 6, 7, 8, 9, 1], dtype=torch.int32)
     draws = thh.draw(cfg, labels.shape[0], torch.Generator().manual_seed(0), "cpu")
     return cfg, thh.init(cfg, "cpu"), labels, draws
@@ -139,18 +140,22 @@ def _run(name, call, dev):
     return out, c, counts.snapshot()
 
 
-@pytest.mark.parametrize("case", [*ENTRIES, "heavy_hitter"])
+@pytest.mark.parametrize("case", [*ENTRIES, "heavy_hitter", "heavy_hitter_large"])
 def test_entry_on_meta_has_the_plain_shapes_and_records_its_formula(case):
-    if case == "heavy_hitter":
+    if case.startswith("heavy_hitter"):
+        # "heavy_hitter_large": a bmax past the one-block kernel, which the
+        # card's large path takes; the same function, the same formula
         name = "heavy_hitter"
-        cfg, state, labels, draws = _hh(None)
+        bmax = 8 if case == "heavy_hitter" else MAX_BMAX + 1
+        assert update_plan(bmax, 0, gumbel=True).path == ("block" if bmax == 8 else "large")
+        cfg, state, labels, draws = _hh(bmax)
         call = lambda i: hh_ops.update_batch(cfg, i["state"], i["labels"], i["draws"])  # noqa
         inputs = {"state": state, "labels": labels, "draws": draws}
 
         def formula(i, out):
             ev = 0 if i["labels"].is_meta else \
                 int(out[0].total_evictions) - int(i["state"].total_evictions)
-            return cost.heavy_hitter(12, 8, 0, False, True, ev)
+            return cost.heavy_hitter(12, bmax, 0, False, True, ev)
     else:
         name, call, formula = ENTRIES[case]
         inputs = _inputs()
@@ -219,6 +224,14 @@ def test_main_path_bounds_read_perf_md():
     assert printed(cost.mips(1, 10**6, 18, 100), 4) == (0.0218, "bytes")
     assert printed(cost.mips(1, 10**6, 11, 100), 4) == (0.0134, "bytes")
     assert printed(cost.heavy_hitter(256, bmax, 0, False, False), 6) == (0.000022, "bytes")
+    # the 1 GB budget's counter (row 8b, the large path) and mips over its
+    # 28,125 prototypes; the staged route's k = nprobe
+    big = pipeline.budget_to_config(1000.0, dim=384, base=paper_pipeline_config(
+        dim=384, store_depth=64, store_dtype="int8")).hh.bmax()
+    assert big == 28_125
+    assert printed(cost.heavy_hitter(256, big, 0, False, False), 6) == (0.000136, "bytes")
+    assert printed(cost.mips(64, big, 384, 10), 4) == (0.0206, "operations")
+    assert printed(cost.mips(64, K, 384, 8), 4) == (0.0031, "operations")
     L = 65_536 * 50
     assert printed(cost.bag_backward(10**6, 64, L, 65_536, 4, 4, 4, True), 4) == \
         (0.0932, "bytes")

@@ -443,6 +443,49 @@ def test_mips_kernel_k_above_the_valid_rows(cuda, N, n_valid, k):
     assert bool((s_k[:, n_valid:] == NEG_INF).all())
 
 
+@pytest.mark.parametrize("Q,N,k,d", [(64, 4218, 10, 384), (64, 4218, 8, 384),
+                                     (64, 28_125, 10, 384), (1, 7, 7, 384),
+                                     (20, 1000, 32, 64), (100, 3000, 5, 384),
+                                     (3, 4218, 10, 18), (64, 65_536, 32, 64)])
+def test_mips_kernel_blocked_tiles(cuda, Q, N, k, d):
+    """The blocked path's tiles (16, 32 or 64 queries x 32 rows, per-tile
+    bitonic top-k, the pruned merge) at the flush's k = 10, the staged
+    route's k = nprobe = 8, the 1 GB budget's 28,125 prototypes, a lone
+    query, 32 of 64 tile queries, two tile rows of queries, d = 18 (rows
+    not 16-byte aligned: 4-byte staging) and a merge that spills (2048
+    tiles x 32 keys); exact ties in other tiles go to the lowest row."""
+    from repro_torch.kernels.mips.mips import MERGE_CAP, mips_plan
+
+    plan = mips_plan(Q, N, k)
+    assert plan.path == "blocked" and plan.nblk == -(-N // 32)
+    assert (plan.nblk * k > MERGE_CAP) == (N == 65_536)
+    g = torch.Generator(device=cuda).manual_seed(N + k)
+    index = l2_normalize(torch.randn((N, d), generator=g, device=cuda))
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
+    index[N - 1] = index[0]
+    q[0] = index[0]                        # row 0 ties row N-1 (another tile): 0 first
+    valid = torch.rand((N,), generator=g, device=cuda) < 0.9
+    valid[0] = valid[N - 1] = True
+    _, i_k = _hold_mips(q, index, valid, k)
+    assert int(i_k[0, 0]) == 0 and (N == 1 or int(i_k[0, 1]) == N - 1)
+
+
+@pytest.mark.parametrize("N,n_valid,k", [(4218, 3, 10), (40, 0, 32)])
+def test_mips_kernel_blocked_k_above_the_valid_rows(cuda, N, n_valid, k):
+    """The blocked path with k above the valid count (none valid at all in
+    the second): valid rows first by score, then invalid rows at NEG_INF,
+    lowest row first, no row twice."""
+    g = torch.Generator(device=cuda).manual_seed(N)
+    index = l2_normalize(torch.randn((N, 64), generator=g, device=cuda))
+    q = l2_normalize(torch.randn((64, 64), generator=g, device=cuda))
+    valid = torch.arange(N, device=cuda) < n_valid
+    s_k, i_k = _hold_mips(q, index, valid, k)
+    assert bool((i_k[:, :n_valid] < n_valid).all())
+    assert torch.equal(i_k[:, n_valid:].long(),
+                       torch.arange(n_valid, k, device=cuda).expand(64, -1))
+    assert bool((s_k[:, n_valid:] == NEG_INF).all())
+
+
 def test_assign_kernel_ties_across_column_tiles(cuda):
     """Rows equal to a centroid that has exact copies in other 64-centroid
     column tiles (and rows in both 128-row tiles): the lowest index wins."""
@@ -1020,14 +1063,19 @@ def test_heavy_hitter_kernel_dropped_batch_closes_a_window(cuda, policy):
 
 
 def test_heavy_hitter_kernel_refuses_a_bmax_past_shared_memory(cuda):
+    """A bmax past one block's shared memory is no longer refused: the
+    dispatch takes the large path (one launch counted there, none on the
+    one-block kernel) and the result equals the plain loop. Only device
+    memory refuses (``update_plan``, tested on the CPU)."""
     from repro_torch.core import heavy_hitter as hh
-    from repro_torch.kernels.heavy_hitter.heavy_hitter import update_batch_cuda
+    from repro_torch.kernels.heavy_hitter.heavy_hitter import update_plan
 
     cfg = hh.HHConfig(capacity=30_000)
-    draws = hh.draw(cfg, 4, torch.Generator(device=cuda).manual_seed(0), cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        update_batch_cuda(cfg, hh.init(cfg, cuda),
-                          torch.zeros((4,), dtype=torch.int32, device=cuda), draws)
+    assert update_plan(30_000, 0).path == "large"
+    before = COUNTS["heavy_hitter"].kernel, COUNTS["heavy_hitter_large"].kernel
+    _hh_run(cfg, hh.init(cfg, cuda), [np.zeros(4)], cuda)
+    assert (COUNTS["heavy_hitter"].kernel,
+            COUNTS["heavy_hitter_large"].kernel) == (before[0], before[1] + 1)
 
 
 def _hh_run(cfg, state, batches, dev, seed=0, draws_fn=None):
@@ -1207,6 +1255,100 @@ def test_heavy_hitter_kernel_largest_bmax_the_plan_takes(cuda, policy):
     rng = np.random.default_rng(policy)
     st = _hh_state(cfg, cuda, rng, fill=0.99)
     _hh_run(cfg, st, [_hh_labels(rng, 256, bmax).numpy() for _ in range(2)], cuda)
+
+
+@pytest.mark.parametrize("bmax", [28_125, 112_501])
+@pytest.mark.parametrize("option", ["exact", "morris", "gate", "adaptive"])
+@pytest.mark.parametrize("policy", [0, 1, 2, 3])
+def test_heavy_hitter_large_path_matches_plain(cuda, policy, option, bmax):
+    """The large path (bmax past one block: budget_to_config's 1 GB and
+    4 GB counters) on a nearly full counter, two batches of 256 with
+    dropped arrivals: every state leaf and info entry equal to the plain
+    loop's, one launch a call."""
+    from repro_torch.kernels.heavy_hitter.heavy_hitter import update_plan
+
+    cfg = _hh_cfg(policy, option, bmax)
+    assert update_plan(bmax, 64 * 4 if policy == 3 else 0, gumbel=policy == 0).path == "large"
+    rng = np.random.default_rng(policy * 10 + len(option))
+    st = _hh_state(cfg, cuda, rng, fill=0.97)
+    before = COUNTS["heavy_hitter_large"].kernel
+    st, _ = _hh_run(cfg, st, [_hh_labels(rng, 256, cfg.capacity).numpy() for _ in range(2)],
+                    cuda, seed=policy)
+    assert COUNTS["heavy_hitter_large"].kernel == before + 2
+    if option != "adaptive":
+        assert int(st.total_writes) > 0
+
+
+@pytest.mark.parametrize("bmax", [28_125, 112_501])
+@pytest.mark.parametrize("policy", [0, 1, 2, 3])
+def test_heavy_hitter_large_path_every_arrival_evicts(cuda, policy, bmax):
+    """A full large counter fed 512 novel labels with u_t = 1: MIN_EVICT,
+    RANDOM_EVICT and SPACE_SAVING evict on every arrival (each reads the
+    minimum through the group summary, or its Gumbel row from device
+    memory), COUNT_MIN as its sketch says."""
+    from repro_torch.core import heavy_hitter as hh
+
+    cfg = hh.HHConfig(capacity=bmax, admit_prob=1.0, policy=hh.Policy(policy), cms_width=64)
+    rng = np.random.default_rng(bmax + policy)
+    st = _hh_with(hh.init(cfg, cuda), cuda, rng.permutation(4 * bmax)[:bmax],
+                  rng.integers(0, 9, bmax))
+    novel = 10 * bmax + np.arange(512)
+    st, _ = _hh_run(cfg, st, [novel[:256], novel[256:]], cuda, seed=policy)
+    if policy != 3:
+        assert int(st.total_evictions) == 512
+
+
+@pytest.mark.parametrize("policy", [0, 1, 2, 3])
+def test_heavy_hitter_large_path_label_duplicated_across_bt(cuda, policy):
+    """The duplicate-holder case of the one-block test, at bmax 28,125:
+    B_t = 28,077 with slots 0..15 empty, labels 0..23 held just past B_t
+    (count 5) and every other slot below it full (count 9); labels 0..15
+    go in below (duplicates), a window grows B_t by 16, novel labels evict
+    the lower copies and labels 0..15 come back to their upper ones."""
+    from repro_torch.core import heavy_hitter as hh
+
+    bmax, C = 28_125, 28_077
+    cfg = hh.HHConfig(capacity=C, max_capacity=bmax, adaptive=True, window=16, b_step=16,
+                      novel_hi=0.5, novel_lo=0.1, admit_prob=1.0, u_max=1.0,
+                      policy=hh.Policy(policy), cms_width=64)
+    labels = np.full(bmax, -1)
+    labels[16:C] = 1000 + np.arange(C - 16)
+    labels[C:C + 24] = np.arange(24)
+    counts = np.zeros(bmax)
+    counts[16:C] = 9
+    counts[C:C + 24] = 5
+    st = _hh_with(hh.init(cfg, cuda), cuda, labels, counts)
+    batches = [np.arange(16), np.concatenate([100 + np.arange(8), np.arange(16)])]
+    st, infos = _hh_run(cfg, st, batches, cuda, seed=policy)
+    assert int(infos[0]["admitted"].sum()) == 16            # the duplicates went in
+    if policy in (1, 2):   # the least count is the lower copy of label 0, at slot 0
+        assert int(infos[1]["evicted_label"][0]) == 0
+        assert int(infos[1]["slot"][8]) == C                # label 0 hits its upper copy
+
+
+@pytest.mark.parametrize("policy", [0, 1, 2, 3])
+def test_heavy_hitter_large_path_table_collisions(cuda, policy):
+    """Labels that share one home entry of the large path's 32-bit table,
+    into a counter just past the one-block ceiling with 1% of its slots
+    free: inserts, then evictions and hits through long probe chains."""
+    from repro_torch.core import heavy_hitter as hh
+    from repro_torch.kernels.heavy_hitter.heavy_hitter import (MAX_BMAX, large_plan,
+                                                               table_home)
+
+    bmax = MAX_BMAX + 1
+    T = large_plan(bmax).table
+    cfg = hh.HHConfig(capacity=bmax, admit_prob=0.5, policy=hh.Policy(policy), cms_width=64)
+    rng = np.random.default_rng(policy)
+    st = _hh_state(cfg, cuda, rng, fill=0.99)
+    # labels whose hash lands on the last entry: x = y * phi^-1 mod 2^32 for
+    # the y that scale to it, kept where x is a non-negative int32
+    inv, lo = pow(0x9E3779B1, -1, 2**32), -(-(T - 1) * 2**32 // T)
+    pool = np.asarray([x for x in ((y * inv) % 2**32 for y in range(lo, lo + 600))
+                       if x < 2**31][:300])
+    assert all(table_home(int(x), T) == T - 1 for x in pool)
+    st, _ = _hh_run(cfg, st, [pool[rng.integers(0, len(pool), 256)] for _ in range(4)],
+                    cuda, seed=policy)
+    assert int(st.total_writes) > 0
 
 
 def test_async_server_on_card_answers_from_published_snapshots(cuda):

@@ -9,7 +9,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.mips.mips import (BLOCKED_MAX_K, BLOCKED_MAX_ROWS,
                                            MERGE_CAP, SELECT_SLOTS,
                                            SELECT_THREADS, THRESHOLD_MAX_K,
-                                           mips_plan, select_smem_bytes,
+                                           TILE_ROWS, mips_plan, select_smem_bytes,
                                            spill_shape)
 
 
@@ -56,6 +56,28 @@ def test_mips_plan_one_wave_at_the_retrieval_shapes():
         p = mips_plan(Q, 1_000_000, 100)
         assert (p.qb, p.bn, p.nblk, p.P) == (Q, 8192, 123, 128)
         assert spill_shape(p, Q, 100) == (1, 1)
+
+
+@pytest.mark.parametrize("Q,N,k,qb,nblk,P", [
+    (64, 4218, 10, 64, 132, 16),       # the flush: 132 tiles fill the 132 SMs
+    (64, 4218, 8, 64, 132, 8),         # the staged route, k = nprobe
+    (64, 28_125, 10, 64, 879, 16),     # the 1 GB budget's index
+    (1, 7, 7, 16, 1, 8),
+    (20, 1000, 32, 32, 32, 32),
+    (100, 3000, 5, 64, 94, 8),         # two tile rows of queries
+    (33, 65_536, 1, 64, 2048, 1)])
+def test_mips_plan_blocked_sizes(Q, N, k, qb, nblk, P):
+    """The blocked path's tiles: 16, 32 or 64 queries (the least that holds
+    Q, at most 64) x TILE_ROWS = 32 index rows; each tile keeps k keys a
+    query, so a query's merge takes nblk * k keys, in registers up to
+    MERGE_CAP and spilled past it (2048 tiles x 32 keys)."""
+    p = mips_plan(Q, N, k)
+    assert (p.path, p.qb, p.bn, p.nblk, p.P) == ("blocked", qb, TILE_ROWS, nblk, P)
+    assert (p.nblk - 1) * TILE_ROWS < N <= p.nblk * TILE_ROWS
+    assert spill_shape(p, Q, k) == (1, 1)
+    big = mips_plan(64, BLOCKED_MAX_ROWS, BLOCKED_MAX_K)
+    assert big.nblk * BLOCKED_MAX_K > MERGE_CAP
+    assert spill_shape(big, 64, BLOCKED_MAX_K) == (64, big.nblk * BLOCKED_MAX_K)
 
 
 def test_mips_plan_limits():

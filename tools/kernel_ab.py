@@ -12,7 +12,10 @@ entry, the serving cache's route witness, as ``serve.route``; a checkout whose
 serve starts with ``topk.cuh``'s rows_topk_kernel times that launch as
 ``serve.stage1``, through mips's blocked select at k = nprobe, which is
 the same launch), ``mips10`` (the
-streaming-RAG flush: 64 queries against 4218 x 384 prototypes, k = 10),
+streaming-RAG flush: 64 queries against 4218 x 384 prototypes, k = 10;
+its two launches apart as ``mips10.select`` and ``mips10.merge``; the
+staged route's k = nprobe = 8 as ``mips8``; the 1 GB budget's index, 64
+queries against 28,125 x 384 prototypes, k = 10, as ``mips10.lg``),
 ``mips100`` (MIND's retrieve: 4 queries against a 1,000,000 x 64 item
 table, k = 100), ``rerank`` (the staged flush: the same queries, their
 top-8 routes with 10% dead labels, int8 rings of depth 64, k = 10),
@@ -38,7 +41,10 @@ RANDOM_EVICT at bmax 4218 on 256 valid Zipf labels (a counter that never
 fills, so no arrival evicts); ``.evict_min`` and ``.evict_random``,
 MIN_EVICT and RANDOM_EVICT at bmax 4218 with u_t = 1 on a full counter fed
 256 novel labels, so every arrival evicts (the minimum, or its Gumbel
-row); each with the wrapper's host ms a call,
+row); ``.lg`` and ``.lg_evict_min``, the same two shapes as ``.main`` and
+``.evict_min`` at the 1 GB budget's bmax 28,125, past one block: the large
+path, where the checkout has it (a checkout that refuses the bmax times
+the loop alone); each with the wrapper's host ms a call,
 ``.host`` (``cuda_ms``'s second number: the same calls with the card
 idle), and beside its plain loop, ``.plain``, timed on the host clock
 between synchronizes, since it is host-bound; a checkout without the
@@ -139,12 +145,19 @@ else:   # a serve whose first launch is topk.cuh's rows_topk_kernel: the same
         fns["serve.stage1"] = lambda: mrun(1)
 """,
     "mips10": r"""
-from repro_torch.kernels.mips.mips import mips_topk_cuda
+from repro_torch.kernels.mips.mips import mips_launcher, mips_topk_cuda
 K, d, Q = 4218, 384, cs.QUERIES
 q = l2_normalize(torch.randn((Q, d), generator=g, device="cuda"))
 vectors = l2_normalize(torch.randn((K, d), generator=g, device="cuda"))
 valid = torch.rand((K,), generator=g, device="cuda") < 0.9
 fns = {"mips10": lambda: mips_topk_cuda(q, vectors, valid, cs.TOPK)}
+mrun = mips_launcher(q, vectors, valid, cs.TOPK)[-1]
+fns["mips10.select"] = lambda: mrun(1)
+fns["mips10.merge"] = lambda: mrun(2)
+fns["mips8"] = lambda: mips_topk_cuda(q, vectors, valid, cs.NPROBE)
+vlg = l2_normalize(torch.randn((28_125, d), generator=g, device="cuda"))
+validlg = torch.rand((28_125,), generator=g, device="cuda") < 0.9
+fns["mips10.lg"] = lambda: mips_topk_cuda(q, vlg, validlg, cs.TOPK)
 """,
     "mips100": r"""
 from repro_torch.kernels.mips.mips import mips_topk_cuda
@@ -217,11 +230,31 @@ for name, policy in (("evict_min", hh.Policy.MIN_EVICT),
     counts = torch.from_numpy(rng.integers(0, 9, 4218).astype(np.int32)).cuda()
     cases[name] = (cfg, hh.init(cfg, "cuda")._replace(labels=full, counts=counts),
                    torch.arange(50_000, 50_000 + cs.BATCH, dtype=torch.int32, device="cuda"))
+# the 1 GB budget's counter, past one block: the main path's batch shape on
+# a fresh counter, and every arrival evicting on a full one
+LG = 28_125
+cfg = hh.HHConfig(capacity=LG)
+lab = torch.full((cs.BATCH,), -1, dtype=torch.int32, device="cuda")
+lab[torch.randperm(cs.BATCH, generator=g, device="cuda")[:26]] = torch.from_numpy(
+    cs.zipf_ids(rng, LG, (26,))).cuda()
+cases["lg"] = (cfg, hh.init(cfg, "cuda"), lab)
+cfg = hh.HHConfig(capacity=LG, admit_prob=1.0)
+full = torch.from_numpy(rng.permutation(4 * LG)[:LG].astype(np.int32)).cuda()
+counts = torch.from_numpy(rng.integers(0, 9, LG).astype(np.int32)).cuda()
+cases["lg_evict_min"] = (cfg, hh.init(cfg, "cuda")._replace(labels=full, counts=counts),
+                         torch.arange(10 * LG, 10 * LG + cs.BATCH, dtype=torch.int32,
+                                      device="cuda"))
 for name, (cfg, st, lab) in cases.items():
     dr = hh.draw(cfg, cs.BATCH, g, "cuda")
+    fn = None
     if update_batch_cuda is not None:
-        fns[f"heavy_hitter.{name}"] = (lambda cfg=cfg, st=st, lab=lab, dr=dr:
-                                       update_batch_cuda(cfg, st, lab, dr))
+        fn = (lambda cfg=cfg, st=st, lab=lab, dr=dr: update_batch_cuda(cfg, st, lab, dr))
+        try:
+            fn()
+        except ValueError:   # a kernel that refuses a bmax past one block
+            fn = None
+    if fn is not None:
+        fns[f"heavy_hitter.{name}"] = fn
         host_too.add(f"heavy_hitter.{name}")
     host_fns[f"heavy_hitter.{name}.plain"] = (lambda cfg=cfg, st=st, lab=lab, dr=dr:
                                               plain_update(cfg, st, lab, dr))
