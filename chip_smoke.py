@@ -37,7 +37,8 @@
    once per batch. The fp32 config (depth 16) runs a few batches too.
    Answers are checked against the plain versions. The fused ingest
    ms/batch is printed next to the per-arrival loop's (PERF.md).
-3b. Heavy hitter: the kernel against its plain loop, every state leaf and
+3b. (Run after 4 and 4b, as 3c: they launch the most before 3d.) Heavy
+   hitter: the kernel against its plain loop, every state leaf and
    info entry exact, on the main path's own 16 calls (their masked labels
    and draws), on a Zipf label stream over 4218 clusters at capacity 100
    for every policy with exact counts, Morris, adaptive (max capacity 200)
@@ -56,7 +57,8 @@
    bmax) and the plain loop's host ms.
 3c. The main path at a 1 GB budget (``budget_to_config(1000.0, ...)``, int8
    depth 64: k = B = 28,125, about 800 MB of rings): a ``RAGServer`` seeded
-   from a fresh NYT-like stream's warmup ingests 16 batches of 256 and
+   from a fresh NYT-like stream's warmup (56,250 rows in one draw, as 3d's;
+   the phase fails unless the path served documents) ingests 16 batches of 256 and
    answers 64-query flushes two-stage, then prototype-only; counts reset
    just before: admit, serve, mips and the counter's large path launch
    (once a batch), its one-block kernel never, no plain version. Answers
@@ -65,6 +67,30 @@
    serve at cap 28,125 and mips over 28,125 rows at k = 10 and 8 against
    theirs. Prints ingest ms a batch, flush p50/p99, peak memory and each
    kernel's device ms there, beside the card's name and power limit.
+3d. (Run last, after 12.) The main path at a 4 GB budget
+   (``budget_to_config(4000.0, ...)``, int8 depth 64: k = B = 112,501,
+   about 3.2 GB of state), where a query's
+   route keys no longer fit one block's shared memory at the tables'
+   nprobe 16 and serve cuts them by a merge pass first: a
+   ``RAGServer`` seeded from a fresh NYT-like warmup (the k-means++ init's
+   seconds printed) ingests 16 batches of 256 and answers 64-query
+   flushes two-stage at nprobe 16, then at nprobe 8, then prototype-only;
+   counts reset just before: admit, serve, mips and the counter's large
+   path launch, no plain version. Answers against the plain versions at
+   each nprobe; admit against 112,501 centroids, the 16 counter calls
+   (exact), serve and the route-only entry at cap 112,501 and nprobe 16
+   (routes bit-equal between the two), mips over 112,501 rows; then serve
+   and the route-only entry at the 4, 8, 16 and 60 GB budgets' caps
+   (112,501, 225,003, 450,007, 1,687,526) at nprobe 8, 16, 32 and 64, on
+   seeded prototypes (10% invalid, 10% labels -1) over a 4,218-cluster
+   ring store, whose index, unlike the main path's, is mostly valid. The
+   warmup's 225,002 rows are drawn at once (``bulk_warmup``: drawn 256 at
+   a time, the stream drifts 879 times and the basis admits nothing
+   after), and the phase fails unless the counter saw valid arrivals, the
+   index holds valid prototypes and both query modes answer live. Prints
+   ingest ms a batch, flush p50/p99 at each nprobe, serve's device ms
+   with the merge pass timed apart and its bound, and peak memory,
+   beside the card's name and power limit.
 4. Staged path: the same config, seed, warmup and the main path's own 16
    batches, from a fresh init, through ``engine.staged_ingest_impl``
    (``screen -> assign_update -> count -> update_representatives ->
@@ -350,9 +376,13 @@
    rows, d = 128, ids the sampled batch's ``edge_dst``), with every id 0
    (the dummy batch's one hot row) and int64 ids: each element within
    1e-5 of the sum of its terms' magnitudes + 1e-6, empty rows exactly
-   zero, two calls bit-equal; the gather backward the same way at
-   ``hn[src]``'s shape; device ms, plain, library (``index_add_``) and the
-   bound, and the entry's launches by part. (b) One forward, loss and
+   zero, two calls bit-equal; then given the ids' order
+   (``segment_order_cuda``: the entry's sort alone, equal to its plain
+   version field for field), bit-equal to the call without it; the gather
+   backward the same way at ``hn[src]``'s shape; device ms (given the
+   order, and without), plain, library (``index_add_``) and the bound, the
+   sort's own (library: a stable ``torch.sort``), and the entry's
+   launches by part. (b) One forward, loss and
    gradient on the card against the same module on the CPU with the same
    params on a sampled batch (the CPU without remat, whose recompute
    gives the same values): outputs and loss within 1e-4 of their max
@@ -369,11 +399,13 @@
    together until a step fits (an OutOfMemoryError under the cap halves
    it; the cut printed with its reason); counts reset just before each
    run: the segment sum launches 2 a layer a step (forward, recompute),
-   the gather backward 2, nothing else, no plain version; losses finite.
+   the gather backward 2, the sort 2 a step (``edge_dst``, ``edge_src``),
+   nothing else, no plain version; losses finite.
    (d) The train launcher (``--arch meshgraphnet --full --shape molecule
    --steps 4 --ckpt-interval 2``) in its own process, then resumed to 6.
    Printed: the host ms to sample a batch, step ms, steps/s, launches a
-   step, the bag_backward.cu kernels' ms, kernel ms and idle share of one
+   step, the sorts a step, bag_backward.cu's launches and ms a step,
+   kernel ms and idle share of one
    step (torch.profiler), peak memory, each beside the card's name and
    power limit.
 11. Mesh path (training-side distribution): (a) every registered arch's
@@ -419,7 +451,8 @@
    (60 steps) none of the port's kernels; no plain version; each one's
    lines and seconds printed.
 13. One JSON line of kernel numbers (the counter's large path as
-   ``heavy_hitter_large``, its launches and times from 3c), then
+   ``heavy_hitter_large``, its launches and times from 3c; the segment sum
+   given its order, and the sort as ``segment_order``, from 10), then
    ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -467,10 +500,12 @@ from repro_torch.kernels.assign.ref import assign_ref  # noqa: E402
 from repro_torch.kernels.bag import ops as bag_ops  # noqa: E402
 from repro_torch.kernels.bag.bag import (embedding_bag_backward_cuda,  # noqa: E402
                                          embedding_bag_cuda, embedding_bag_sorted_cuda,
-                                         gather_backward_cuda, segment_sum_cuda)
+                                         gather_backward_cuda, segment_order_cuda,
+                                         segment_sum_cuda)
 from repro_torch.kernels.bag.ref import (embedding_bag_backward_ref,  # noqa: E402
                                          embedding_bag_ref, embedding_bag_sorted_ref,
-                                         gather_backward_ref, segment_sum_ref)
+                                         gather_backward_ref, order_splits, segment_order_ref,
+                                         segment_sum_ref)
 from repro_torch.kernels.common import (NEG_INF, l2_normalize,  # noqa: E402
                                         l2_normalize_queries, require_full_fp32,
                                         stable_topk)
@@ -488,8 +523,8 @@ from repro_torch.kernels.rerank.ref import rerank_topk_ref  # noqa: E402
 from repro_torch.kernels.rerank.rerank import rerank_topk_cuda  # noqa: E402
 from repro_torch.kernels.serve import ops as serve_ops  # noqa: E402
 from repro_torch.kernels.serve.ref import serve_routes_ref, serve_topk_ref  # noqa: E402
-from repro_torch.kernels.serve.serve import (serve_launcher, serve_routes_cuda,  # noqa: E402
-                                             serve_topk_cuda)
+from repro_torch.kernels.serve.serve import (serve_launcher, serve_plan,  # noqa: E402
+                                             serve_routes_cuda, serve_topk_cuda)
 from repro_torch.models import gnn as gnn_lib  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import recsys  # noqa: E402
@@ -536,10 +571,14 @@ SOURCES = {"admit": "src/repro/kernels/admit/admit.py:177",
                                "src/repro/models/recsys.py:198's row gather (jnp.take)"),
            # the same entry's sum run forward: the GNN's aggregation
            "segment_sum": ("port-side: no pallas_call; src/repro/models/gnn.py:168 "
-                           "jax.ops.segment_sum")}
+                           "jax.ops.segment_sum"),
+           # the same file's sort alone, once an id set a batch
+           "segment_order": ("port-side: no pallas_call; the sort of the ids that "
+                             "src/repro/models/gnn.py:168's jax.ops.segment_sum scatters")}
 # a kernel whose source is another's file
 CSRC_OF = {"serve_route": "serve", "gather_backward": "bag_backward",
-           "segment_sum": "bag_backward", "heavy_hitter_large": "heavy_hitter"}
+           "segment_sum": "bag_backward", "segment_order": "bag_backward",
+           "heavy_hitter_large": "heavy_hitter"}
 RECSYS_STEPS = ("serve_p99", "serve_bulk", "retrieval_cand")
 LOOP_INGEST_MS = 250.59   # fused ingest ms/batch with the per-arrival loop in place
 #                           of the heavy-hitter kernel (PERF.md; H100 80GB HBM3, 700 W)
@@ -548,6 +587,12 @@ HH_ZIPF_CLUSTERS, HH_ZIPF_CAPACITY, HH_ZIPF_BATCHES = 4218, 100, 3
 # budget_to_config's bmax at 1 GB and at 4 GB; the main path at 1 GB (3c)
 HH_LARGE_BMAX = (28_125, 112_501)
 BUDGET_1GB_MB = 1000.0
+# the main path past one block's route keys (3d): 4 GB at the tables'
+# nprobe, then the 4, 8, 16 and 60 GB budgets' caps on seeded prototypes
+BUDGET_4GB_MB, NPROBE_TABLES = 4000.0, 16
+LARGE_SERVE_BUDGETS_MB = (BUDGET_4GB_MB, 8000.0, 16000.0, 60000.0)
+LARGE_SERVE_NPROBES = (8, 16, 32, 64)
+LARGE_SERVE_CLUSTERS = 4218
 ASYNC_PUBLISH_EVERY = 4
 # the cached path (4c): table 21's gate cell, Zipf alpha 1.1 over a pool
 # larger than the cache; 8 MB of pinned tier = 256 clusters of 25,348 B
@@ -913,14 +958,27 @@ def entry_scores(qn, embs, live, scales, routes, pos):
 
 
 def serve_split(qr, qn, vectors, valid, labels, embs, live, scales, k, nprobe) -> str:
-    """Device ms of the kernel's two launches apart (route tiles, then the
-    routed rerank) and together, with the plan that sized them."""
+    """Device ms of the kernel's launches apart (route tiles, the reduction
+    passes where the plan has any, the routed rerank; each after a whole
+    call, so that it reads what the launch before it writes) and together,
+    with the plan that sized them."""
     plan, _, _, _, run = serve_launcher(qr, qn, vectors, valid, labels, embs, live, k,
                                         nprobe, scales)
-    t1, t2, both = (cuda_ms(lambda p=p: run(p))[0] for p in (1, 2, 3))
+    # each phase alone reads what the one before it wrote: tiles, passes,
+    # rerank in that order (a second pass writes over the tiles' keys, so
+    # with two or more the passes are timed with the tiles, less the tiles)
+    both = cuda_ms(run)[0]
+    t1 = cuda_ms(lambda: run(1))[0]
+    passes = ""
+    if plan.levels:
+        t4 = (cuda_ms(lambda: run(4))[0] if len(plan.levels) == 1
+              else cuda_ms(lambda: run(5))[0] - t1)
+        passes = (f"{len(plan.levels)} merge pass(es) of 32 sorted lists to "
+                  f"{', '.join(str(n) for n in plan.levels)} keys a query {t4:.4f} ms, ")
+    t2 = cuda_ms(lambda: run(2))[0]
     return (f"route tiles of {8 * plan.rm} queries x 64 ({plan.ntiles} column tiles, "
-            f"{plan.m} route keys a query) {t1:.4f} ms, rerank in clusters of "
-            f"{plan.cluster} {t2:.4f} ms, both {both:.4f} ms device")
+            f"{plan.m} route keys a query) {t1:.4f} ms, {passes}rerank in clusters of "
+            f"{plan.cluster} {t2:.4f} ms, all {both:.4f} ms device")
 
 
 def check_serve(qr, qn, vectors, valid, labels, embs, live, scales, k, nprobe,
@@ -1455,6 +1513,32 @@ def warmup_rows(stream, k):
     return np.concatenate([stream.next_batch(BATCH)["embedding"] for _ in range(n)])
 
 
+def bulk_warmup(stream, k):
+    """2k warmup rows in one draw. The stream's topics drift once a draw,
+    so 2k rows drawn a batch of 256 at a time (879 draws at the 4 GB
+    budget's k) end far from where they began: the prefilter's basis, the
+    warmup's top principal directions, then admits none of the documents
+    that follow (at 4 GB, 0 of 16 batches' 4,096; in one draw, 26 to 50 a
+    batch)."""
+    return stream.next_batch(2 * k)["embedding"]
+
+
+def assert_serving(eng, valid_arrivals, q, what: str) -> str:
+    """Fails unless the path served documents: some counter call had valid
+    arrivals, the index holds valid prototypes, and both query modes give
+    live answers. Returns what it counted."""
+    assert sum(valid_arrivals) > 0, f"{what}: no counter call had a valid arrival"
+    size = eng.index_size()
+    assert size > 0, f"{what}: the index holds no valid prototype"
+    live = []
+    for two in (True, False):
+        s = eng.query(q, TOPK, two_stage=two, nprobe=NPROBE)[0]
+        live.append(int((s > NEG_INF / 2).sum()))
+        assert live[-1] > 0, f"{what}: no live {'two-stage' if two else 'prototype'} answer"
+    return (f"{sum(valid_arrivals)} valid arrivals, index size {size}, live answers "
+            f"{live[0]} two-stage and {live[1]} prototype-only of {q.shape[0] * TOPK}")
+
+
 def phase_kernels(results: dict):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -1571,20 +1655,20 @@ def answers_ok(answers, k):
     return True
 
 
-def compare_with_plain(engine, q, two_stage):
+def compare_with_plain(engine, q, two_stage, nprobe=NPROBE):
     """The engine's answer against the plain versions composed the same way
     on the same card state: scores within tolerance, ids equal except at
     near-ties. Returns the number of near-tie id swaps."""
     cfg, st = engine.cfg, engine.state
-    s_k, _, i_k, _ = engine.query(q, TOPK, two_stage=two_stage, nprobe=NPROBE)
+    s_k, _, i_k, _ = engine.query(q, TOPK, two_stage=two_stage, nprobe=nprobe)
     qn = l2_normalize(q)
     if two_stage:
         scales = st.store.scales if st.store.embs.dtype == torch.int8 else None
         s_p, pos, routes = serve_topk_ref(qn, qn, st.index.vectors, st.index.valid,
                                           st.route_labels, st.store.embs,
-                                          st.store.ids >= 0, TOPK, NPROBE, scales)
+                                          st.store.ids >= 0, TOPK, nprobe, scales)
         i_p = stages.decode_rerank(st.store.ids, routes, s_p, pos,
-                                   cfg.store_depth, NPROBE)[2]
+                                   cfg.store_depth, nprobe)[2]
     else:
         s_p, rows = mips_topk_ref(qn, st.index.vectors, st.index.valid, TOPK)
         i_p = st.index.ids[rows.long()]
@@ -1620,15 +1704,18 @@ def timed_heavy_hitter():
         heavy_hitter.update_batch = real_update
 
 
-def serve_main_path(server, cfg, batches, queries, counter: str) -> dict:
+def serve_main_path(server, cfg, batches, queries, counter: str,
+                    more_nprobes: tuple = ()) -> dict:
     """The main path's traffic on ``server``: counts reset just before, it
     ingests ``batches`` and flushes 64 queries two-stage after each from the
-    fifth, then a prototype-only server on the same engine answers 128.
-    Asserts that admit, serve, mips and the counter's ``counter`` entry
-    (once a batch) launched, the other counter entry never, no plain
-    version ran, and every ticket was answered once. Returns the answers,
-    the prototype-only server, the launches and the ingest and counter
-    times (host clock between synchronizes) with the counter's calls."""
+    fifth, then a two-stage server at each of ``more_nprobes`` and a
+    prototype-only server, on the same engine, answer 128 each. Asserts
+    that admit, serve, mips and the counter's ``counter`` entry (once a
+    batch) launched, the other counter entry never, no plain version ran,
+    and every ticket was answered once. Returns the answers, the
+    prototype-only server and the others by nprobe, the launches and the
+    ingest and counter times (host clock between synchronizes) with the
+    counter's calls."""
     counts.reset_all()
     ingest_ms, submitted, answers = [], 0, []
     with timed_heavy_hitter() as (hh_ms, hh_calls):
@@ -1644,6 +1731,16 @@ def serve_main_path(server, cfg, batches, queries, counter: str) -> dict:
                     submitted += 1
                 answers += server.flush()
         answers += server.drain()
+        more = {}
+        for nprobe in more_nprobes:
+            more[nprobe] = RAGServer(cfg, ServerConfig(max_batch=QUERIES, topk=TOPK,
+                                                       two_stage=True, nprobe=nprobe),
+                                     engine=server.engine)
+            for qv in queries[-2 * QUERIES:]:
+                more[nprobe].submit(qv)
+            got = more[nprobe].drain()
+            assert len(got) == 2 * QUERIES
+            answers_ok(got, TOPK)
         proto = RAGServer(cfg, ServerConfig(max_batch=QUERIES, topk=TOPK),
                           engine=server.engine)
         for qv in queries[-2 * QUERIES:]:
@@ -1665,7 +1762,8 @@ def serve_main_path(server, cfg, batches, queries, counter: str) -> dict:
     answers_ok(answers, TOPK)
     answers_ok(proto_answers, TOPK)
     return dict(answers=answers, submitted=submitted, proto=proto, proto_answers=proto_answers,
-                launches=launches, ingest_ms=ingest_ms, hh_ms=hh_ms, hh_calls=hh_calls)
+                more=more, launches=launches, ingest_ms=ingest_ms, hh_ms=hh_ms,
+                hh_calls=hh_calls)
 
 
 def phase_main(stream, warm, results):
@@ -2128,7 +2226,7 @@ def phase_main_1gb(results):
     K, d = cfg.clus.num_clusters, cfg.clus.dim
     stream = make_stream("nyt", dim=d)
     t0 = time.perf_counter()
-    warm = warmup_rows(stream, K)
+    warm = bulk_warmup(stream, K)
     batches = [stream.next_batch(BATCH) for _ in range(MAIN_BATCHES)]
     queries = stream.queries(QUERIES * 12)["embedding"]
     torch.cuda.empty_cache()
@@ -2154,6 +2252,8 @@ def phase_main_1gb(results):
           f"{peak / 1e6:.1f} MB; upserts {eng.state.upserts}, index size {eng.index_size()} "
           f"({smi})")
     q = torch.from_numpy(queries[:QUERIES]).cuda()
+    valid = [int((lab >= 0).sum()) for _, _, lab, _ in hh_calls]
+    print(f"  served at 1 GB: {assert_serving(eng, valid, q, '1 GB path')}")
     for two in (True, False):
         n = compare_with_plain(eng, q, two)
         print(f"  {'two-stage' if two else 'prototype-only'} answers at 1 GB vs plain "
@@ -2167,7 +2267,6 @@ def phase_main_1gb(results):
     check_admit(x, st.pre.basis, st.clus.centroids, cfg.pre.alpha, live, "int8", chk)
     chk.done(f"{BATCH} rows vs {K} centroids")
     chk = Check("heavy_hitter_large")
-    valid = [int((lab >= 0).sum()) for _, _, lab, _ in hh_calls]
     for i, (hcfg, hst, lab, dr) in enumerate(hh_calls):
         hh_check(hcfg, hst, lab, dr, f"1 GB batch {i}", chk)
     chk.done(f"the 1 GB path's {len(hh_calls)} calls, valid arrivals {valid}")
@@ -2210,6 +2309,157 @@ def phase_main_1gb(results):
     step_breakdown(ingest_one, what="one ingest batch at 1 GB")
     del server, proto, eng, st, hh_calls
     torch.cuda.empty_cache()
+
+
+def large_serve_inputs(cap: int, gen):
+    """Seeded prototypes for serve past one block's route keys: cap unit
+    rows at d = 384, 10% invalid, labels over a 4,218-cluster ring store
+    with 10% -1, and that store (int8, depth 64)."""
+    d = 384
+    v = l2_normalize(torch.randn((cap, d), generator=gen, device="cuda"))
+    valid = torch.rand((cap,), generator=gen, device="cuda") < 0.9
+    labels = torch.randint(0, LARGE_SERVE_CLUSTERS, (cap,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    labels[torch.rand((cap,), generator=gen, device="cuda") < 0.1] = -1
+    q = l2_normalize(torch.randn((QUERIES, d), generator=gen, device="cuda"))
+    embs, live, scales = synthetic_store(LARGE_SERVE_CLUSTERS, 64, d, True, gen)
+    return q, v, valid, labels, embs, live, scales
+
+
+def hold_serve_pair(q, v, valid, labels, embs, live, scales, nprobe, chk: Check):
+    """Serve against its plain version and the route-only entry against
+    serve's routes (bit for bit) and its own plain version."""
+    _, _, routes = check_serve(q, q, v, valid, labels, embs, live, scales, TOPK, nprobe, chk)
+    check_serve_routes(q, v, valid, labels, routes, nprobe, chk)
+
+
+def phase_main_4gb(results):
+    """3d. The main path at a 4 GB budget: ``budget_to_config(4000.0,
+    ...)`` with int8 rings of depth 64, k = B = 112,501: the counter takes
+    its large path and serve, at the tables' nprobe 16, a merge pass.
+    A ``RAGServer`` seeded from a fresh NYT-like warmup ingests 16 batches
+    of 256 and flushes 64 queries two-stage at nprobe 16 from the fifth,
+    then 128 at nprobe 8, then 128 prototype-only, on the same engine;
+    counts reset just before: admit, serve, mips and the large counter
+    launch, no plain version. Answers against the plain versions at each
+    nprobe; every kernel of the path against its plain version at these
+    shapes; then serve and the route-only entry at the 4, 8, 16 and 60 GB
+    caps at nprobe 8-64 (``large_serve_inputs``). Prints the init
+    seconds, ingest ms a batch, flush p50/p99 at each nprobe, serve's
+    launches apart with their bound, peak memory and the card."""
+    smi = nvidia_smi()
+    cfg = pipeline.budget_to_config(BUDGET_4GB_MB, dim=384, base=paper_pipeline_config(
+        dim=384, store_depth=64, store_dtype="int8"))
+    K, d = cfg.clus.num_clusters, cfg.clus.dim
+    stream = make_stream("nyt", dim=d)
+    t0 = time.perf_counter()
+    warm = bulk_warmup(stream, K)
+    batches = [stream.next_batch(BATCH) for _ in range(MAIN_BATCHES)]
+    queries = stream.queries(QUERIES * 12)["embedding"]
+    data_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    scfg = ServerConfig(max_batch=QUERIES, topk=TOPK, two_stage=True, nprobe=NPROBE_TABLES)
+    server = RAGServer(cfg, scfg, seed=SEED, warmup=warm, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"main path at {BUDGET_4GB_MB:.0f} MB: k={K} B={cfg.hh.bmax()} int8 depth "
+          f"{cfg.store_depth}, state {pipeline.state_memory_bytes(cfg) / 1e6:.1f} MB, "
+          f"warmup {warm.shape[0]} rows (made in {data_s:.2f} s), init {init_s:.2f} s "
+          f"(k-means++: {K} sequential picks) ({smi})")
+    run = serve_main_path(server, cfg, batches, queries, "heavy_hitter_large",
+                          more_nprobes=(NPROBE,))
+    peak = torch.cuda.max_memory_allocated()
+    proto, ingest_ms, hh_calls = run["proto"], run["ingest_ms"], run["hh_calls"]
+    eng = server.engine
+    lat, plat = server.latency_stats(), proto.latency_stats()
+    lat8 = run["more"][NPROBE].latency_stats()
+    steady = ingest_ms[1:]
+    print(f"  ingest ms/batch at 4 GB: median {np.median(steady):.2f} (first "
+          f"{ingest_ms[0]:.2f}); heavy-hitter update {np.median(run['hh_ms'][1:]):.3f} ms "
+          f"(host clock between synchronizes, the large path); two-stage flush at nprobe "
+          f"{NPROBE_TABLES} p50 {lat['p50_ms']:.3f} ms p99 {lat['p99_ms']:.3f} ms over "
+          f"{lat['batches']} flushes; at nprobe {NPROBE} p50 {lat8['p50_ms']:.3f} ms p99 "
+          f"{lat8['p99_ms']:.3f} ms over {lat8['batches']}; prototype-only p50 "
+          f"{plat['p50_ms']:.3f} ms p99 {plat['p99_ms']:.3f} ms; peak memory "
+          f"{peak / 1e6:.1f} MB; upserts {eng.state.upserts}, index size {eng.index_size()} "
+          f"({smi})")
+    q = torch.from_numpy(queries[:QUERIES]).cuda()
+    valid_n = [int((lab >= 0).sum()) for _, _, lab, _ in hh_calls]
+    print(f"  served at 4 GB: {assert_serving(eng, valid_n, q, '4 GB path')}")
+    for two, nprobe in ((True, NPROBE_TABLES), (True, NPROBE), (False, NPROBE)):
+        n = compare_with_plain(eng, q, two, nprobe)
+        print(f"  {f'two-stage at nprobe {nprobe}' if two else 'prototype-only'} answers at "
+              f"4 GB vs plain versions on the card: agree, {n} near-tie id swaps")
+
+    # every kernel of the path against its plain version at these shapes
+    st = eng.state
+    x = torch.from_numpy(batches[-1]["embedding"]).cuda()
+    live = torch.ones((BATCH,), dtype=torch.bool, device="cuda")
+    chk = Check("admit@4GB")
+    check_admit(x, st.pre.basis, st.clus.centroids, cfg.pre.alpha, live, "int8", chk)
+    chk.done(f"{BATCH} rows vs {K} centroids")
+    chk = Check("heavy_hitter_large@4GB")
+    for i, (hcfg, hst, lab, dr) in enumerate(hh_calls):
+        hh_check(hcfg, hst, lab, dr, f"4 GB batch {i}", chk)
+    chk.done(f"the 4 GB path's {len(hh_calls)} calls, valid arrivals {valid_n}")
+    qn = l2_normalize(q)
+    chk = Check("mips@4GB")
+    check_mips(qn, st.index.vectors, st.index.valid, TOPK, chk)
+    check_mips(qn, st.index.vectors, st.index.valid, NPROBE_TABLES, chk)
+    chk.done(f"{QUERIES} x {st.index.vectors.shape[0]}, k {TOPK} and {NPROBE_TABLES}")
+    scales = st.store.scales if st.store.embs.dtype == torch.int8 else None
+    ring_live = st.store.ids >= 0
+    chk = Check("serve@4GB")
+    for nprobe in (NPROBE_TABLES, NPROBE):
+        hold_serve_pair(qn, st.index.vectors, st.index.valid, st.route_labels, st.store.embs,
+                        ring_live, scales, nprobe, chk)
+    chk.done(f"cap {st.index.vectors.shape[0]}, nprobe {NPROBE_TABLES} and {NPROBE}, "
+             f"route-only == fused")
+    args = (qn, qn, st.index.vectors, st.index.valid, st.route_labels, st.store.embs,
+            ring_live)
+    s_ms, s_host = cuda_ms(lambda: serve_topk_cuda(*args, TOPK, NPROBE_TABLES, scales))
+    r_ms = cuda_ms(lambda: serve_routes_cuda(qn, st.index.vectors, st.index.valid,
+                                             st.route_labels, NPROBE_TABLES))[0]
+    m_ms = cuda_ms(lambda: mips_topk_cuda(qn, st.index.vectors, st.index.valid, TOPK))[0]
+    a_ms = cuda_ms(lambda: admit_cuda(x, st.pre.basis, st.clus.centroids, cfg.pre.alpha, live,
+                                      store_dtype="int8"))[0]
+    routes = serve_routes_cuda(qn, st.index.vectors, st.index.valid, st.route_labels,
+                               NPROBE_TABLES)
+    want = cost.serve(QUERIES, d, K, cfg.store_depth, NPROBE_TABLES, TOPK, 1, True,
+                      cost.distinct(routes))
+    b_ms, b_by = cost.bound(want)
+    idx_ms = (st.index.vectors.numel() * 4 + st.index.valid.numel()) / HBM_BW * 1e3
+    print(f"  serve at 4 GB, nprobe {NPROBE_TABLES}: {s_ms:.4f} ms device ({s_host:.4f} ms a "
+          f"call from the host; "
+          f"{serve_split(*args, scales, TOPK, NPROBE_TABLES)}); bound {b_ms:.4f} ms ({b_by}; "
+          f"the index alone {idx_ms:.4f} ms by bytes); route-only {r_ms:.4f} ms; mips "
+          f"{m_ms:.4f} ms ({mips_split(qn, st.index.vectors, st.index.valid, TOPK)}); admit "
+          f"{a_ms:.4f} ms ({smi})")
+    del server, proto, eng, st, hh_calls, run, args, routes
+    torch.cuda.empty_cache()
+
+    # serve past one block at the larger budgets' caps, on seeded prototypes
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    for mb in LARGE_SERVE_BUDGETS_MB:
+        cap = pipeline.budget_to_config(mb, dim=384, base=paper_pipeline_config(
+            dim=384, store_depth=64, store_dtype="int8")).clus.num_clusters
+        inputs = large_serve_inputs(cap, gen)
+        chk = Check(f"serve@{mb / 1000:.0f}GB")
+        times = []
+        for nprobe in LARGE_SERVE_NPROBES:
+            plan = serve_plan(QUERIES, cap, nprobe, 64, 384, TOPK)
+            hold_serve_pair(*inputs, nprobe, chk)
+            ms = cuda_ms(lambda: serve_topk_cuda(inputs[0], *inputs[:6], TOPK, nprobe,
+                                                 inputs[6]))[0]
+            times.append(f"nprobe {nprobe}: {ms:.4f} ms, {len(plan.levels)} pass(es) to "
+                         f"{plan.msel} keys")
+        chk.done(f"cap {cap} ({mb:.0f} MB), nprobe {LARGE_SERVE_NPROBES}, route-only == "
+                 f"fused; " + "; ".join(times))
+        del inputs
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------- async
@@ -2367,12 +2617,14 @@ def _async_run(stream, warm, batches, sync_lat, profiled):
     # torch.profiler: the ingest kernels run on another stream than serve's
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         b = stream.next_batch(BATCH)
+        served = counts.COUNTS["serve"].kernel
         server.ingest(b["embedding"], b["doc_id"])
         for qv in qs[:QUERIES]:
             server.submit(qv)
-        server.flush()
+        window = server.flush()
         server.sync(timeout=300)
         torch.cuda.synchronize()
+        served = counts.COUNTS["serve"].kernel - served
     server.close(timeout=300)
     trace = str(build.BUILD_DIR / "async_trace.json")
     prof.export_chrome_trace(trace)
@@ -2388,7 +2640,9 @@ def _async_run(stream, warm, batches, sync_lat, profiled):
     print(f"  torch.profiler over one more batch and flush: streams of the ingest kernels "
           f"{sorted(map(str, ingest_s_ids))}, of the serve kernels "
           f"{sorted(map(str, serve_s_ids))}; heavy_hitter kernels for the one batch: {hh_n}")
-    assert len(ingest_k) == 3 and len(serve_k) == 2, (sorted(streams))
+    assert len(ingest_k) == 3 and len(serve_k) == 2, (
+        f"serve launched {served} time(s) in the window, its flush answered {len(window)} "
+        f"queries; kernels the trace holds: {sorted(streams)}")
     assert hh_n == 1, hh_n
     assert None not in ingest_s_ids | serve_s_ids, "the trace names no stream"
     assert not ingest_s_ids & serve_s_ids, "ingest and serve kernels share a stream"
@@ -3518,8 +3772,12 @@ def profiled_launches(fn) -> tuple[float, list[tuple[str, float]]]:
 BWD_PARTS = (("hist_kernel", "sort"), ("scan_kernel", "sort"), ("scatter_kernel", "sort"),
              ("Memset", "clear"), ("scale_kernel", "counts"),
              ("chunk_kernel", "offsets + chunk sums + hot-row partials"),
-             ("group_kernel", "level 2"), ("finish_kernel", "spanning rows"),
-             ("dense_kernel", "dense pass"), ("dw_kernel", "d_w"))
+             ("dense_kernel", "dense pass"), ("dw_kernel", "d_w"),
+             ("offsets_kernel", "row extents"), ("splits_kernel", "warp splits"),
+             # the longer name first: a launch takes the first part whose name it holds
+             ("long_rows_kernel", "spanning rows"),
+             ("rows_kernel", "rows + long-row pieces (order given)"),
+             ("level2_kernel", "level 2"))
 
 
 def backward_split(what: str, fn) -> dict[str, float]:
@@ -4439,15 +4697,29 @@ def check_segment_sum(x, ids, n: int, chk: Check):
     """The segment sum twice (bit-equal) against its plain version on the
     card: each element within 1e-5 of the sum of its own terms'
     magnitudes + 1e-6 (another order of the same sum); rows no id names
-    exactly zero."""
+    exactly zero. Then with the ids' order (``segment_order_cuda``, equal
+    to its plain version field for field): twice, bit-equal to the call
+    without it, and the gather entry over the order bit-equal to it
+    without. Returns the order."""
     got = segment_sum_cuda(x, ids, n)
     again = segment_sum_cuda(x, ids, n)
     want = segment_sum_ref(x, ids, n)
     mag = segment_sum_ref(x.abs(), ids, n)
+    order = segment_order_cuda(ids, n)
+    with_order = [segment_sum_cuda(x, ids, n, order) for _ in range(2)]
+    plain_order = segment_order_ref(ids, n)
+    table = torch.empty((n, x.shape[1]), dtype=x.dtype, device="cuda")
+    gathers = [gather_backward_cuda(table, ids, x, o) for o in (order, None)]
     torch.cuda.synchronize()
     what = f"ids {tuple(ids.shape)} {ids.dtype} into {n}"
     if not torch.equal(got, again):
         chk.fail.append(f"{what}: two calls differ")
+    if not all(torch.equal(a, b) for a, b in zip(order, plain_order)):
+        chk.fail.append(f"{what}: the order differs from its plain version")
+    if not all(torch.equal(got, w) for w in with_order):
+        chk.fail.append(f"{what}: the sum with the order differs from the sum without")
+    if not torch.equal(*gathers):
+        chk.fail.append(f"{what}: the gather entry with the order differs from it without")
     chk.err = max(chk.err, max_err(got, want))
     bad = int(((got - want).abs() > RTOL * mag + ATOL).sum())
     if bad:
@@ -4456,28 +4728,53 @@ def check_segment_sum(x, ids, n: int, chk: Check):
     touched[ids.long()] = True
     if not bool((got[~touched] == 0).all()):
         chk.fail.append(f"{what}: an empty segment is not zero")
+    return order
 
 
-def time_segment_sum(x, ids, n: int):
-    """Device ms of the segment sum (its sort and dense pass included),
+def time_segment_sum(x, ids, n: int, order):
+    """Device ms of the segment sum given the ids' order (as the GNN's
+    step calls it; without it too, its sort and dense pass included),
     plain (``segment_sum_ref``: ``index_add_`` in f32), library (one
     ``torch.zeros(n, d).index_add_(0, ids, x)``, timed only) and the
     bound: the entries read once, the dense result written once."""
     E, d = x.shape
-    ms, host = cuda_ms(lambda: segment_sum_cuda(x, ids, n))
+    ms, host = cuda_ms(lambda: segment_sum_cuda(x, ids, n, order))
+    unordered = cuda_ms(lambda: segment_sum_cuda(x, ids, n))[0]
     plain, plain_how = device_ms(lambda: segment_sum_ref(x, ids, n), iters=5)
     lib_fn = lambda: torch.zeros((n, d), device="cuda").index_add_(0, ids, x)  # noqa: E731
     lib_err = max_err(lib_fn(), segment_sum_ref(x, ids, n))
     lib, lib_how = device_ms(lib_fn, iters=5)
     want = cost.segment_sum(E, d, n, x.element_size(), ids.element_size())
     b_ms, b_by = cost.bound(want)
-    profile_entry("segment_sum", "segment_sum", lambda: bag_ops.segment_sum(x, ids, n), want)
+    profile_entry("segment_sum", "segment_sum",
+                  lambda: bag_ops.segment_sum(x, ids, n, order=order), want)
     print(f"  segment_sum at minibatch_lg: {E} entries into {n} x {d}: {ms:.4f} ms device "
-          f"({host:.4f} ms a call from the host), plain {plain:.4f} ms ({plain_how}), "
+          f"given the order ({host:.4f} ms a call from the host; {unordered:.4f} ms without "
+          f"it, sorting), plain {plain:.4f} ms ({plain_how}), "
           f"library {lib:.4f} ms (zeros + index_add_, float atomics; {lib_how}; max|d| vs "
           f"plain {lib_err:.3g}), bound {b_ms:.4f} ms ({b_by})")
     return dict(ms=ms, host_ms=host, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
                 bound_by=b_by)
+
+
+def time_segment_order(ids, n: int):
+    """Device ms of the sort alone (``segment_order_cuda``: the radix sort,
+    the rows' extents, the warps' splits), plain (``segment_order_ref``:
+    torch.sort, two searchsorted), library (one stable ``torch.sort`` of
+    the ids, timed only) and the bound: the ids read, the sorted ids and
+    positions, offsets and splits written once."""
+    E = ids.numel()
+    ms, host = cuda_ms(lambda: segment_order_cuda(ids, n))
+    plain, plain_how = device_ms(lambda: segment_order_ref(ids, n), iters=5)
+    lib, lib_how = device_ms(lambda: torch.sort(ids, stable=True), iters=5)
+    want = cost.segment_order(E, n, ids.element_size(), order_splits(n, E))
+    b_ms, b_by = cost.bound(want)
+    profile_entry("segment_order", "segment_order", lambda: bag_ops.segment_order(ids, n), want)
+    print(f"  segment_order at minibatch_lg: {E} ids over {n} rows: {ms:.4f} ms device "
+          f"({host:.4f} ms a call from the host), plain {plain:.4f} ms ({plain_how}), library "
+          f"{lib:.4f} ms (torch.sort(stable=True); {lib_how}), bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=ms, host_ms=host, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=0.0)
 
 
 def gnn_kernels(arch, batch, gen, results):
@@ -4488,25 +4785,36 @@ def gnn_kernels(arch, batch, gen, results):
     dst, src = batch["edge_dst"], batch["edge_src"]
     zeros = torch.zeros_like(dst)          # every id 0: the dummy batch's one hot row
     chk = Check("seg_sum")
-    check_segment_sum(x, dst, N, chk)
-    check_segment_sum(x, zeros, N, chk)
+    order = check_segment_sum(x, dst, N, chk)
+    zorder = check_segment_sum(x, zeros, N, chk)
     check_segment_sum(x, dst.long(), N, chk)
-    chk.done("minibatch_lg dst, zeros, int64")
-    results["segment_sum"] = dict(max_abs_err=chk.err, **time_segment_sum(x, dst, N))
-    backward_split("segment_sum at minibatch_lg", lambda: segment_sum_cuda(x, dst, N))
-    backward_split("segment_sum, every id 0", lambda: segment_sum_cuda(x, zeros, N))
-    zeros_ms = cuda_ms(lambda: segment_sum_cuda(x, zeros, N))[0]
-    print(f"  segment_sum, every id 0: {zeros_ms:.4f} ms device")
+    chk.done("minibatch_lg dst, zeros, int64; with and without the order")
+    results["segment_sum"] = dict(max_abs_err=chk.err, **time_segment_sum(x, dst, N, order))
+    results["segment_order"] = time_segment_order(dst, N)
+    backward_split("segment_sum at minibatch_lg, the order given",
+                   lambda: segment_sum_cuda(x, dst, N, order))
+    backward_split("segment_sum at minibatch_lg, no order", lambda: segment_sum_cuda(x, dst, N))
+    backward_split("segment_order at minibatch_lg", lambda: segment_order_cuda(dst, N))
+    backward_split("segment_sum, every id 0, the order given",
+                   lambda: segment_sum_cuda(x, zeros, N, zorder))
+    zeros_ms = cuda_ms(lambda: segment_sum_cuda(x, zeros, N, zorder))[0]
+    zeros_bare = cuda_ms(lambda: segment_sum_cuda(x, zeros, N))[0]
+    print(f"  segment_sum, every id 0: {zeros_ms:.4f} ms device given the order, "
+          f"{zeros_bare:.4f} ms without")
     hn = torch.randn((N, d), generator=gen, device="cuda")
     chk = Check("gath_bwd")
     check_gather_backward(hn, src, x, chk)
     check_gather_backward(hn, torch.zeros_like(src), x, chk)
     check_gather_backward(hn, batch["edge_dst"], x, chk)
-    chk.done("hn[src], hn[dst], zeros at minibatch_lg")
-    ms = cuda_ms(lambda: gather_backward_cuda(hn, src, x))[0]
+    sorder = segment_order_cuda(src, N)
+    if not torch.equal(gather_backward_cuda(hn, src, x, sorder), gather_backward_cuda(hn, src, x)):
+        chk.fail.append("hn[src]: the gather entry with the order differs from it without")
+    chk.done("hn[src], hn[dst], zeros at minibatch_lg; hn[src] with its order")
+    ms = cuda_ms(lambda: gather_backward_cuda(hn, src, x, sorder))[0]
+    bare = cuda_ms(lambda: gather_backward_cuda(hn, src, x))[0]
     plain = device_ms(lambda: gather_backward_ref(hn, src, x), iters=5)[0]
-    print(f"  gather_backward at hn[src] ({E} ids into {N} x {d}): {ms:.4f} ms device, plain "
-          f"{plain:.4f} ms")
+    print(f"  gather_backward at hn[src] ({E} ids into {N} x {d}): {ms:.4f} ms device given "
+          f"the order ({bare:.4f} ms without), plain {plain:.4f} ms")
 
 
 def tree_rel(got, want) -> dict[str, float]:
@@ -4545,16 +4853,18 @@ def gnn_out_loss_grads(arch, params, batch):
 
 @contextlib.contextmanager
 def gnn_plain_route():
-    """MeshGraphNet's row gathers and segment sums through their plain
-    versions on the tensors' device (the float64 yardstick on the card:
-    the kernels take f32 and bf16)."""
-    saved = gnn_lib.gather_rows, gnn_lib.segment_sum
-    gnn_lib.gather_rows = lambda t, ids: bag_ops.gather_apply(t, ids, False)
-    gnn_lib.segment_sum = lambda x, ids, n: bag_ops.segment_sum_apply(x, ids, n, False)
+    """MeshGraphNet's row gathers, segment sums and their id sets' sorts
+    through their plain versions on the tensors' device (the float64
+    yardstick on the card: the kernels take f32 and bf16)."""
+    saved = gnn_lib.gather_rows, gnn_lib.segment_sum, gnn_lib.segment_order
+    gnn_lib.gather_rows = lambda t, ids, order=None: bag_ops.gather_apply(t, ids, False, order)
+    gnn_lib.segment_sum = lambda x, ids, n, order=None: bag_ops.segment_sum_apply(
+        x, ids, n, False, order)
+    gnn_lib.segment_order = segment_order_ref
     try:
         yield
     finally:
-        gnn_lib.gather_rows, gnn_lib.segment_sum = saved
+        gnn_lib.gather_rows, gnn_lib.segment_sum, gnn_lib.segment_order = saved
 
 
 def gnn_twin(arch, **changes):
@@ -4660,23 +4970,26 @@ def gnn_train(arch, shape: str, batches, smi: str, what: str):
         peak = torch.cuda.max_memory_allocated() / 1e9
     assert snap["segment_sum"] == {"kernel": 2 * L * n, "plain": 0}, (shape, snap)
     assert snap["gather_backward"] == {"kernel": 2 * L * n, "plain": 0}, (shape, snap)
+    assert snap["segment_order"] == {"kernel": 2 * n, "plain": 0}, (shape, snap)
     assert all(c == {"kernel": 0, "plain": 0} for k, c in snap.items()
-               if k not in ("segment_sum", "gather_backward")), (shape, snap)
+               if k not in ("segment_sum", "gather_backward", "segment_order")), (shape, snap)
     losses = [m["loss"] for _, m in hist]
     assert [s for s, _ in hist] == list(range(1, n + 1)) and np.all(np.isfinite(losses)), hist
     step = arch.make_train_step()
     wall, launches = profiled_launches(lambda: step(state, batches[0]))
     total = sum(ms for _, ms in launches)
-    ours = sum(ms for name, ms in launches
-               if any(k.lower() in name.lower() for k, _ in BWD_PARTS))
+    ours = [ms for name, ms in launches
+            if any(k.lower() in name.lower() for k, _ in BWD_PARTS)]
     warm = step_ms[1:] or step_ms
     print(f"  {what}: {n} Trainer steps, ms {', '.join(f'{x:.1f}' for x in step_ms)} (host "
           f"clock around synchronize(); the first cold), {1e3 / np.median(warm):.2f} steps/s "
           f"warm; launches a step segment_sum {snap['segment_sum']['kernel'] // n}, "
-          f"gather_backward {snap['gather_backward']['kernel'] // n}; one step under "
+          f"gather_backward {snap['gather_backward']['kernel'] // n}, sorts (segment_order) "
+          f"{snap['segment_order']['kernel'] // n}; one step under "
           f"torch.profiler: {wall:.1f} ms host clock, {total:.1f} ms of kernels in "
           f"{len(launches)} launches (device idle share {1 - total / wall:.3f}), of which "
-          f"bag_backward.cu's {ours:.2f} ms; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"bag_backward.cu's {sum(ours):.2f} ms in {len(ours)} launches (memsets "
+          f"included); losses {', '.join(f'{x:.4f}' for x in losses)}; "
           f"peak {peak:.2f} GB under a {cap_gb:.1f} GB cap [{smi}]")
     print("    by device time: " + "; ".join(
         f"{ms:.2f} ms x{k} {name}" for name, ms, k in kernels_by_name(launches)[:5]))
@@ -4792,6 +5105,7 @@ def phase_gnn(results):
                      f"minibatch_lg (padded {mb[0]['node_mask'].numel()} nodes / "
                      f"{mb[0]['edge_mask'].numel()} edges)")
     results["segment_sum"]["launches"] = snap["segment_sum"]["kernel"]
+    results["segment_order"]["launches"] = snap["segment_order"]["kernel"]
     del mb
     torch.cuda.empty_cache()
     ogb, what = gnn_ogb_cut(arch, gen, smi)
@@ -5106,7 +5420,7 @@ def entry_profiles(smi: str, fails: list):
     """12b. The kernel entries ``profile_entry`` profiled in the phases
     that hold their inputs."""
     want = {"admit", "serve", "serve_route", "mips", "rerank", "prefilter", "assign", "bag",
-            "bag_backward", "gather_backward", "segment_sum", "heavy_hitter",
+            "bag_backward", "gather_backward", "segment_sum", "segment_order", "heavy_hitter",
             "heavy_hitter_large"}
     missing = want - {p["name"] for p in PROFILES}
     if missing:
@@ -5177,12 +5491,15 @@ def main() -> int:
     results: dict = {}
     stream, warm = phase_kernels(results)
     batches, hh_calls, sync_lat = phase_main(stream, warm, results)
+    phase_staged(stream, warm, batches, results)
+    # the async path's torch.profiler window before the phases that launch
+    # the most (the plain counter loops, 3c's k-means++): traces taken after
+    # a long launch history have lost the main thread's kernels
+    phase_async(stream, warm, batches, sync_lat)
+    phase_async(stream, warm, batches, sync_lat, switch_s=0.0005)
     phase_heavy_hitter(results, hh_calls)
     del hh_calls
     phase_main_1gb(results)
-    phase_staged(stream, warm, batches, results)
-    phase_async(stream, warm, batches, sync_lat)
-    phase_async(stream, warm, batches, sync_lat, switch_s=0.0005)
     torch.cuda.empty_cache()
     phase_recsys(*phase_recsys_kernels(results), results)
     # after the recsys phases: each server's ingest stream leaves cuBLAS a
@@ -5202,6 +5519,11 @@ def main() -> int:
     phase_mesh()
     torch.cuda.empty_cache()
     phase_analysis()
+    # last: its k-means++ init alone launches over a million kernels, and
+    # phases after it that read torch.profiler traces lost the main thread's
+    # kernels from them
+    torch.cuda.empty_cache()
+    phase_main_4gb(results)
     for name, r in results.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"{name:9s} kernel {r['ms']:.4f} ms device ({r['host_ms']:.4f} ms a call "

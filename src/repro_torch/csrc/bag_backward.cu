@@ -61,17 +61,41 @@
 //    grad_out in flight. A row that lies wholly in the chunk is written to
 //    d_table there; the chunk's first and last runs, where their row goes
 //    on into the neighbouring chunk, become pieces (slot 2c, 2c + 1).
-// 3. One warp a group of kGroup chunks that a single row fills sums their
-//    pieces in chunk order (the second level a long row needs).
-// 4. One warp a chunk where a spanning row ends writes that row: its
-//    pieces in chunk order, a filled group's level-2 sum in place of its
-//    kGroup pieces. No row serialises: the longest, MIND's row 0 with ~2 M
-//    entries, is ~250 partial sums.
+// 3. Where a single row fills a group of kGroup chunks, a warp per 32
+//    columns of the group sums its pieces in chunk order, a column a lane
+//    (the second level a long row needs).
+// 4. Where a spanning row ends, a warp per 32 columns of that chunk writes
+//    the row: its pieces in chunk order, a filled group's level-2 sum in
+//    place of its kGroup pieces. No row serialises: the longest, MIND's
+//    row 0 with ~2 M entries, is ~250 partial sums. Steps 3 and 4 are
+//    each launched programmatically dependent on the kernel before, so
+//    that each starts as that one drains.
 // 5. The dense pass writes every untouched row as zeros, in row order, 32
 //    rows a warp at a time.
 // Each row's sum is a fixed sequence of in-order partial sums, the same
 // bits call after call whatever the skew. d_w is one warp an entry, a dot
 // product reduced by a fixed butterfly.
+//
+// A caller that sums over the same ids again and again (MeshGraphNet: a
+// train step's 60 sums over a batch's edge_dst and edge_src) sorts them
+// once (bag_order_launch: step 1 alone, then each row's extent, offsets
+// [nrows + 1], by a binary search a row, and the split of the rows into
+// warps of at most kRowItems rows + entries, by a binary search a warp)
+// and hands the order to each sum (bag_rows_launch), which then runs no
+// sort, no memset and no dense pass:
+// 6. One warp a split of whole rows writes every one of its rows: the
+//    empty ones as zeros, the ones of at most kChunk entries as their sum,
+//    the warp's entries streamed in sorted order with kInFlight rows of
+//    grad_out in flight whatever the row boundaries. A row that crosses a
+//    chunk boundary is summed as steps 2 and 4 sum it, its piece on each
+//    side from 0, then 0 + first piece + second, so the bits are those of
+//    the sum without an order. In the same launch, first, ceil(d / 32)
+//    warps a chunk, a column a lane, write the pieces of the rows longer
+//    than a chunk (step 2's pieces, of those rows alone, each column the
+//    same sequence of adds).
+//    Then steps 3 and 4, for the rows longer than a chunk alone.
+// With or without an order, every row is the same fixed sequence of
+// partial sums: the same bits.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -87,6 +111,7 @@ constexpr int kChunk = 256;                // sorted entries a warp sums into a 
 constexpr int kGroup = 64;                 // chunks a level-2 sum covers
 constexpr int kMaxPasses = 3;              // 3 x 11 bits cover any V below 2^31
 constexpr int kMaxRadix = 1 << 11;
+constexpr int kRowItems = 32;              // rows + entries a warp of step 6 takes, at most
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Pack {
@@ -538,99 +563,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// Step 3: one warp a group of kGroup chunks; where one row fills the
-// group, level2[group] = its pieces summed in chunk order.
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-    group_kernel(const int* __restrict__ keys, const float* __restrict__ pieces, int d,
-                 int ngroups, float* __restrict__ level2) {
-  constexpr int U = kInFlight<V>;
-  const int lane = threadIdx.x & 31;
-  const int gi = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (gi >= ngroups) return;
-  const long long a = (long long)gi * kGroup * kChunk;
-  if (keys[a] != keys[a + (long long)kGroup * kChunk - 1]) return;  // warp-uniform
-  for (int c0 = 0; c0 < d; c0 += 32 * V) {
-    const int col = c0 + lane * V;
-    const bool act = col < d;
-    float acc[V] = {};
-    for (int k0 = 0; k0 < kGroup; k0 += U) {
-      Pack<float, V> rows[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (act)
-          rows[u] = *(const Pack<float, V>*)(pieces + 2LL * ((long long)gi * kGroup + k0 + u) * d + col);
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (act) {
-#pragma unroll
-          for (int v = 0; v < V; ++v) acc[v] = __fadd_rn(acc[v], rows[u].v[v]);
-        }
-    }
-    if (act) store_row<float, V>(level2 + (long long)gi * d + col, acc);
-  }
-}
-
-// Step 4: one warp a chunk whose first run ends a row that began in an
-// earlier chunk writes that row: its pieces [s, e) in chunk order, the
-// first chunk's last run (slot 2c + 1) where the row starts inside that
-// chunk, every later chunk's first run (slot 2c), and in place of the
-// kGroup pieces of a group the row fills, their level-2 sum.
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads, 2)
-    finish_kernel(const int* __restrict__ keys, const int* __restrict__ row_start,
-                  const float* __restrict__ pieces, const float* __restrict__ level2, int d,
-                  int L, int nchunks, T* __restrict__ d_table) {
-  constexpr int U = kInFlight<V>;
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (c == 0 || c >= nchunks) return;  // warp-uniform
-  const int a = c * kChunk, b = min(L, a + kChunk);
-  const int row = keys[a];
-  if (keys[a - 1] != row) return;       // the row starts in this chunk
-  const int e = run_end(keys, row, a, b);
-  if (e == b && b < L && keys[b] == row) return;  // the row goes on past this chunk
-  const int s = row_start[row];
-  for (int c0 = 0; c0 < d; c0 += 32 * V) {
-    const int col = c0 + lane * V;
-    const bool act = col < d;
-    float acc[V] = {};
-    int k = s / kChunk;
-    const int k_end = (e - 1) / kChunk;
-    bool tail = s != k * kChunk;
-    while (k <= k_end) {  // warp-uniform
-      Pack<float, V> rows[U];
-      int n = 0;
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (k > k_end) break;
-        const float* src;
-        if (tail) {
-          src = pieces + (2LL * k + 1) * d;
-          tail = false;
-          ++k;
-        } else if (k % kGroup == 0 && (long long)(k + kGroup) * kChunk <= e) {
-          src = level2 + (long long)(k / kGroup) * d;
-          k += kGroup;
-        } else {
-          src = pieces + 2LL * k * d;
-          ++k;
-        }
-        if (act) rows[u] = *(const Pack<float, V>*)(src + col);
-        ++n;
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        if (u < n && act) {
-#pragma unroll
-          for (int v = 0; v < V; ++v) acc[v] = __fadd_rn(acc[v], rows[u].v[v]);
-        }
-      }
-    }
-    if (act) store_row<T, V>(d_table + (long long)row * d + col, acc);
-  }
-}
-
 // Step 5: the dense pass. Warps step through the rows 32 at a time and
 // write every row no entry touched as zeros, in row order.
 template <typename T, int V>
@@ -687,6 +619,349 @@ __global__ void __launch_bounds__(kThreads)
     s = __fadd_rn(s, __fmul_rn(widen(table[r * d + col]), gs[bg * d + col]));
   for (int o = 16; o > 0; o >>= 1) s = __fadd_rn(s, __shfl_xor_sync(REPRO_FULL_MASK, s, o));
   if (lane == 0) d_w[i] = s;
+}
+
+// ------------------------------------------------------- the given order
+// offsets[r] = the first sorted position whose row is at least r, for r in
+// [0, nrows]: row r's entries are [offsets[r], offsets[r + 1]). A thread a
+// row, a binary search over the sorted keys.
+__global__ void __launch_bounds__(kThreads)
+    offsets_kernel(const int* __restrict__ keys, int L, int nrows, int* __restrict__ offsets) {
+  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (r > nrows) return;
+  int lo = 0, hi = L;
+  while (lo < hi) {
+    const int mid = (int)(((unsigned)lo + (unsigned)hi) >> 1);
+    if (keys[mid] < r) lo = mid + 1;
+    else hi = mid;
+  }
+  offsets[r] = lo;
+}
+
+// splits[w] = (r, offsets[r]) for r the first row with r + offsets[r] >=
+// w kRowItems (nrows where none is), w in [0, nsplit]: warp w of step 6
+// takes the rows [r_w, r_w+1), at most kRowItems of them, whose rows and
+// entries before them number [w, w + 1) kRowItems, and their sorted
+// entries [offsets[r_w], offsets[r_w+1]). A thread a warp.
+__global__ void __launch_bounds__(kThreads)
+    splits_kernel(const int* __restrict__ offsets, int nrows, int nsplit,
+                  int2* __restrict__ splits) {
+  const long long w = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (w > nsplit) return;
+  const long long want = w * kRowItems;
+  int lo = 0, hi = nrows;
+  while (lo < hi) {
+    const int mid = (int)(((unsigned)lo + (unsigned)hi) >> 1);
+    if ((long long)mid + offsets[mid] < want) lo = mid + 1;
+    else hi = mid;
+  }
+  splits[w] = make_int2(lo, offsets[lo]);
+}
+
+// Step 6's sum of the sorted entries [lo, hi), whole rows of at most
+// kChunk entries each: each row's sum written to d_table. The warp streams
+// the entries 32 at a time (their rows and positions in one load each;
+// for the 32 from pre, already loaded as pk and pp) and keeps kInFlight
+// rows of gs in flight whatever the row boundaries. A row summed across a
+// chunk boundary keeps its finished piece in tot: the row is 0 + that
+// piece + the rest, as steps 2 and 4 sum it.
+template <typename T, int V>
+__device__ __forceinline__ void write_short_rows(const int* __restrict__ keys,
+                                                 const int* __restrict__ pos,
+                                                 const float* __restrict__ gs, int d, int col,
+                                                 bool act, int lo, int hi, int pre, int pk,
+                                                 int pp, T* __restrict__ d_table) {
+  constexpr int U = kInFlight<V>;
+  const int lane = threadIdx.x & 31;
+  float acc[V] = {}, tot[V] = {};
+  bool crossed = false;
+  int row = -1;
+  auto emit = [&]() {
+    if (row >= 0 && act) {
+      float out[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) out[v] = crossed ? __fadd_rn(tot[v], acc[v]) : acc[v];
+      store_row<T, V>(d_table + (long long)row * d + col, out);
+    }
+  };
+  for (int p0 = lo; p0 < hi; p0 += 32) {
+    const int n = min(32, hi - p0);  // warp-uniform
+    const int p = p0 + lane;
+    const int mk = p >= hi ? -1 : p0 == pre ? pk : keys[p];
+    const int mp = p >= hi ? 0 : p0 == pre ? pp : pos[p];
+    const int upk = __shfl_up_sync(REPRO_FULL_MASK, mk, 1);
+    const unsigned starts = __ballot_sync(REPRO_FULL_MASK, mk != (lane == 0 ? row : upk));
+    const unsigned bounds = __ballot_sync(REPRO_FULL_MASK, p % kChunk == 0);
+#pragma unroll
+    for (int t0 = 0; t0 < 32; t0 += U) {
+      if (t0 >= n) break;  // warp-uniform
+      Pack<float, V> rows[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {  // every shuffle and load first, as chunk_kernel
+        const int bg = __shfl_sync(REPRO_FULL_MASK, mp, t0 + u);
+        if (act) rows[u] = *(const Pack<float, V>*)(gs + (size_t)bg * d + col);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (t0 + u >= n) break;                // warp-uniform
+        if (starts >> (t0 + u) & 1u) {         // warp-uniform: a row ends, the next begins
+          emit();
+          row = __shfl_sync(REPRO_FULL_MASK, mk, t0 + u);
+          crossed = false;
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = 0.f;
+        } else if (bounds >> (t0 + u) & 1u) {  // warp-uniform: the row crosses a chunk
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            tot[v] = __fadd_rn(crossed ? tot[v] : 0.f, acc[v]);
+            acc[v] = 0.f;
+          }
+          crossed = true;
+        }
+        if (act) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = __fadd_rn(acc[v], rows[u].v[v]);
+        }
+      }
+    }
+  }
+  emit();
+}
+
+// The in-order sum from 0 of the sorted entries [lo, hi), all of one row
+// and within one chunk (hi - lo <= kChunk), of the 32 columns [c0, c0 +
+// 32), a column a lane, stored to out (a piece of a long row, as
+// chunk_kernel sums it: each column's sum is the same sequence of adds).
+// The range's positions are loaded first, all in flight together; a
+// column a lane keeps kInFlight<1> rows in flight.
+__device__ __forceinline__ void write_piece(const int* __restrict__ pos,
+                                            const float* __restrict__ gs, int d, int c0,
+                                            int lo, int hi, float* __restrict__ out) {
+  constexpr int U = kInFlight<1>;
+  constexpr int J = kChunk / 32;
+  const int lane = threadIdx.x & 31, col = c0 + lane;
+  const bool act = col < d;
+  int pp[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int p = lo + 32 * j + lane;
+    pp[j] = p < hi ? pos[p] : 0;
+  }
+  float acc = 0.f;
+  for (int jb = 0; lo + 32 * jb < hi; ++jb) {
+    const int n = min(32, hi - lo - 32 * jb);  // warp-uniform
+    int mp = pp[0];
+#pragma unroll
+    for (int j = 1; j < J; ++j)
+      if (j == jb) mp = pp[j];
+#pragma unroll
+    for (int t0 = 0; t0 < 32; t0 += U) {
+      if (t0 >= n) break;  // warp-uniform
+      float rows[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int bg = __shfl_sync(REPRO_FULL_MASK, mp, t0 + u);
+        rows[u] = act ? gs[(size_t)bg * d + col] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (t0 + u >= n) break;  // warp-uniform
+        acc = __fadd_rn(acc, rows[u]);
+      }
+    }
+  }
+  if (act) out[col] = acc;
+}
+
+// Step 6. Warps [0, nchunks x ncw), first so that their in-order sums
+// start before the short rows' warps: for each chunk c, ncw = ceil(d / 32)
+// warps of 32 columns each (each column's sum is the same sequence of
+// adds, and four times the rows are in flight) write its pieces of the
+// rows longer than kChunk: the first run's in slot 2c, the last run's in
+// 2c + 1 where it starts inside the chunk, as chunk_kernel places them.
+// Warps [nchunks x ncw, + nsplit): the short-row warp w writes the rows
+// [splits[w], splits[w + 1]): the empty ones as zeros, the others of at
+// most kChunk entries as their sums (the warp's entries streamed in runs
+// between its long rows).
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+    rows_kernel(const int* __restrict__ keys, const int* __restrict__ pos,
+                const int* __restrict__ offsets, const int2* __restrict__ splits, int nsplit,
+                const float* __restrict__ gs, int d, int L, int nchunks,
+                float* __restrict__ pieces, T* __restrict__ d_table) {
+  const int lane = threadIdx.x & 31;
+  const int ncw = (d + 31) / 32;
+  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5) - nchunks * ncw;
+  if (w < 0) {
+    const int c = (w + nchunks * ncw) / ncw, c0 = 32 * ((w + nchunks * ncw) % ncw);
+    const int a = c * kChunk, b = min(L, a + kChunk);
+    const int r1 = keys[a], r2 = keys[b - 1];
+    const int s1 = offsets[r1], e1 = offsets[r1 + 1];
+    const int s2 = offsets[r2], e2 = offsets[r2 + 1];
+    if (e1 - s1 > kChunk) write_piece(pos, gs, d, c0, a, min(b, e1), pieces + 2LL * c * d);
+    if (r2 != r1 && e2 - s2 > kChunk)
+      write_piece(pos, gs, d, c0, s2, b, pieces + (2LL * c + 1) * d);
+    return;
+  }
+  if (w >= nsplit) return;  // warp-uniform
+  const int2 from = splits[w], to = splits[w + 1];
+  const int r0 = from.x, nr = to.x - r0, lo = from.y, hi = to.y;  // nr <= kRowItems
+  if (nr == 0) return;      // warp-uniform
+  // the rows' extents and the first 32 entries' rows and positions, all
+  // in flight together
+  const bool mine = lane < nr;
+  const int s = mine ? offsets[r0 + lane] : 0, e = mine ? offsets[r0 + lane + 1] : 0;
+  const int pk = lo + lane < hi ? keys[lo + lane] : -1, pp = lo + lane < hi ? pos[lo + lane] : 0;
+  const unsigned empty = __ballot_sync(REPRO_FULL_MASK, mine && e == s);
+  const unsigned longs = __ballot_sync(REPRO_FULL_MASK, mine && e - s > kChunk);
+  Pack<T, V> zero;
+#pragma unroll
+  for (int v = 0; v < V; ++v) narrow(0.f, zero.v[v]);
+  for (int c0 = 0; c0 < d; c0 += 32 * V) {
+    const int col = c0 + lane * V;
+    const bool act = col < d;
+    if (act)
+      for (unsigned z = empty; z; z &= z - 1)
+        *(Pack<T, V>*)(d_table + (long long)(r0 + __ffs(z) - 1) * d + col) = zero;
+    int a = lo;
+    for (unsigned l = longs; l; l &= l - 1) {  // warp-uniform
+      const int k = __ffs(l) - 1;
+      write_short_rows<T, V>(keys, pos, gs, d, col, act, a, __shfl_sync(REPRO_FULL_MASK, s, k),
+                             lo, pk, pp, d_table);
+      a = __shfl_sync(REPRO_FULL_MASK, e, k);
+    }
+    write_short_rows<T, V>(keys, pos, gs, d, col, act, a, hi, lo, pk, pp, d_table);
+  }
+}
+
+// Step 3: where one row fills group g, warp (g, cw) of ceil(d / 32) a
+// group sums its kGroup pieces in chunk order for the 32 columns [32 cw,
+// +32), a column a lane, all of them in flight at once. Launched
+// programmatically dependent on the kernel that writes the pieces
+// (chunk_kernel, or rows_kernel for a given order), which it reads after
+// the wait.
+__global__ void __launch_bounds__(kThreads)
+    level2_kernel(const int* __restrict__ keys, const float* __restrict__ pieces, int d,
+                  int ngroups, float* __restrict__ level2) {
+  const int lane = threadIdx.x & 31, ncw = (d + 31) / 32;
+  const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (w >= (long long)ngroups * ncw) return;
+  const int gi = (int)(w / ncw), col = 32 * (int)(w % ncw) + lane;
+  const long long a = (long long)gi * kGroup * kChunk;
+  if (col >= d || keys[a] != keys[a + (long long)kGroup * kChunk - 1]) return;
+  float r[kGroup], acc = 0.f;
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) r[u] = pieces[2LL * ((long long)gi * kGroup + u) * d + col];
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) acc = __fadd_rn(acc, r[u]);
+  level2[(long long)gi * d + col] = acc;
+}
+
+// Step 4: warp (c, cw) of ceil(d / 32) a chunk, for the 32 columns [32 cw,
+// +32), a column a lane, writes the row of more than min_len entries that
+// began in an earlier chunk and ends in chunk c: its pieces in chunk order
+// (the first chunk's slot 2k + 1 where the row starts inside it, then slot
+// 2k), a filled group's level-2 sum in place of its kGroup pieces, up to 32
+// of them in flight at once. row_start[r] is row r's first sorted
+// position; its end is ends[r] where the caller has it (a given order),
+// else found in the chunk's keys. Without an order every row that crosses
+// a chunk is written here (min_len 0); with one, rows_kernel writes those
+// of at most kChunk entries (min_len kChunk). Launched programmatically
+// dependent on level2_kernel (or on the pieces' kernel where no group is
+// filled).
+__global__ void __launch_bounds__(kThreads)
+    long_rows_kernel(const int* __restrict__ keys, const int* __restrict__ row_start,
+                     const int* __restrict__ ends, int min_len, const float* __restrict__ pieces,
+                     const float* __restrict__ level2, int d, int L, int nchunks,
+                     float* __restrict__ d_table_f32, __nv_bfloat16* __restrict__ d_table_bf16) {
+  constexpr int U = 32;
+  const int lane = threadIdx.x & 31, ncw = (d + 31) / 32;
+  const long long w = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (w >= (long long)nchunks * ncw) return;  // warp-uniform, as every return up to col's
+  const int c = (int)(w / ncw), col = 32 * (int)(w % ncw) + lane;
+  if (c == 0) return;
+  const int a = c * kChunk, b = min(L, a + kChunk);
+  const int row = keys[a];
+  if (keys[a - 1] != row) return;  // the row starts in this chunk
+  if (b < L && keys[b] == row) return;  // sorted: the row fills this chunk and goes on
+  const int e = ends ? ends[row] : run_end(keys, row, a, b);
+  const int s = row_start[row];
+  if (e - s <= min_len || col >= d) return;
+  int k = s / kChunk;
+  const int k_end = (e - 1) / kChunk;
+  const bool tail = s != k * kChunk;
+  float acc = 0.f;
+  while (k <= k_end) {
+    float r[U];
+    int n = 0;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k > k_end) break;
+      const float* src;
+      if (tail && u == 0 && n == 0 && k == s / kChunk) {
+        src = pieces + (2LL * k + 1) * d;
+        ++k;
+      } else if (k % kGroup == 0 && (long long)(k + kGroup) * kChunk <= e) {
+        src = level2 + (long long)(k / kGroup) * d;
+        k += kGroup;
+      } else {
+        src = pieces + 2LL * k * d;
+        ++k;
+      }
+      r[u] = src[col];
+      ++n;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (u < n) acc = __fadd_rn(acc, r[u]);
+  }
+  if (d_table_bf16) d_table_bf16[(long long)row * d + col] = __float2bfloat16_rn(acc);
+  else d_table_f32[(long long)row * d + col] = acc;
+}
+
+// A launch of kThreads-thread blocks that may start while the kernel
+// before it on the stream still runs (Hopper's programmatic dependent
+// launch): the kernel waits (griddepcontrol.wait) before it reads what
+// that kernel writes.
+template <typename... Params, typename... Args>
+cudaError_t launch_dependent(void (*kernel)(Params...), long long blocks, cudaStream_t st,
+                             Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Steps 3 and 4 over the pieces of L sorted entries: the level-2 sums, then
+// the rows of more than min_len entries that cross a chunk (ends: each
+// row's end where the caller has it, else null), each launch
+// programmatically dependent on the one before.
+template <typename T>
+cudaError_t level2_and_long_rows(const int* keys, const int* row_start, const int* ends,
+                                 int min_len, const float* pieces, float* level2, int d, int L,
+                                 T* d_table, cudaStream_t st) {
+  const int nchunks = (L + kChunk - 1) / kChunk;
+  const int ngroups = L / (kGroup * kChunk), ncw = (d + 31) / 32;
+  cudaError_t err = cudaSuccess;
+  if (ngroups > 0 &&
+      (err = launch_dependent(level2_kernel, ((long long)ngroups * ncw + kWarps - 1) / kWarps, st,
+                              keys, pieces, d, ngroups, level2)) != cudaSuccess)
+    return err;
+  float* f32 = nullptr;
+  __nv_bfloat16* bf16 = nullptr;
+  if (sizeof(T) == 2) bf16 = (__nv_bfloat16*)d_table;
+  else f32 = (float*)d_table;
+  return launch_dependent(long_rows_kernel, ((long long)nchunks * ncw + kWarps - 1) / kWarps, st,
+                          keys, row_start, ends, min_len, pieces, (const float*)level2, d, L,
+                          nchunks, f32, bf16);
 }
 
 struct Scratch {
@@ -751,17 +1026,10 @@ cudaError_t sum_and_write(const int* keys, const int* bags, const float* w, cons
                                                              sc.row_start, sc.pieces, d_table);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  if (nchunks > 1) {
-    const int ngroups = L / (kGroup * kChunk);
-    if (ngroups > 0) {
-      group_kernel<V><<<(ngroups + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-          keys, sc.pieces, d, ngroups, sc.level2);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    }
-    finish_kernel<T, V><<<blocks, kThreads, 0, st>>>(keys, sc.row_start, sc.pieces, sc.level2,
-                                                     d, L, nchunks, d_table);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  if (nchunks > 1 &&
+      (err = level2_and_long_rows<T>(keys, sc.row_start, nullptr, 0, sc.pieces, sc.level2, d, L,
+                                     d_table, st)) != cudaSuccess)
+    return err;
   const long long want = ((long long)nrows + kWarps * 32 - 1) / (kWarps * 32);
   dense_kernel<T, V><<<(int)(want < 8LL * sms ? want : 8LL * sms), kThreads, 0, st>>>(
       sc.touched, d, nrows, d_table);
@@ -829,6 +1097,51 @@ cudaError_t launch_seg(const void* seg, int seg64, const IT* idx, const void* ta
                          d_table, d_w, npasses, widths, sms, sc, st);
 }
 
+// Step 6, then steps 3 and 4 for its long rows, with V columns a lane.
+template <typename T, int V>
+cudaError_t rows_and_long(const int* keys, const int* pos, const int* offsets,
+                          const int2* splits, int nsplit, const float* gs, int d, int L,
+                          float* pieces, float* level2, void* out, cudaStream_t st) {
+  T* d_table = (T*)out;
+  const int nchunks = (L + kChunk - 1) / kChunk;
+  const long long warps = (long long)nsplit + (long long)nchunks * ((d + 31) / 32);
+  rows_kernel<T, V><<<(int)((warps + kWarps - 1) / kWarps), kThreads, 0, st>>>(
+      keys, pos, offsets, splits, nsplit, gs, d, L, nchunks, pieces, d_table);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nchunks <= 1) return err;
+  return level2_and_long_rows<T>(keys, offsets, offsets + 1, kChunk, pieces, level2, d, L,
+                                 d_table, st);
+}
+
+template <int V>
+cudaError_t rows_and_long_as(int bf16, const int* keys, const int* pos, const int* offsets,
+                             const int2* splits, int nsplit, const float* gs, int d, int L,
+                             float* pieces, float* level2, void* d_table, cudaStream_t st) {
+  if (bf16)
+    return rows_and_long<__nv_bfloat16, V>(keys, pos, offsets, splits, nsplit, gs, d, L, pieces,
+                                           level2, d_table, st);
+  return rows_and_long<float, V>(keys, pos, offsets, splits, nsplit, gs, d, L, pieces, level2,
+                                 d_table, st);
+}
+
+template <typename IT>
+cudaError_t order(const IT* idx, int L, int nrows, int npasses, const int* widths,
+                  const Scratch& sc, int* offsets, int nsplit, int2* splits, cudaStream_t st) {
+  const int* keys = sc.keys_a;
+  const int* bags = nullptr;
+  const float* ws = nullptr;
+  cudaError_t err = cudaSuccess;
+  if (L > 0 && (err = sort_entries<IT, int>(idx, nullptr, nullptr, L, npasses, widths, false, sc,
+                                            st, &keys, &bags, &ws)) != cudaSuccess)
+    return err;
+  offsets_kernel<<<(int)(((long long)nrows + kThreads) / kThreads), kThreads, 0, st>>>(
+      keys, L, nrows, offsets);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  splits_kernel<<<(int)(((long long)nsplit + kThreads) / kThreads), kThreads, 0, st>>>(
+      offsets, nrows, nsplit, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // table [nrows, d] (float32, or bfloat16 when bf16 != 0), contiguous; idx
@@ -870,4 +1183,64 @@ extern "C" int bag_backward_launch(const void* table, int bf16, int nrows, int d
                                       sc, st);
   return (int)launch_seg<int>(seg, seg64, (const int*)idx, table, bf16, nrows, d, w, g,
                               mean != 0, nbags, L, d_table, d_w, npasses, widths, sms, sc, st);
+}
+
+extern "C" int bag_order_rows_per_warp() { return kRowItems; }
+
+// The order of idx [L] (int32, or int64 where idx64) over rows [0,
+// nrows), step 1 alone: the ids sorted stably, in keys_a with their
+// positions in idx in bags_a where npasses is odd, in keys_b / bags_b
+// where it is even (the other pair is scratch); offsets [nrows + 1] int32,
+// row r's sorted entries [offsets[r], offsets[r + 1]); splits [nsplit + 1,
+// 2] int32 with nsplit = ceil((nrows + L) / kRowItems): (the first row,
+// its first sorted entry) of each warp of a sum. widths, counts_a,
+// counts_b and totals as for bag_backward_launch.
+extern "C" int bag_order_launch(const void* idx, int idx64, int L, int nrows, int npasses,
+                                int width0, int width1, int width2, int* keys_a, int* keys_b,
+                                int* bags_a, int* bags_b, int* counts_a, int* counts_b,
+                                int* totals, int* offsets, int nsplit, int* splits,
+                                void* stream) {
+  const int widths[kMaxPasses] = {width0, width1, width2};
+  if (npasses < 1 || npasses > kMaxPasses) return (int)cudaErrorInvalidValue;
+  for (int p = 0; p < npasses; ++p)
+    if (widths[p] < 1 || (1 << widths[p]) > kMaxRadix) return (int)cudaErrorInvalidValue;
+  if ((long long)nsplit * kRowItems < (long long)nrows + L) return (int)cudaErrorInvalidValue;
+  const Scratch sc{keys_a, keys_b, bags_a, bags_b, nullptr, nullptr, counts_a, counts_b, totals,
+                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (idx64)
+    return (int)order<long long>((const long long*)idx, L, nrows, npasses, widths, sc, offsets,
+                                 nsplit, (int2*)splits, st);
+  return (int)order<int>((const int*)idx, L, nrows, npasses, widths, sc, offsets, nsplit,
+                         (int2*)splits, st);
+}
+
+// d_table [nrows, d] (float32, or bfloat16 where bf16) = the gather
+// transpose's sum of g [L, d] float32 over a given order (bag_order_launch's
+// keys, pos, offsets, splits), every row written once: the same bits as
+// bag_backward_launch with no segments. pieces [2 ceil(L / 256), d] and
+// level2 [floor(L / 16384), d] float32 scratch.
+extern "C" int bag_rows_launch(const float* g, int d, int L, int nrows, int bf16,
+                               const int* keys, const int* pos, const int* offsets,
+                               const int* splits, int nsplit, float* pieces, float* level2,
+                               void* d_table, void* stream) {
+  if ((long long)nsplit * kRowItems < (long long)nrows + L) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int v = d <= 32 ? 1 : d <= 64 ? 2 : 4;
+  while (v > 1 && (d % v || (uintptr_t)g % (v * sizeof(float)))) v >>= 1;
+  cudaError_t err;
+  switch (v) {
+    case 4:
+      err = rows_and_long_as<4>(bf16, keys, pos, offsets, (const int2*)splits, nsplit, g, d, L,
+                                pieces, level2, d_table, st);
+      break;
+    case 2:
+      err = rows_and_long_as<2>(bf16, keys, pos, offsets, (const int2*)splits, nsplit, g, d, L,
+                                pieces, level2, d_table, st);
+      break;
+    default:
+      err = rows_and_long_as<1>(bf16, keys, pos, offsets, (const int2*)splits, nsplit, g, d, L,
+                                pieces, level2, d_table, st);
+  }
+  return (int)err;
 }

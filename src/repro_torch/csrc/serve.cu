@@ -2,7 +2,8 @@
 //
 // Replaces: src/repro/kernels/serve/serve.py::serve_topk_pallas (_serve_kernel).
 //
-// Two launches.
+// Two launches where a query's route keys fit one block's shared memory,
+// more past that (1b).
 // (1) route_tile_kernel: the route scores qr . vectors^T as register-blocked
 // fp32 tiles of 8 * RM queries x 64 prototypes, built the way
 // assign_tiles.cuh builds assign's tiles (route_dots below). The epilogue
@@ -28,9 +29,24 @@
 // epilogue, and it reads the queries and their keys only after
 // griddepcontrol.wait.
 //
+// (1b) route_merge_kernel, only where a query has more route keys than its
+// selection ranks (past 16,384, or past what fits one block's shared
+// memory beside the ring layout; from cap 65,537 at nprobe 16, 131,073 at
+// nprobe 8): a route tile's kt keys are in descending order, so one warp
+// a (query, group of 32 tiles) merges the group's 32 lists (a lane a
+// list, its next 4 keys in registers; each round's largest head by two
+// warp reductions, the score word then the row word) into the group's
+// top-nprobe, in descending order, 0 past its keys: [Q, m] becomes [Q,
+// ceil(tiles / 32) * nprobe] in device memory, and the pass repeats over
+// those lists until they are few enough. It is exact: the keys are unique, so the top-nprobe of the union lies in the union
+// of the groups' top-nprobe, and the selection ranks the same keys. The
+// sizes are the wrapper's (serve_plan's levels, one rule for both
+// entries); shapes with fewer keys launch none of it.
+//
 // The route-only entry (serve_route_launch) is stage 1 alone, the serving
-// cache's route witness: the same route tiles, then route_select_kernel,
-// one block a query, which takes the top-nprobe of the query's route keys
+// cache's route witness: the same route tiles and merge passes, then
+// route_select_kernel, one block a query,
+// which takes the top-nprobe of the query's route keys
 // with the same block_topk_keys and maps them through route_labels as
 // serve_rerank_kernel does before its rerank. So its routes are the fused
 // kernel's, in the fused kernel's order, bit for bit: one computation, not
@@ -272,7 +288,8 @@ __global__ void __launch_bounds__(kRingThreads)
 }
 
 // out_routes [Q, nprobe]: the top-nprobe of each query's route keys (part
-// [Q, m], as the route tiles left them) mapped through route_labels, -1
+// [Q, m], as the route tiles or the last merge pass left them) mapped
+// through route_labels, -1
 // where the slot's score or label is dead; serve_rerank_kernel's first step.
 __global__ void __launch_bounds__(kRingThreads)
     route_select_kernel(const key64* __restrict__ part, int m,
@@ -296,6 +313,76 @@ size_t route_select_smem(int m, int nprobe) {
   return (size_t)(m + kRingWarps * warp_keep(m, nprobe)) * 8;
 }
 
+constexpr int kMergeWays = 32;  // sorted key lists a warp of a pass merges, a lane each
+constexpr int kMergeAhead = 4;  // keys of its list a lane holds in registers
+
+// out [Q, ngroups * nprobe]: for each group of kMergeWays consecutive lists
+// of len keys of a query's in [Q, nlists * len] (each in descending order,
+// 0 past its keys), the group's nprobe largest keys in descending order, 0
+// past them. One warp a (query, group), lane l walking list l.
+__global__ void __launch_bounds__(kRingThreads)
+    route_merge_kernel(const key64* __restrict__ in, int Q, int nlists, int len,
+                       int ngroups, int nprobe, key64* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const long long w = (long long)blockIdx.x * kRingWarps + (threadIdx.x >> 5);
+  wait_for_previous_kernel();  // in is the route tiles' (or the pass before's)
+  if (w >= (long long)Q * ngroups) return;  // warp-uniform
+  const int qi = (int)(w / ngroups), gi = (int)(w - (long long)qi * ngroups);
+  const int list = gi * kMergeWays + lane;
+  const bool ok = list < nlists;
+  const key64* src = in + ((size_t)qi * nlists + (ok ? list : 0)) * len;
+  key64 q[kMergeAhead];
+#pragma unroll
+  for (int j = 0; j < kMergeAhead; ++j) q[j] = ok && j < len ? src[j] : 0ull;
+  int next = kMergeAhead;
+  key64* orow = out + (size_t)w * nprobe;
+  for (int r = 0; r < nprobe; ++r) {
+    const unsigned hi = (unsigned)(q[0] >> 32), lo = (unsigned)q[0];
+    const unsigned mh = __reduce_max_sync(REPRO_FULL_MASK, hi);
+    const unsigned ml = __reduce_max_sync(REPRO_FULL_MASK, hi == mh ? lo : 0u);
+    const key64 m = ((key64)mh << 32) | ml;  // 0 once every list is spent
+    if (lane == 0) orow[r] = m;
+    if (m != 0ull && q[0] == m) {  // this lane's head: the keys are unique
+#pragma unroll
+      for (int j = 0; j + 1 < kMergeAhead; ++j) q[j] = q[j + 1];
+      q[kMergeAhead - 1] = ok && next < len ? src[next] : 0ull;
+      ++next;
+    }
+  }
+}
+
+// The merge passes over part [Q, ntiles * kt] (the route tiles' lists of
+// kt keys): each merges every kMergeWays lists into one list of nprobe,
+// alternating between part2 and part, until a query has msel keys. *sel
+// gets the array the selection reads (part itself where there is no
+// pass); with launch false nothing is launched (a caller that timed the
+// passes apart). Refuses a plan whose levels do not end at msel.
+cudaError_t merge_keys(int Q, int ntiles, int kt, int msel, int nprobe, key64* part,
+                       key64* part2, bool launch, const key64** sel, cudaStream_t st) {
+  key64* bufs[2] = {part2, part};
+  const key64* src = part;
+  int nlists = ntiles, len = kt;
+  for (int lv = 0; nlists * len > msel; ++lv) {
+    const int ng = (nlists + kMergeWays - 1) / kMergeWays;
+    if ((long long)ng * nprobe >= (long long)nlists * len || !part2)
+      return cudaErrorInvalidValue;
+    key64* dst = bufs[lv & 1];
+    if (launch) {
+      const long long warps = (long long)Q * ng;
+      const cudaError_t err = launch_ring(route_merge_kernel,
+                                          (int)((warps + kRingWarps - 1) / kRingWarps), 1, 0,
+                                          st, src, Q, nlists, len, ng, nprobe, dst);
+      if (err != cudaSuccess) return err;
+    }
+    src = dst;
+    nlists = ng;
+    len = nprobe;
+  }
+  if (nlists * len != msel) return cudaErrorInvalidValue;
+  *sel = src;
+  return cudaSuccess;
+}
+
 cudaError_t route_tiles(int rm, const float* qr, int Q, int d, const float* vectors, int cap,
                         const unsigned char* valid, int kt, key64* part, cudaStream_t st) {
   switch (rm) {
@@ -314,20 +401,24 @@ extern "C" long long serve_route_smem_bytes(int m, int nprobe) {
   return (long long)route_select_smem(m, nprobe);
 }
 
+extern "C" int serve_merge_ways() { return kMergeWays; }
+
 // The route-only entry: routes [Q, nprobe] exactly as serve_launch gives
-// them: the route tiles, then the selection. rm and part as for
-// serve_launch.
+// them: the route tiles, the merge passes (where msel < m), then the
+// selection. rm, msel, part and part2 as for serve_launch.
 extern "C" int serve_route_launch(const float* qr, int Q, int d, const float* vectors, int cap,
                                   const unsigned char* valid, const int* route_labels,
-                                  int nprobe, int rm, void* part, int* out_routes,
-                                  void* stream) {
+                                  int nprobe, int rm, int msel, void* part, void* part2,
+                                  int* out_routes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int kt = imin(nprobe, kTileCols);
-  const int m = ((cap + kTileCols - 1) / kTileCols) * kt;
+  const int kt = imin(nprobe, kTileCols), ntiles = (cap + kTileCols - 1) / kTileCols;
   cudaError_t err = route_tiles(rm, qr, Q, d, vectors, cap, valid, kt, (key64*)part, st);
   if (err != cudaSuccess) return (int)err;
-  err = launch_ring(route_select_kernel, Q, 1, route_select_smem(m, nprobe), st,
-                    (const key64*)part, m, route_labels, nprobe, out_routes);
+  const key64* sel = nullptr;
+  err = merge_keys(Q, ntiles, kt, msel, nprobe, (key64*)part, (key64*)part2, true, &sel, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_ring(route_select_kernel, Q, 1, route_select_smem(msel, nprobe), st, sel, msel,
+                    route_labels, nprobe, out_routes);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -337,31 +428,37 @@ extern "C" long long serve_smem_bytes(int d, int m, int nprobe, int depth, int k
 }
 
 // rm in {8, 4, 2} (route tile rows / 8), cs in {1, 2, 4, 8}; part [Q, m]
-// keys with m = ceil(cap / 64) * min(nprobe, 64). phases: 1 = route tiles,
-// 2 = rerank, 3 = both.
+// keys with m = ceil(cap / 64) * min(nprobe, 64); msel the keys a query has
+// after the merge passes (m where there are none), part2 [Q, the first
+// pass's keys] (null without passes). phases: 1 = route tiles, 4 = the
+// merge passes, 2 = rerank, 7 = all.
 extern "C" int serve_launch(const float* qr, const float* qn, int Q, int d,
                             const float* vectors, int cap, const unsigned char* valid,
                             const int* route_labels, const void* embs, int depth,
                             long long es0, long long es1, const unsigned char* live,
                             long long ls0, long long ls1, const float* scales,
                             long long ss0, long long ss1, int quantized, int k,
-                            int nprobe, int rm, int cs, void* part, float* out_scores,
-                            int* out_pos, int* out_routes, int phases, void* stream) {
+                            int nprobe, int rm, int cs, int msel, void* part, void* part2,
+                            float* out_scores, int* out_pos, int* out_routes, int phases,
+                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int kt = imin(nprobe, kTileCols);
-  const int m = ((cap + kTileCols - 1) / kTileCols) * kt;
+  const int kt = imin(nprobe, kTileCols), ntiles = (cap + kTileCols - 1) / kTileCols;
   if (cs < 1 || cs > kMaxCluster) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   if (phases & 1) {
     err = route_tiles(rm, qr, Q, d, vectors, cap, valid, kt, (key64*)part, st);
     if (err != cudaSuccess) return (int)err;
   }
+  const key64* sel = nullptr;
+  err = merge_keys(Q, ntiles, kt, msel, nprobe, (key64*)part, (key64*)part2, phases & 4, &sel,
+                   st);
+  if (err != cudaSuccess) return (int)err;
   if (phases & 2) {
     const RingView rv{embs, es0, es1, live, ls0, ls1, scales, ss0, ss1, quantized, depth};
-    const size_t smem = ring_smem(d, nprobe, depth, k, cs, m).bytes;
+    const size_t smem = ring_smem(d, nprobe, depth, k, cs, msel).bytes;
     err = launch_ring(serve_rerank_kernel, Q, cs, smem, st, qn, d,
-                      ring_lanes(d, quantized, embs, es0, es1), (const key64*)part, m,
-                      route_labels, rv, k, nprobe, out_scores, out_pos, out_routes);
+                      ring_lanes(d, quantized, embs, es0, es1), sel, msel, route_labels, rv,
+                      k, nprobe, out_scores, out_pos, out_routes);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();

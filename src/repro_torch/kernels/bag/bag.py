@@ -4,7 +4,9 @@ bag) and its gradient (``repro_torch/csrc/bag_backward.cu``: a stable
 radix sort of the entries by row, runs that span chunks summed into
 pieces, and one dense pass that writes every row once), whose entry also
 takes a row gather's gradient (``gather_backward_cuda``) and, the same
-sum, a segment sum (``segment_sum_cuda``)."""
+sum, a segment sum (``segment_sum_cuda``). Its sort alone
+(``segment_order_cuda``) orders an id set once for every sum over it:
+given that order, those two run no sort (``bag_rows_launch``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import SMS, cdiv
+from repro_torch.kernels.bag.ref import ORDER_ROW_ITEMS, SegmentOrder, order_splits
 from repro_torch.kernels.counts import COUNTS
 
 INDEX_DTYPES = (torch.int32, torch.int64)
@@ -114,6 +117,16 @@ class BackwardPlan:
         return sum(cdiv(nbytes, _ALIGN) * _ALIGN for _, nbytes in self.regions)
 
 
+def sort_widths(V: int) -> tuple[int, ...]:
+    """The sort's digit passes over row ids below V, lowest digit first:
+    the ceil(log2 V) bits (at least 1) split as evenly as passes of at
+    most 11 bits allow."""
+    bits = max(1, (V - 1).bit_length())
+    npasses = cdiv(bits, BWD_MAX_DIGIT)
+    base, extra = divmod(bits, npasses)
+    return tuple(base + (p < extra) for p in range(npasses))
+
+
 def backward_plan(V: int, L: int, d: int, num_bags: int, weighted: bool,
                   mean: bool) -> BackwardPlan:
     """The plan of one call (``weighted``: weights given; ``mean``: mean
@@ -122,10 +135,8 @@ def backward_plan(V: int, L: int, d: int, num_bags: int, weighted: bool,
     2^22 + 3) 8 + 8 + 7. Tile counts are kept for the widest pass's radix;
     pieces are two a chunk of 256 sorted entries, level-2 sums one a full
     group of 64 chunks."""
-    bits = max(1, (V - 1).bit_length())
-    npasses = cdiv(bits, BWD_MAX_DIGIT)
-    base, extra = divmod(bits, npasses)
-    widths = tuple(base + (p < extra) for p in range(npasses))
+    widths = sort_widths(V)
+    npasses = len(widths)
     radix, tiles = 1 << max(widths), cdiv(L, BWD_TILE)
     chunks, groups = cdiv(L, BWD_CHUNK), L // (BWD_GROUP * BWD_CHUNK)
     w_bytes = 4 * L if weighted else 0
@@ -146,7 +157,79 @@ def _bwd_fn():
         fn.argtypes = [P, I, I, I, P, I, P, I, P, P, I, I, I, P, P, I, I, I, I, I,
                        *[P] * 15, P]
         fn.restype = I
+        lib.bag_order_launch.argtypes = [P, I, I, I, I, I, I, I, *[P] * 8, I, P, P]
+        lib.bag_order_launch.restype = I
+        lib.bag_rows_launch.argtypes = [P, I, I, I, I, P, P, P, P, I, P, P, P, P]
+        lib.bag_rows_launch.restype = I
+        lib.bag_order_rows_per_warp.restype = I
+        if lib.bag_order_rows_per_warp() != ORDER_ROW_ITEMS:
+            raise RuntimeError("bag_backward.cu's rows a warp differs from the wrapper's")
     return lib, fn
+
+
+def segment_order_cuda(ids: torch.Tensor, num_rows: int) -> SegmentOrder:
+    """Same contract as ``ref.segment_order_ref``, bit for bit: the ids
+    (int32 or int64, any shape, flattened; in [0, num_rows), not checked)
+    sorted once by ``bag_backward.cu``'s own stable radix sort (the passes
+    of ``sort_widths(num_rows)``), then each row's extent and each warp's
+    rows by a binary search a row and a warp. Every sum over the same ids
+    (``segment_sum_cuda``, ``gather_backward_cuda`` with ``order=``) reuses
+    it and sorts nothing."""
+    flat = ids.reshape(-1)
+    if flat.dtype not in INDEX_DTYPES:
+        raise TypeError(f"ids must be one of {INDEX_DTYPES}")
+    flat = flat.contiguous()
+    L = flat.shape[0]
+    if L >= 2**31 or num_rows >= 2**31 or num_rows < 0:
+        raise ValueError("segment_order counts entries and rows in 32 bits")
+    dev = flat.device
+    widths = sort_widths(num_rows)
+    radix, tiles = 1 << max(widths), cdiv(L, BWD_TILE)
+    nsplit = order_splits(num_rows, L)
+
+    def i32(*shape):
+        return torch.empty(shape, dtype=torch.int32, device=dev)
+
+    keys, pos = (i32(L), i32(L)), (i32(L), i32(L))
+    counts = (i32(radix * tiles), i32(radix * tiles) if len(widths) > 1 else None)
+    offsets, splits = i32(num_rows + 1), i32(nsplit + 1, 2)
+    lib, _ = _bwd_fn()
+    err = lib.bag_order_launch(flat.data_ptr(), int(flat.dtype == torch.int64), L, num_rows,
+                               len(widths), *(*widths, 0, 0)[:3], keys[0].data_ptr(),
+                               keys[1].data_ptr(), pos[0].data_ptr(), pos[1].data_ptr(),
+                               counts[0].data_ptr(), build.ptr(counts[1]),
+                               i32(radix).data_ptr(), offsets.data_ptr(), nsplit,
+                               splits.data_ptr(), build.stream_of(dev))
+    build.check(lib, err, "bag_order_launch")
+    COUNTS["segment_order"].kernel += 1
+    f = (len(widths) - 1) & 1   # the pass that wrote last
+    return SegmentOrder(keys[f], pos[f], offsets, splits)
+
+
+def _check_order(order: SegmentOrder, L: int, V: int, dev) -> None:
+    want = ((L,), (L,), (V + 1,), (order_splits(V, L) + 1, 2))
+    for t, shape in zip(order, want):
+        if t.dtype != torch.int32 or t.shape != shape or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"the order is not one of {L} ids over {V} rows on {dev}")
+
+
+def _rows_launch(g: torch.Tensor, order: SegmentOrder, d_table: torch.Tensor) -> None:
+    """``bag_rows_launch``: d_table [V, d] = the sum of g [L, d] f32 over
+    a given order (no sort, every row written once, the bits of
+    ``_backward_launch`` with no segments)."""
+    dev, (V, d), L = d_table.device, d_table.shape, g.shape[0]
+    _check_order(order, L, V, dev)
+    chunks, groups = cdiv(L, BWD_CHUNK), L // (BWD_GROUP * BWD_CHUNK)
+    pieces = torch.empty((2 * chunks, d), dtype=torch.float32, device=dev) if chunks else None
+    level2 = torch.empty((groups, d), dtype=torch.float32, device=dev) if groups else None
+    lib, _ = _bwd_fn()
+    err = lib.bag_rows_launch(g.data_ptr(), d, L, V, int(d_table.dtype == torch.bfloat16),
+                              order.keys.data_ptr(), order.pos.data_ptr(),
+                              order.offsets.data_ptr(), order.splits.data_ptr(),
+                              order.splits.shape[0] - 1, build.ptr(pieces), build.ptr(level2),
+                              d_table.data_ptr(), build.stream_of(dev))
+    build.check(lib, err, "bag_rows_launch")
 
 
 def _backward_launch(table, indices, segment_ids, grad_out, weights, mean, num_bags,
@@ -219,12 +302,14 @@ def embedding_bag_backward_cuda(table: torch.Tensor, indices: torch.Tensor,
 
 
 def gather_backward_cuda(table: torch.Tensor, ids: torch.Tensor,
-                         grad_out: torch.Tensor) -> torch.Tensor:
+                         grad_out: torch.Tensor, order: SegmentOrder | None = None
+                         ) -> torch.Tensor:
     """Same function as ``ref.gather_backward_ref``: the dense gradient of
     ``table[ids]`` ([V, d] in the table's dtype), by ``bag_backward.cu``
     with one entry a bag (no segments, every weight 1: the sort carries
-    each id's position); ``grad_out`` [*ids.shape, d], widened to f32. The
-    same bits every call."""
+    each id's position); ``grad_out`` [*ids.shape, d], widened to f32.
+    With ``order`` (``segment_order_cuda(ids, V)``) it sorts nothing. The
+    same bits every call, with or without an order."""
     _check_table(table, "gather_backward")
     V, d = table.shape
     flat = ids.reshape(-1)
@@ -238,13 +323,16 @@ def gather_backward_cuda(table: torch.Tensor, ids: torch.Tensor,
     d_table = torch.empty((V, d), dtype=table.dtype, device=table.device)
     if V == 0 or d == 0:
         return d_table
-    _backward_launch(table, flat, None, g, None, False, L, d_table, None)
+    if order is None:
+        _backward_launch(table, flat, None, g, None, False, L, d_table, None)
+    else:
+        _rows_launch(g, order, d_table)
     COUNTS["gather_backward"].kernel += 1
     return d_table
 
 
-def segment_sum_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
-                     num_segments: int) -> torch.Tensor:
+def segment_sum_cuda(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+                     order: SegmentOrder | None = None) -> torch.Tensor:
     """Same function as ``ref.segment_sum_ref``: out[s] = sum_{i:
     segment_ids[i] = s} data[i], dense [num_segments, d] in data's dtype
     (f32 or bf16), summed in f32 in a fixed order (each segment's entries
@@ -254,7 +342,9 @@ def segment_sum_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
     table (the table is read only for d_w, not asked here), so none is
     passed and none is allocated. Segments no id names are exactly zero;
     ids in [0, num_segments) (not checked: that would need a host sync).
-    The same bits every call."""
+    With ``order`` (``segment_order_cuda(segment_ids, num_segments)``) it
+    sorts nothing: one warp a split of whole rows writes each row, zero or
+    summed. The same bits every call, with or without an order."""
     if data.dim() != 2 or data.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("segment_sum takes [L, d] float32 or bfloat16 data")
     L, d = data.shape
@@ -267,6 +357,9 @@ def segment_sum_cuda(data: torch.Tensor, segment_ids: torch.Tensor,
     out = torch.empty((num_segments, d), dtype=data.dtype, device=data.device)
     if num_segments == 0 or d == 0:
         return out
-    _backward_launch(None, ids, None, g, None, False, L, out, None)
+    if order is None:
+        _backward_launch(None, ids, None, g, None, False, L, out, None)
+    else:
+        _rows_launch(g, order, out)
     COUNTS["segment_sum"].kernel += 1
     return out

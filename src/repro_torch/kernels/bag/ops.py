@@ -22,14 +22,21 @@ padding row 0 of a history batch).
 GNN's aggregation into destination nodes): deterministic, where
 ``index_add_`` on the card adds with float atomics in no fixed order. Its
 gradient is the row gather ``grad[ids]``, as the reference's transpose of
-``jax.ops.segment_sum``."""
+``jax.ops.segment_sum``.
+
+``segment_order(ids, n)`` sorts an id set once (the kernel's own sort,
+run alone); ``segment_sum``, ``gather_rows`` and ``gather_backward`` take
+it as ``order=`` and then sort nothing, with the same result bit for bit.
+On the CPU the plain versions sum the ids in that order, which is theirs
+(the sort is stable)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import cost
-from repro_torch.kernels.bag.ref import (embedding_bag_backward_ref, embedding_bag_ref,
-                                         embedding_bag_sorted_ref, gather_backward_ref,
+from repro_torch.kernels.bag.ref import (SegmentOrder, embedding_bag_backward_ref,
+                                         embedding_bag_ref, embedding_bag_sorted_ref,
+                                         gather_backward_ref, order_splits, segment_order_ref,
                                          segment_sum_ref)
 from repro_torch.kernels.common import check_same_device
 
@@ -81,15 +88,18 @@ def _backward(table, indices, segment_ids, num_bags, grad_out, weights, mode,
         cost.distinct(indices) if weights_grad else 0))
 
 
-def _gather_backward(table, ids, grad_out, kernel):
+def _gather_backward(table, ids, grad_out, kernel, order=None):
     def run():
         if table.is_meta:
             return torch.empty(table.shape, dtype=table.dtype, device=table.device)
         if kernel:
-            from repro_torch.kernels.bag.bag import gather_backward_cuda as fn
-        else:
-            fn = gather_backward_ref
-        return fn(table, ids, grad_out)
+            from repro_torch.kernels.bag.bag import gather_backward_cuda
+
+            return gather_backward_cuda(table, ids, grad_out, order)
+        if order is None:
+            return gather_backward_ref(table, ids, grad_out)
+        g = grad_out.reshape(-1, table.shape[1])[order.pos.long()]
+        return gather_backward_ref(table, order.keys, g)
 
     V, d = table.shape
     return cost.entry("gather_backward", run, lambda out: cost.gather_backward(
@@ -169,55 +179,85 @@ def embedding_bag_backward(table: torch.Tensor, indices: torch.Tensor,
                      weights_grad, kernel)
 
 
-def gather_backward(table: torch.Tensor, ids: torch.Tensor,
-                    grad_out: torch.Tensor) -> torch.Tensor:
+def gather_backward(table: torch.Tensor, ids: torch.Tensor, grad_out: torch.Tensor, *,
+                    order: SegmentOrder | None = None) -> torch.Tensor:
     """The gradient of ``table[ids]`` given ``grad_out`` [*ids.shape, d]:
-    dense [V, d] in the table's dtype (see ``ref.gather_backward_ref``)."""
-    kernel = check_same_device(table, ids, grad_out).type == "cuda"
-    return _gather_backward(table, ids, grad_out, kernel)
+    dense [V, d] in the table's dtype (see ``ref.gather_backward_ref``).
+    ``order``: ``segment_order(ids, V)``, made once for every sum over
+    these ids."""
+    kernel = check_same_device(table, ids, grad_out, *(order or ())).type == "cuda"
+    return _gather_backward(table, ids, grad_out, kernel, order)
 
 
 class _Gather(torch.autograd.Function):
     """``table[ids]`` whose gradient is ``gather_backward`` (``kernel``) or
-    its plain version."""
+    its plain version, over ``order`` where one is given."""
 
     @staticmethod
-    def forward(ctx, table, ids, kernel):
+    def forward(ctx, table, ids, kernel, order):
         ctx.save_for_backward(table, ids)
-        ctx.kernel = kernel
+        ctx.kernel, ctx.order = kernel, order
         return table[ids.long()]
 
     @staticmethod
     def backward(ctx, grad_out):
         table, ids = ctx.saved_tensors
-        return _gather_backward(table, ids, grad_out, ctx.kernel), None, None
+        return _gather_backward(table, ids, grad_out, ctx.kernel, ctx.order), None, None, None
 
 
-def gather_apply(table: torch.Tensor, ids: torch.Tensor, kernel: bool) -> torch.Tensor:
+def gather_apply(table: torch.Tensor, ids: torch.Tensor, kernel: bool,
+                 order: SegmentOrder | None = None) -> torch.Tensor:
     """``table[ids]``; where ``table`` requires grad, an autograd node whose
     backward is the ``gather_backward`` kernel (``kernel``) or its plain
     version."""
     if torch.is_grad_enabled() and table.requires_grad:
-        return _Gather.apply(table, ids, kernel)
+        return _Gather.apply(table, ids, kernel, order)
     return table[ids.long()]
 
 
-def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Rows of a [V, d] table: ``table[ids]``, [*ids.shape, d]."""
-    kernel = check_same_device(table, ids).type == "cuda"
-    return gather_apply(table, ids, kernel)
+def gather_rows(table: torch.Tensor, ids: torch.Tensor, *,
+                order: SegmentOrder | None = None) -> torch.Tensor:
+    """Rows of a [V, d] table: ``table[ids]``, [*ids.shape, d]. ``order``:
+    ``segment_order(ids, V)``, for the gradient."""
+    kernel = check_same_device(table, ids, *(order or ())).type == "cuda"
+    return gather_apply(table, ids, kernel, order)
 
 
-def _segment_sum(data, segment_ids, num_segments, kernel):
+def segment_order(ids: torch.Tensor, num_rows: int) -> SegmentOrder:
+    """``ids`` (any shape, values in [0, num_rows)) sorted once for every
+    sum over them: ``ref.SegmentOrder``, by the kernel's own sort on the
+    card, its plain version on the CPU."""
+    dev = check_same_device(ids)
+    L = ids.numel()
+
+    def run():
+        if dev.type == "meta":
+            def i32(*shape):
+                return torch.empty(shape, dtype=torch.int32, device=dev)
+            return SegmentOrder(i32(L), i32(L), i32(num_rows + 1),
+                                i32(order_splits(num_rows, L) + 1, 2))
+        if dev.type == "cuda":
+            from repro_torch.kernels.bag.bag import segment_order_cuda
+
+            return segment_order_cuda(ids, num_rows)
+        return segment_order_ref(ids, num_rows)
+
+    return cost.entry("segment_order", run, lambda out: cost.segment_order(
+        L, num_rows, ids.element_size(), order_splits(num_rows, L)))
+
+
+def _segment_sum(data, segment_ids, num_segments, kernel, order=None):
     def run():
         if data.is_meta:
             return torch.empty((num_segments, data.shape[1]), dtype=data.dtype,
                                device=data.device)
         if kernel:
-            from repro_torch.kernels.bag.bag import segment_sum_cuda as fn
-        else:
-            fn = segment_sum_ref
-        return fn(data, segment_ids, num_segments)
+            from repro_torch.kernels.bag.bag import segment_sum_cuda
+
+            return segment_sum_cuda(data, segment_ids, num_segments, order)
+        if order is None:
+            return segment_sum_ref(data, segment_ids, num_segments)
+        return segment_sum_ref(data[order.pos.long()], order.keys, num_segments)
 
     L, d = data.shape
     return cost.entry("segment_sum", run, lambda out: cost.segment_sum(
@@ -229,29 +269,31 @@ class _SegmentSum(torch.autograd.Function):
     its gradient is ``grad[segment_ids]``."""
 
     @staticmethod
-    def forward(ctx, data, segment_ids, num_segments, kernel):
+    def forward(ctx, data, segment_ids, num_segments, kernel, order):
         ctx.save_for_backward(segment_ids)
-        return _segment_sum(data, segment_ids, num_segments, kernel)
+        return _segment_sum(data, segment_ids, num_segments, kernel, order)
 
     @staticmethod
     def backward(ctx, grad_out):
         (segment_ids,) = ctx.saved_tensors
-        return grad_out[segment_ids.long()], None, None, None
+        return grad_out[segment_ids.long()], None, None, None, None
 
 
 def segment_sum_apply(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
-                      kernel: bool) -> torch.Tensor:
+                      kernel: bool, order: SegmentOrder | None = None) -> torch.Tensor:
     """The segment sum by the kernel (``kernel``) or its plain version, on
     the tensors' own device; an autograd node where ``data`` requires
     grad."""
     if torch.is_grad_enabled() and data.requires_grad:
-        return _SegmentSum.apply(data, segment_ids, num_segments, kernel)
-    return _segment_sum(data, segment_ids, num_segments, kernel)
+        return _SegmentSum.apply(data, segment_ids, num_segments, kernel, order)
+    return _segment_sum(data, segment_ids, num_segments, kernel, order)
 
 
-def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, *,
+                order: SegmentOrder | None = None) -> torch.Tensor:
     """[num_segments, d]: out[s] = sum_{i: segment_ids[i] = s} data[i]
-    for [L, d] data and [L] ids (see ``ref.segment_sum_ref``)."""
-    kernel = check_same_device(data, segment_ids).type == "cuda"
-    return segment_sum_apply(data, segment_ids, num_segments, kernel)
+    for [L, d] data and [L] ids (see ``ref.segment_sum_ref``). ``order``:
+    ``segment_order(segment_ids, num_segments)``, made once for every sum
+    over these ids."""
+    kernel = check_same_device(data, segment_ids, *(order or ())).type == "cuda"
+    return segment_sum_apply(data, segment_ids, num_segments, kernel, order)

@@ -1,12 +1,59 @@
 """Plain PyTorch versions of the ``bag`` kernels: EmbeddingBag, a weighted
 row gather summed into bags, optionally averaged over each bag's entry
-count; its gradient (``bag_backward``); and the gradient of a row gather
-``table[ids]`` (``gather_backward``), the same sum with one entry a bag."""
+count; its gradient (``bag_backward``); the gradient of a row gather
+``table[ids]`` (``gather_backward``), the same sum with one entry a bag;
+and the stable sort of an id set that a caller hands to each of its sums
+(``segment_order``)."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.counts import COUNTS
+
+ORDER_ROW_ITEMS = 32   # bag_backward.cu's kRowItems: rows + entries a warp of an ordered sum takes
+
+
+class SegmentOrder(NamedTuple):
+    """An id set sorted once, for every sum over it (``segment_sum``,
+    ``gather_backward`` with ``order=``): ``keys`` [L] int32 the ids in
+    non-decreasing order, equal ids in their original order; ``pos`` [L]
+    int32 each sorted id's position in the (flattened) ids; ``offsets``
+    [num_rows + 1] int32, row r's sorted entries [offsets[r], offsets[r +
+    1]); ``splits`` [order_splits(num_rows, L) + 1, 2] int32, (r,
+    offsets[r]) for r the first row with r + offsets[r] >= w * 32
+    (num_rows where none is): the first row the card's warp w sums, and
+    its first sorted entry."""
+
+    keys: torch.Tensor
+    pos: torch.Tensor
+    offsets: torch.Tensor
+    splits: torch.Tensor
+
+
+def order_splits(num_rows: int, L: int) -> int:
+    """The warps an ordered sum over ``num_rows`` rows and ``L`` entries
+    takes: each at most ``ORDER_ROW_ITEMS`` rows + entries."""
+    return -(-(num_rows + L) // ORDER_ROW_ITEMS)
+
+
+def segment_order_ref(ids: torch.Tensor, num_rows: int) -> SegmentOrder:
+    """The order of ``ids`` (any shape, flattened; values in [0,
+    num_rows)) as ``SegmentOrder`` describes it: a stable sort, each row's
+    extent by a search, and the warps' rows."""
+    COUNTS["segment_order"].plain += 1
+    flat = ids.reshape(-1)
+    keys, pos = torch.sort(flat, stable=True)
+    dev = flat.device
+    rows = torch.arange(num_rows + 1, device=dev, dtype=keys.dtype)
+    offsets = torch.searchsorted(keys, rows)
+    items = torch.arange(num_rows, device=dev) + offsets[:-1]
+    want = torch.arange(order_splits(num_rows, flat.numel()) + 1, device=dev) * ORDER_ROW_ITEMS
+    first = torch.searchsorted(items, want)
+    splits = torch.stack([first, offsets[first]], dim=1)
+    return SegmentOrder(keys.to(torch.int32), pos.to(torch.int32), offsets.to(torch.int32),
+                        splits.to(torch.int32))
 
 
 def embedding_bag_ref(table: torch.Tensor, indices: torch.Tensor,

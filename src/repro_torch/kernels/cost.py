@@ -151,3 +151,10 @@ def gather_backward(V: int, d: int, L: int, itemsize: int, id_bytes: int) -> Wor
 def segment_sum(L: int, d: int, n: int, itemsize: int, id_bytes: int) -> Work:
     """Bytes: the entries read once, the dense result written once."""
     return Work(float(L * d), L * d * itemsize + n * d * itemsize + L * id_bytes)
+
+
+def segment_order(L: int, n: int, id_bytes: int, nsplit: int) -> Work:
+    """Bytes: the ids read once; the sorted ids and their positions, the
+    n + 1 row offsets and the nsplit + 1 warp splits (row, entry) written
+    once. A sort does no fp32 operation."""
+    return Work(0.0, L * id_bytes + 8 * L + 4 * (n + 1) + 8 * (nsplit + 1))

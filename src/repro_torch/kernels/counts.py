@@ -36,6 +36,7 @@ COUNTS: dict[str, CallCounts] = {
     "bag_backward": CallCounts(),   # bag's gradient (port-side: no pallas_call)
     "gather_backward": CallCounts(),   # bag_backward.cu's gather transpose
     "segment_sum": CallCounts(),   # the same entry as a segment sum (the GNN's aggregation)
+    "segment_order": CallCounts(),   # bag_backward.cu's sort alone, once an id set
     "heavy_hitter": CallCounts(),
     "heavy_hitter_large": CallCounts(),   # heavy_hitter.cu's large path (past one block)
 }

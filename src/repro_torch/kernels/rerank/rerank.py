@@ -11,11 +11,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import SMS
+from repro_torch.kernels.common import SMS, cdiv
 from repro_torch.kernels.counts import COUNTS
 
 RING_MAX_CLUSTER = 8     # rings.cuh's kMaxCluster (the portable cluster size)
 RING_MIN_SHARE = 64      # candidates each block of a cluster scores at least
+RING_WARPS = 8           # rings.cuh's kRingWarps (256 threads a block)
 
 
 def ring_cluster(Q: int, ncand: int) -> int:
@@ -29,6 +30,23 @@ def ring_cluster(Q: int, ncand: int) -> int:
            and ncand >= 2 * cs * RING_MIN_SHARE):
         cs *= 2
     return cs
+
+
+def warp_keep(n: int, k: int) -> int:
+    """rings.cuh's ``warp_keep``: the keys a warp keeps of n."""
+    return min(k, cdiv(n, RING_WARPS))
+
+
+def ring_smem_bytes(d: int, nprobe: int, depth: int, k: int, cs: int, m: int = 0) -> int:
+    """rings.cuh's ``ring_smem(...).bytes``: one ring block's shared memory
+    (its share of the candidates and their lists, the leader's gather of
+    the cluster's lists, ``m`` route keys and their lists for serve, the
+    query and its routes). The wrappers check it against the library's
+    own figure."""
+    nmax = cdiv(nprobe * depth, cs)
+    keys = (nmax + RING_WARPS * warp_keep(nmax, k) + (cs * min(k, nmax) if cs > 1 else 0)
+            + m + (RING_WARPS * warp_keep(m, nprobe) if m else 0))
+    return 8 * keys + 4 * d + 4 * nprobe
 
 
 def _fn():

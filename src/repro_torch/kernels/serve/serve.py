@@ -1,8 +1,9 @@
 """ctypes wrapper of the hand-written CUDA ``serve`` kernel
 (``repro_torch/csrc/serve.cu``): the two-stage query in two launches,
-route tiles then the routed rerank; and its route-only entry (the route
-tiles, then the fused kernel's route selection), which the serving
-cache's route witness launches.
+route tiles then the routed rerank (with merge passes between them where
+a query has more route keys than its selection ranks); and its
+route-only entry (the route tiles and passes, then the fused kernel's
+route selection), which the serving cache's route witness launches.
 
 The ring tensors may be strided views (``embs[:, :depth]`` for a
 depth-clipped plan): their strides go to the kernel, and the store is
@@ -16,36 +17,104 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.common import SMS, cdiv
 from repro_torch.kernels.counts import COUNTS
-from repro_torch.kernels.rerank.rerank import ring_cluster
+from repro_torch.kernels.rerank.rerank import RING_WARPS, ring_cluster, ring_smem_bytes, warp_keep
 
 ROUTE_TILE_COLS = 64       # serve.cu's kTileCols: prototypes per route tile
 ROUTE_TILE_RMS = (8, 4, 2)  # route tile rows / 8, largest first
+MERGE_WAYS = 32            # serve.cu's kMergeWays: sorted key lists a pass's warp merges
+# keys.cuh's key carries a slot as 32 bits and the kernels index slots and
+# a query's keys in int: the largest cap whose last route tile still does
+MAX_CAP = 2**31 - ROUTE_TILE_COLS
+# the most route keys a query's selection ranks (128 KB): past it a merge
+# pass, which costs less than ranking the keys it removes, comes first
+SELECT_KEYS = 16_384
 
 
 @dataclasses.dataclass(frozen=True)
 class ServePlan:
     """How one call runs: route tiles of ``8 * rm`` queries x 64
-    prototypes (``ntiles`` column tiles, each keeping ``kt`` keys per
-    query, ``m`` route keys per query in all), then the rerank as
-    ``cluster`` blocks per query."""
+    prototypes (``ntiles`` column tiles, each keeping its ``kt`` largest
+    keys per query in order, ``m`` route keys per query in all), then,
+    where a query has more keys than its selection ranks, merge passes
+    that merge every ``MERGE_WAYS`` such lists into one list of the
+    nprobe largest (``levels``: the keys a query has after each pass), then
+    the rerank as ``cluster`` blocks per query."""
 
     rm: int
     ntiles: int
     kt: int
     m: int
     cluster: int
+    levels: tuple[int, ...] = ()
+
+    @property
+    def msel(self) -> int:
+        """The keys a query's selection ranks."""
+        return self.levels[-1] if self.levels else self.m
 
 
-def serve_plan(Q: int, cap: int, nprobe: int, depth: int) -> ServePlan:
+def select_bytes(n: int, nprobe: int) -> int:
+    """A selection's share of its block (rings.cuh, serve.cu): ``n`` route
+    keys and the warps' lists of them."""
+    return 8 * (n + RING_WARPS * warp_keep(n, nprobe))
+
+
+def serve_plan(Q: int, cap: int, nprobe: int, depth: int, d: int | None = None,
+               k: int | None = None) -> ServePlan:
     """The largest route tile whose grid still covers the card's SMs (the
-    smallest where none does), and the rerank's cluster size."""
+    smallest where none does), the rerank's cluster size, and the
+    merge passes the selection needs. Both entries follow one rule: a pass
+    merges every ``MERGE_WAYS`` lists into one of nprobe keys while a
+    query has more than ``SELECT_KEYS`` keys, or more than its selection's
+    block holds beside what else the block keeps: the fused call's ring
+    layout, sized from ``d`` and ``k`` where they are given (at d 384 and
+    depth 64 it leaves room for ``SELECT_KEYS``, so both entries run the
+    same passes). Refuses a cap past 32-bit slot arithmetic
+    (``MAX_CAP``) and a ring layout or nprobe that no number of passes
+    brings into one block."""
     if not 1 <= nprobe <= cap:
         raise ValueError(f"need 1 <= nprobe={nprobe} <= cap={cap}")
+    if cap > MAX_CAP:
+        raise ValueError(f"serve's route keys carry 32-bit slots (keys.cuh): cap {cap} "
+                         f"is past {MAX_CAP}")
     ntiles = cdiv(cap, ROUTE_TILE_COLS)
     kt = min(nprobe, ROUTE_TILE_COLS)
     rm = next((r for r in ROUTE_TILE_RMS if ntiles * cdiv(Q, 8 * r) >= SMS),
               ROUTE_TILE_RMS[-1])
-    return ServePlan(rm, ntiles, kt, ntiles * kt, ring_cluster(Q, nprobe * depth))
+    cluster = ring_cluster(Q, nprobe * depth)
+    base = 0 if d is None else ring_smem_bytes(d, nprobe, depth, k, cluster)
+    if base > build.SMEM_PER_BLOCK:
+        raise ValueError(f"serve's rerank needs {base} B of shared memory before any "
+                         f"route key (d={d}, nprobe={nprobe}, depth={depth}, k={k}), "
+                         f"over the {build.SMEM_PER_BLOCK} B a block has")
+
+    def fits(n):
+        return n <= SELECT_KEYS and base + select_bytes(n, nprobe) <= build.SMEM_PER_BLOCK
+    levels, lists, length = [], ntiles, kt
+    while not fits(lists * length):
+        merged = cdiv(lists, MERGE_WAYS)
+        if merged * nprobe >= lists * length:
+            if base + select_bytes(lists * length, nprobe) <= build.SMEM_PER_BLOCK:
+                break                     # nprobe past SELECT_KEYS: its keys alone
+            raise ValueError(f"nprobe={nprobe} route keys do not fit one block's "
+                             f"{build.SMEM_PER_BLOCK} B of shared memory")
+        lists, length = merged, nprobe
+        levels.append(lists * length)
+    return ServePlan(rm, ntiles, kt, ntiles * kt, cluster, tuple(levels))
+
+
+def _key_buffers(plan: ServePlan, Q: int, dev) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The route keys [Q, m] and, where the plan has passes, the second
+    buffer they alternate with [Q, the first pass's keys] (int64). Refuses
+    a call whose keys the card cannot hold."""
+    words = Q * (plan.m + (plan.levels[0] if plan.levels else 0))
+    if dev.type == "cuda" and 8 * words > torch.cuda.get_device_properties(dev).total_memory:
+        raise ValueError(f"serve's route keys need {8 * words} B (Q={Q}, {plan.m} keys a "
+                         f"query), more than the card's memory")
+    part = torch.empty((Q, plan.m), dtype=torch.int64, device=dev)
+    part2 = (torch.empty((Q, plan.levels[0]), dtype=torch.int64, device=dev)
+             if plan.levels else None)
+    return part, part2
 
 
 def _lib():
@@ -53,17 +122,19 @@ def _lib():
     if lib.serve_launch.argtypes is None:
         P, I, L = build.P, build.I, build.L
         lib.serve_launch.argtypes = [P, P, I, I, P, I, P, P, P, I, L, L, P, L, L, P, L, L,
-                                     I, I, I, I, I, P, P, P, P, I, P]
+                                     I, I, I, I, I, I, P, P, P, P, P, I, P]
         lib.serve_launch.restype = I
         lib.serve_smem_bytes.argtypes = [I, I, I, I, I, I]
         lib.serve_smem_bytes.restype = L
         lib.serve_route_cols.restype = I
-        lib.serve_route_launch.argtypes = [P, I, I, P, I, P, P, I, I, P, P, P]
+        lib.serve_route_launch.argtypes = [P, I, I, P, I, P, P, I, I, I, P, P, P, P]
         lib.serve_route_launch.restype = I
         lib.serve_route_smem_bytes.argtypes = [I, I]
         lib.serve_route_smem_bytes.restype = L
-        if lib.serve_route_cols() != ROUTE_TILE_COLS:
-            raise RuntimeError("serve.cu's route tile width differs from the wrapper's")
+        lib.serve_merge_ways.restype = I
+        if (lib.serve_route_cols(), lib.serve_merge_ways()) != (ROUTE_TILE_COLS, MERGE_WAYS):
+            raise RuntimeError("serve.cu's route tile width or merge ways differ from the "
+                               "wrapper's")
     return lib
 
 
@@ -74,9 +145,13 @@ def serve_launcher(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
     """Checks, plans (``serve_plan`` unless ``plan`` is given: the card's
     tests pass one to hold every plan against the plain version) and
     allocates one call; returns (plan, scores, pos, routes, run) where
-    ``run(phases)`` queues the launches (1 = route tiles, 2 = rerank, 3 =
-    both) on the current stream without counting them. The wrapper runs
-    both; a timing script may run them apart."""
+    ``run(phases)`` queues the launches (1 = route tiles, 4 = the merge
+    passes, where the plan has any, 2 = rerank, 7 = all) on the
+    current stream without counting them. The wrapper runs all; a timing
+    script may run them apart, once a run has written the keys they read:
+    ``run`` refuses the merge where the route tiles' keys are not in their
+    buffer (none yet, or a second pass wrote over them), and the rerank
+    before the tiles and, where the plan has passes, the merge have run."""
     Q, d = qr.shape
     cap = vectors.shape[0]
     C, depth, _ = embs.shape
@@ -100,30 +175,49 @@ def serve_launcher(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
     if route_labels.dtype != torch.int32 or valid.dtype != torch.bool:
         raise TypeError("route_labels i32 and valid bool")
     dev = qr.device
-    plan = plan or serve_plan(Q, cap, nprobe, depth)
+    plan = plan or serve_plan(Q, cap, nprobe, depth, d, k)
     scores = torch.empty((Q, k), dtype=torch.float32, device=dev)
     pos = torch.empty((Q, k), dtype=torch.int32, device=dev)
     routes = torch.empty((Q, nprobe), dtype=torch.int32, device=dev)
     if Q == 0:
-        return plan, scores, pos, routes, lambda phases=3: None
+        return plan, scores, pos, routes, lambda phases=7: None
     lib = _lib()
-    smem = lib.serve_smem_bytes(d, plan.m, nprobe, depth, k, plan.cluster)
+    smem = lib.serve_smem_bytes(d, plan.msel, nprobe, depth, k, plan.cluster)
+    if smem != ring_smem_bytes(d, nprobe, depth, k, plan.cluster, plan.msel):
+        raise RuntimeError("rings.cuh's shared-memory layout differs from the wrapper's")
     if smem > build.SMEM_PER_BLOCK:
         raise ValueError(f"serve kernel needs {smem} B of shared memory "
-                         f"(d={d}, nprobe={nprobe}, depth={depth}, k={k}), over the "
-                         f"{build.SMEM_PER_BLOCK} B a block has")
-    part = torch.empty((Q, plan.m), dtype=torch.int64, device=dev)   # route keys
+                         f"(d={d}, nprobe={nprobe}, depth={depth}, k={k}, "
+                         f"{plan.msel} route keys), over the {build.SMEM_PER_BLOCK} B a "
+                         f"block has")
+    part, part2 = _key_buffers(plan, Q, dev)
     ss0, ss1 = (scales.stride(0), scales.stride(1)) if quantized else (0, 0)
     stream = build.stream_of(dev)
 
-    def run(phases=3):
+    # what the key buffers hold: the route tiles' keys (a second pass writes
+    # over them) and the last pass's
+    tiled = merged = False
+
+    def run(phases=7):
+        nonlocal tiled, merged
+        merge = bool(phases & 4 and plan.levels)
+        tiles_ok = bool(phases & 1) or tiled
+        sel_ok = (merge or (merged and not phases & 1)) if plan.levels else tiles_ok
+        if (merge and not tiles_ok) or (phases & 2 and not sel_ok):
+            raise RuntimeError(f"serve phases {phases} read keys that no earlier phase has "
+                               f"written to this call's buffers: run phase 1 (then 4) first")
         build.check(lib, lib.serve_launch(
             qr.data_ptr(), qn.data_ptr(), Q, d, vectors.data_ptr(), cap,
             valid.data_ptr(), route_labels.data_ptr(), embs.data_ptr(), depth,
             embs.stride(0), embs.stride(1), live.data_ptr(), live.stride(0),
             live.stride(1), build.ptr(scales), ss0, ss1, int(quantized), k, nprobe,
-            plan.rm, plan.cluster, part.data_ptr(), scores.data_ptr(), pos.data_ptr(),
-            routes.data_ptr(), phases, stream), "serve_launch")
+            plan.rm, plan.cluster, plan.msel, part.data_ptr(), build.ptr(part2),
+            scores.data_ptr(), pos.data_ptr(), routes.data_ptr(), phases, stream),
+            "serve_launch")
+        if phases & 1:
+            tiled, merged = True, False
+        if merge:
+            tiled, merged = tiles_ok and len(plan.levels) == 1, True
     return plan, scores, pos, routes, run
 
 
@@ -148,7 +242,9 @@ def serve_routes_cuda(qr: torch.Tensor, vectors: torch.Tensor, valid: torch.Tens
     """Same contract as ``ref.serve_routes_ref``; all tensors on one CUDA
     device: the routes ``serve_topk_cuda`` serves through, bit for bit.
     The route tiles are the fused call's whatever the plan (every dot is
-    one sum over d in order), then the fused call's selection."""
+    one sum over d in order); the merge passes, where its plan has any,
+    keep the top-nprobe of the same unique keys; then the fused call's
+    selection ranks them."""
     Q, d = qr.shape
     cap = vectors.shape[0]
     if not 1 <= nprobe <= cap:
@@ -166,15 +262,12 @@ def serve_routes_cuda(qr: torch.Tensor, vectors: torch.Tensor, valid: torch.Tens
         return routes
     plan = serve_plan(Q, cap, nprobe, 1)
     lib = _lib()
-    smem = lib.serve_route_smem_bytes(plan.m, nprobe)
-    if smem > build.SMEM_PER_BLOCK:
-        raise ValueError(f"route selection needs {smem} B of shared memory "
-                         f"(cap={cap}, nprobe={nprobe}), over the "
-                         f"{build.SMEM_PER_BLOCK} B a block has")
-    part = torch.empty((Q, plan.m), dtype=torch.int64, device=dev)   # route keys
+    if lib.serve_route_smem_bytes(plan.msel, nprobe) != select_bytes(plan.msel, nprobe):
+        raise RuntimeError("serve.cu's selection layout differs from the wrapper's")
+    part, part2 = _key_buffers(plan, Q, dev)
     build.check(lib, lib.serve_route_launch(
         qr.data_ptr(), Q, d, vectors.data_ptr(), cap, valid.data_ptr(),
-        route_labels.data_ptr(), nprobe, plan.rm, part.data_ptr(), routes.data_ptr(),
-        build.stream_of(dev)), "serve_route_launch")
+        route_labels.data_ptr(), nprobe, plan.rm, plan.msel, part.data_ptr(),
+        build.ptr(part2), routes.data_ptr(), build.stream_of(dev)), "serve_route_launch")
     COUNTS["serve_route"].kernel += 1
     return routes

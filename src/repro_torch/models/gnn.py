@@ -5,7 +5,11 @@ edge endpoint (``kernels/bag/ops.gather_rows``: ``hn[ids]`` whose
 gradient is the ``gather_backward`` kernel) and summed into destination
 nodes (``kernels/bag/ops.segment_sum``: the same kernel's sum run
 forward, the reference's ``jax.ops.segment_sum``). Both are deterministic
-on the card, so a train step gives the same bits from call to call. All
+on the card, so a train step gives the same bits from call to call. The
+forward sorts ``edge_dst`` and ``edge_src`` once each
+(``ops.segment_order``) and hands the orders to every layer's sum and
+gathers and to their recompute under remat: two sorts a step, where each
+of a step's 60 sums would otherwise sort its ids again. All
 four assigned graph shapes run through the same step with padded (node,
 edge) buffers + masks:
 
@@ -29,7 +33,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.bag.ops import gather_rows, segment_sum
+from repro_torch.kernels.bag.ops import gather_rows, segment_order, segment_sum
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.api import Arch, ShapeDef, StepSpec, spec
@@ -95,13 +99,16 @@ def _mlp_apply(p, x, n_layers):
     return x
 
 
-def _mp_layer(p, hn, he, src, dst, emask, mlp_layers):
-    """One residual message-passing layer: (hn', he')."""
+def _mp_layer(p, hn, he, src, dst, emask, mlp_layers, src_order=None, dst_order=None):
+    """One residual message-passing layer: (hn', he'). ``src_order`` and
+    ``dst_order``: ``segment_order`` of ``src`` and ``dst`` over the nodes
+    (None: each sum sorts its own ids)."""
     # edge update: m_ij = MLP([e_ij, h_src, h_dst]) + e_ij
-    msg_in = torch.cat([he, gather_rows(hn, src), gather_rows(hn, dst)], dim=-1)
+    msg_in = torch.cat([he, gather_rows(hn, src, order=src_order),
+                        gather_rows(hn, dst, order=dst_order)], dim=-1)
     he_new = he + _mlp_apply(p["edge_mlp"], msg_in, mlp_layers) * emask
     # node update: h_i' = MLP([h_i, Σ_in m]) + h_i
-    agg = segment_sum(he_new * emask, dst, hn.shape[0])
+    agg = segment_sum(he_new * emask, dst, hn.shape[0], order=dst_order)
     hn_new = hn + _mlp_apply(p["node_mlp"], torch.cat([hn, agg], dim=-1), mlp_layers)
     return hn_new, he_new
 
@@ -157,14 +164,20 @@ class MeshGraphNet(Arch):
         hn = _mlp_apply(params["node_encoder"], nf, cfg.mlp_layers)
         he = _mlp_apply(params["edge_encoder"], batch["edge_feat"], cfg.mlp_layers)
         remat = cfg.remat and torch.is_grad_enabled()
+        # each id set sorted once a batch; the src order serves only the
+        # gathers' gradients
+        n = hn.shape[0]
+        dst_order = segment_order(dst, n)
+        src_order = segment_order(src, n) if torch.is_grad_enabled() else None
         stacked = params["processor"]
         for i in range(cfg.n_layers):
             p = L.layer(stacked, i)
             if remat:
                 hn, he = checkpoint(_mp_layer, p, hn, he, src, dst, emask, cfg.mlp_layers,
-                                    use_reentrant=False)
+                                    src_order, dst_order, use_reentrant=False)
             else:
-                hn, he = _mp_layer(p, hn, he, src, dst, emask, cfg.mlp_layers)
+                hn, he = _mp_layer(p, hn, he, src, dst, emask, cfg.mlp_layers, src_order,
+                                   dst_order)
         return _mlp_apply(params["decoder"], hn, cfg.mlp_layers)
 
     def loss(self, params, batch):

@@ -39,7 +39,7 @@ from repro_torch.convert import (params_from_numpy, params_to_numpy, train_state
                                  train_state_to_numpy)
 from repro_torch.kernels import counts
 from repro_torch.kernels.bag import ops as bag_ops
-from repro_torch.kernels.bag.ref import segment_sum_ref
+from repro_torch.kernels.bag.ref import ORDER_ROW_ITEMS, order_splits, segment_sum_ref
 from repro_torch.models.api import get_arch
 from repro_torch.models.gnn import (GNNConfig, MeshGraphNet, NeighborSampler,
                                     random_csr_graph)
@@ -202,6 +202,86 @@ def test_segment_sum_matches_jax(case, S, L, d, ids_dtype):
     np.testing.assert_array_equal(t_grad.numpy(), np.asarray(j_grad))
 
 
+@pytest.mark.parametrize("ids_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("case,S,L,d", SEG_CASES)
+def test_segment_order_is_a_stable_sort_with_row_extents_and_splits(case, S, L, d, ids_dtype):
+    """``segment_order``'s plain version: the ids sorted stably, each
+    sorted id's position, row r's extent [offsets[r], offsets[r + 1]), and
+    the splits: (r, offsets[r]) for r the first row with r + offsets[r] >=
+    32 w (S where none is), so that each split holds at most 32 rows +
+    entries."""
+    _, ids = _seg_case(case, S, L, d)
+    ids = ids.astype(ids_dtype)
+    before = counts.COUNTS["segment_order"].plain
+    o = bag_ops.segment_order(torch.from_numpy(ids), S)
+    assert counts.COUNTS["segment_order"].plain == before + 1
+    assert all(t.dtype == torch.int32 for t in o)
+    perm = np.argsort(ids, kind="stable")
+    np.testing.assert_array_equal(o.pos.numpy(), perm)
+    np.testing.assert_array_equal(o.keys.numpy(), ids[perm])
+    np.testing.assert_array_equal(o.offsets.numpy(),
+                                  [int((ids < r).sum()) for r in range(S + 1)])
+    items = np.arange(S) + o.offsets.numpy()[:-1]
+    want = [next((r for r in range(S) if items[r] >= w * ORDER_ROW_ITEMS), S)
+            for w in range(order_splits(S, L) + 1)]
+    np.testing.assert_array_equal(o.splits[:, 0].numpy(), want)
+    np.testing.assert_array_equal(o.splits[:, 1].numpy(), o.offsets.numpy()[want])
+    spans = np.diff(o.splits[:, 0].numpy())
+    assert o.splits[-1, 0] == S and o.splits[-1, 1] == L and (spans <= ORDER_ROW_ITEMS).all()
+
+
+@pytest.mark.parametrize("case,S,L,d", SEG_CASES)
+def test_segment_sum_and_gathers_with_an_order_equal_without(case, S, L, d):
+    """With ``order=`` the plain versions sum the ids in that order, which
+    is theirs: the segment sum, a row gather's gradient and
+    ``gather_backward`` give the same bits as without an order."""
+    data, ids = _seg_case(case, S, L, d)
+    x, i = torch.from_numpy(data), torch.from_numpy(ids)
+    o = bag_ops.segment_order(i, S)
+    assert torch.equal(bag_ops.segment_sum(x, i, S, order=o), bag_ops.segment_sum(x, i, S))
+    table = torch.from_numpy(np.random.default_rng(2).normal(size=(S, d)).astype(np.float32))
+    assert torch.equal(bag_ops.gather_backward(table, i, x, order=o),
+                       bag_ops.gather_backward(table, i, x))
+    grads = []
+    for order in (o, None):
+        t = table.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(bag_ops.gather_rows(t, i, order=order), t, x)
+        grads.append(g)
+    assert torch.equal(*grads)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_layers_with_orders_equal_layers_without(remat):
+    """A message-passing layer given the batch's two orders (what
+    ``forward`` hands every layer, through ``checkpoint`` under remat)
+    gives the layer without them, outputs and gradients bit for bit."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models import gnn, layers
+
+    arch = get_arch("meshgraphnet", smoke=True)
+    params = arch.init(0, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in _np_batch(arch, "full_graph_sm", 7).items()}
+    h = arch.cfg.d_hidden
+    n, src, dst = tb["node_feat"].shape[0], tb["edge_src"], tb["edge_dst"]
+    g = torch.Generator().manual_seed(3)
+    hn0 = torch.randn((n, h), generator=g)
+    he0 = torch.randn((src.shape[0], h), generator=g)
+    emask = tb["edge_mask"].float()[:, None]
+    p = layers.layer(params["processor"], 0)
+    orders = (bag_ops.segment_order(src, n), bag_ops.segment_order(dst, n))
+    outs = []
+    for extra in (orders, (None, None)):
+        hn, he = hn0.clone().requires_grad_(True), he0.clone().requires_grad_(True)
+        args = (p, hn, he, src, dst, emask, arch.cfg.mlp_layers, *extra)
+        y = checkpoint(gnn._mp_layer, *args, use_reentrant=False) if remat \
+            else gnn._mp_layer(*args)
+        loss = (y[0] ** 2).sum() + (y[1] ** 2).sum()
+        outs.append((*y, *torch.autograd.grad(loss, (hn, he))))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 def test_segment_sum_ref_keeps_bf16_and_float64():
     data, ids = _seg_case("random", 11, 100, 4)
     t, i = torch.from_numpy(data), torch.from_numpy(ids)
@@ -337,7 +417,8 @@ def test_train_step_launches_on_cpu(remat):
     """On the CPU every aggregation and every gathered-row gradient runs
     its plain version: a layer's segment sum once forward (and once more
     in its recompute under remat), its two row gathers' gradients once
-    each; no kernel launches."""
+    each, over ``edge_dst`` and ``edge_src`` sorted once a step (two
+    sorts, whatever the layers and remat); no kernel launches."""
     arch = get_arch("meshgraphnet", smoke=True)
     arch.cfg = dataclasses.replace(arch.cfg, remat=remat)
     spec = arch.step("molecule")
@@ -349,8 +430,9 @@ def test_train_step_launches_on_cpu(remat):
     L = arch.cfg.n_layers
     assert snap["segment_sum"] == {"kernel": 0, "plain": L * (2 if remat else 1)}, snap
     assert snap["gather_backward"] == {"kernel": 0, "plain": 2 * L}, snap
+    assert snap["segment_order"] == {"kernel": 0, "plain": 2}, snap
     assert all(c == {"kernel": 0, "plain": 0} for n, c in snap.items()
-               if n not in ("segment_sum", "gather_backward")), snap
+               if n not in ("segment_sum", "gather_backward", "segment_order")), snap
     assert np.isfinite(float(m["loss"])) and int(new.opt.step) == 1
 
 

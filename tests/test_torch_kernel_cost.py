@@ -18,6 +18,7 @@ from repro_torch.kernels import cost, counts
 from repro_torch.kernels.admit import ops as admit_ops
 from repro_torch.kernels.assign import ops as assign_ops
 from repro_torch.kernels.bag import ops as bag_ops
+from repro_torch.kernels.bag import ref as bag_ref
 from repro_torch.kernels.heavy_hitter import ops as hh_ops
 from repro_torch.kernels.heavy_hitter.heavy_hitter import MAX_BMAX, update_plan
 from repro_torch.kernels.mips import ops as mips_ops
@@ -36,7 +37,7 @@ def _inputs():
     V, L, bags = 10, 12, 3
     idx = torch.randint(0, V, (L,), generator=g, dtype=torch.int32)
     seg = torch.sort(torch.randint(0, bags, (L,), generator=g, dtype=torch.int32)).values
-    return dict(
+    out = dict(
         x=torch.randn((B, d), generator=g), basis=torch.randn((n, d), generator=g),
         cent=torch.randn((K, d), generator=g), live=live,
         q=torch.randn((Q, d), generator=g), index=torch.randn((K, d), generator=g),
@@ -50,6 +51,10 @@ def _inputs():
         ids=torch.randint(0, V, (2, 3), generator=g, dtype=torch.int32),
         gids=torch.randn((2, 3, d), generator=g),
         data=torch.randn((L, d), generator=g))
+    # the orders a caller makes once (counted before each case's reset)
+    out["seg_order"] = bag_ref.segment_order_ref(seg, 5)
+    out["ids_order"] = bag_ref.segment_order_ref(out["ids"], V)
+    return out
 
 
 def _hh(capacity=8):
@@ -117,6 +122,14 @@ ENTRIES = {
         lambda i, out: cost.gather_backward(10, 8, 6, 4, 4)),
     "segment_sum": ("segment_sum", lambda i: bag_ops.segment_sum(i["data"], i["seg"], 5),
                     lambda i, out: cost.segment_sum(12, 8, 5, 4, 4)),
+    "segment_sum_ordered": ("segment_sum", lambda i: bag_ops.segment_sum(
+        i["data"], i["seg"], 5, order=i["seg_order"]),
+        lambda i, out: cost.segment_sum(12, 8, 5, 4, 4)),
+    "gather_backward_ordered": ("gather_backward", lambda i: bag_ops.gather_backward(
+        i["table"], i["ids"], i["gids"], order=i["ids_order"]),
+        lambda i, out: cost.gather_backward(10, 8, 6, 4, 4)),
+    "segment_order": ("segment_order", lambda i: bag_ops.segment_order(i["ids"], 10),
+                      lambda i, out: cost.segment_order(6, 10, 4, bag_ref.order_splits(10, 6))),
 }
 
 
@@ -175,12 +188,22 @@ def test_entry_on_meta_has_the_plain_shapes_and_records_its_formula(case):
     assert c_meta.bytes <= c_cpu.bytes and c_meta.flops == c_cpu.flops
 
 
-@pytest.mark.parametrize("case", ["bag", "gather", "segment_sum"])
+@pytest.mark.parametrize("case", ["bag", "gather", "segment_sum", "gather_ordered",
+                                  "segment_sum_ordered"])
 def test_autograd_nodes_run_backward_on_meta(case):
     i = _inputs()
     for dev in ("cpu", "meta"):
         counts.reset_all()
-        if case == "bag":
+        if case.endswith("_ordered"):
+            t = i["data" if case.startswith("segment") else "table"].to(dev)
+            t.requires_grad_(True)
+            if case.startswith("segment"):
+                out = bag_ops.segment_sum(t, i["seg"].to(dev), 5, order=_to(i["seg_order"], dev))
+                names = ("segment_sum",)
+            else:
+                out = bag_ops.gather_rows(t, i["ids"].to(dev), order=_to(i["ids_order"], dev))
+                names = ("gather_backward",)
+        elif case == "bag":
             t = i["table"].to(dev).requires_grad_(True)
             out = bag_ops.embedding_bag(t, i["idx"].to(dev), i["seg"].to(dev), 3,
                                         i["w"].to(dev), "mean")

@@ -955,6 +955,29 @@ def test_admit_and_prefilter_launches_a_call(cuda, live):
     assert len(ops) == 1 and "prefilter_kernel" in ops[0], ops
 
 
+def test_serve_launches_at_the_150mb_and_4gb_plans(cuda):
+    """The 150 MB plan launches what the parent did: the route tiles and
+    the rerank, fused, and the route tiles and the selection, route-only;
+    at 4 GB one merge pass goes between, in both entries (one rule). Kept
+    beside the other launch listings, early in this file: a
+    torch.profiler trace late in its run records no kernel."""
+    from repro_torch.kernels.serve.serve import serve_routes_cuda, serve_topk_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(44)
+    for cap, P, extra in ((4218, 8, 0), (112_501, 16, 1)):
+        q, v, valid, labels, embs, live, scales = _large_serve_inputs(g, cap, cuda)
+        names = _device_ops(lambda: serve_topk_cuda(q, q, v, valid, labels, embs, live, 10, P,
+                                                    scales))
+        assert len(names) == 2 + extra, names
+        assert sum("route_merge_kernel" in n for n in names) == extra, names
+        assert sum("route_tile_kernel" in n for n in names) == 1, names
+        assert sum("serve_rerank_kernel" in n for n in names) == 1, names
+        names = _device_ops(lambda: serve_routes_cuda(q, v, valid, labels, P))
+        assert len(names) == 2 + extra, names
+        assert sum("route_merge_kernel" in n for n in names) == extra, names
+        assert sum("route_select_kernel" in n for n in names) == 1, names
+
+
 # ------------------------------------------------------------ heavy hitter
 def _hh_cfg(policy, option, bmax):
     from repro_torch.core import heavy_hitter as hh
@@ -2165,6 +2188,17 @@ def _segment_inputs(case, dev):
     elif case == "one_segment":
         N, E = 1, 4097
         ids = torch.zeros(E, dtype=torch.int32, device=dev)
+    elif case == "long_rows":
+        # a row filling level-2 groups (20,000 entries), rows longer than a
+        # 256-entry chunk, rows of 200 that cross a chunk's edge, the rest
+        # uniform, in random order
+        N, E = 5000, 60_000
+        parts = [torch.full((20_000,), 7), torch.full((300,), 3), torch.full((257,), 11),
+                 torch.full((200,), 12), torch.full((200,), 13)]
+        rest = E - sum(t.numel() for t in parts)
+        parts.append(torch.randint(0, N, (rest,), generator=torch.Generator().manual_seed(5)))
+        ids = torch.cat(parts).to(torch.int32)
+        ids = ids[torch.randperm(E, generator=torch.Generator().manual_seed(6))].to(dev)
     else:    # no entries
         E, N = 0, 17
         ids = torch.zeros(0, dtype=torch.int32, device=dev)
@@ -2225,7 +2259,8 @@ def test_segment_sum_autograd_on_card(cuda):
 def test_gnn_train_step_on_card(cuda, shape):
     """A smoke MeshGraphNet train step on the card (remat on): the segment
     sum twice a layer (forward, recompute), the gather backward twice a
-    layer, no plain version; two steps from one state bit-equal; the
+    layer, over the two id sets sorted once each, no plain version; two
+    steps from one state bit-equal; the
     card's loss within 1e-5 of the CPU's on the same params and batch."""
     import dataclasses
 
@@ -2251,6 +2286,7 @@ def test_gnn_train_step_on_card(cuda, shape):
     L = arch.cfg.n_layers
     assert snap["segment_sum"] == {"kernel": 2 * L, "plain": 0}, snap
     assert snap["gather_backward"] == {"kernel": 2 * L, "plain": 0}, snap
+    assert snap["segment_order"] == {"kernel": 2, "plain": 0}, snap   # edge_dst, edge_src
     again, m2 = spec.fn(state, batch)
     for a, b in zip(opt_lib.leaves(new.params), opt_lib.leaves(again.params)):
         assert torch.equal(a, b)
@@ -2258,3 +2294,158 @@ def test_gnn_train_step_on_card(cuda, shape):
     cpu_loss = arch.loss(opt_lib.tree_map(lambda t: t.cpu(), state.params),
                          {k: v.cpu() for k, v in batch.items()})[0]
     assert abs(float(m["loss"]) - float(cpu_loss)) <= 1e-5 * abs(float(cpu_loss))
+
+
+# ------------------------------------------------------ the segment order
+ORDER_CASES = ["sampled", "zeros", "int64", "bf16", "empty", "d18", "one_segment",
+               "no_entries", "long_rows"]
+
+
+@pytest.mark.parametrize("case", ORDER_CASES)
+def test_segment_order_kernel_equals_plain(cuda, case):
+    """``segment_order_cuda`` (bag_backward.cu's sort alone, the rows'
+    extents and the warps' splits) equals ``segment_order_ref``, every
+    field exactly: the radix sort is stable, as torch.sort(stable=True)."""
+    from repro_torch.kernels.bag.bag import segment_order_cuda
+    from repro_torch.kernels.bag.ref import segment_order_ref
+
+    _, ids, N = _segment_inputs(case, cuda)
+    before = COUNTS["segment_order"].kernel
+    got = segment_order_cuda(ids, N)
+    torch.cuda.synchronize()
+    assert COUNTS["segment_order"].kernel == before + 1
+    want = segment_order_ref(ids.cpu(), N)
+    for name, a, b in zip(got._fields, got, want):
+        assert a.dtype == torch.int32 and torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.parametrize("case", ORDER_CASES)
+def test_segment_sum_and_gather_entry_with_an_order(cuda, case):
+    """The segment sum and the gather entry given the order: bit-equal to
+    the same call without one and across two calls; within 1e-5 of the sum
+    of the terms' magnitudes + 1e-6 of the plain version (a bf16 result
+    half a bf16 ulp more); rows no id names exactly 0. (Its launches, no
+    sort among them, are listed by ``chip_smoke.py`` phase 10: a
+    torch.profiler trace late in this file's run records no kernel.)"""
+    from repro_torch.kernels.bag.bag import (gather_backward_cuda, segment_order_cuda,
+                                             segment_sum_cuda)
+    from repro_torch.kernels.bag.ref import segment_sum_ref
+
+    data, ids, N = _segment_inputs(case, cuda)
+    order = segment_order_cuda(ids, N)
+    before = COUNTS["segment_sum"].kernel
+    got, again = (segment_sum_cuda(data, ids, N, order=order) for _ in range(2))
+    base = segment_sum_cuda(data, ids, N)
+    torch.cuda.synchronize()
+    assert COUNTS["segment_sum"].kernel == before + 3
+    assert torch.equal(got, again) and torch.equal(got, base)
+    want = segment_sum_ref(data.float(), ids, N)
+    mag = segment_sum_ref(data.float().abs(), ids, N)
+    tol = 1e-5 * mag + 1e-6
+    if data.dtype == torch.bfloat16:
+        tol = tol + torch.maximum(got.float().abs(), want.abs()) * 2.0 ** -8
+    assert bool(((got.float() - want).abs() <= tol).all())
+    untouched = torch.ones(N, dtype=torch.bool, device=cuda)
+    untouched[ids.long()] = False
+    assert bool((got[untouched] == 0).all())
+    table = torch.empty((N, data.shape[1]), dtype=data.dtype, device=cuda)
+    g = data.float()
+    assert torch.equal(gather_backward_cuda(table, ids, g, order),
+                       gather_backward_cuda(table, ids, g))
+
+
+@pytest.mark.parametrize("case", ["mind", "zeros", "int64"])
+def test_gather_backward_with_an_order_at_minds_gather(cuda, case):
+    """The history gather's gradient (MIND's ids, every id on row 0, int64
+    ids) over an order made once: the bits of the call without it."""
+    from repro_torch.kernels.bag.bag import gather_backward_cuda, segment_order_cuda
+
+    table, idx, _, _, _, _ = _bag_bwd_inputs("mind" if case == "int64" else case, cuda)
+    if case == "int64":
+        idx = idx.long()
+    ids = idx.view(-1, 50)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    grad = torch.randn((*ids.shape, table.shape[1]), generator=g, device=cuda) * 1e-3
+    order = segment_order_cuda(ids, table.shape[0])
+    assert torch.equal(gather_backward_cuda(table, ids, grad, order),
+                       gather_backward_cuda(table, ids, grad))
+
+
+# ---------------------------------------------------- serve past one block
+def _large_serve_inputs(g, cap, dev, Q=64, d=384, C=4218, D=64):
+    v = l2_normalize(torch.randn((cap, d), generator=g, device=dev))
+    valid = torch.rand((cap,), generator=g, device=dev) < 0.9
+    labels = torch.randint(0, C, (cap,), generator=g, device=dev, dtype=torch.int32)
+    labels[torch.rand((cap,), generator=g, device=dev) < 0.1] = -1
+    v[cap - 1], v[cap // 2] = v[3], v[3]          # exact ties in far route tiles
+    valid[3] = valid[cap // 2] = valid[cap - 1] = True
+    q = l2_normalize(torch.randn((Q, d), generator=g, device=dev))
+    q[0] = v[3]
+    embs, live, scales = _ring_store(g, C, D, d, True)
+    return q, v, valid, labels, embs, live, scales
+
+
+@pytest.mark.parametrize("cap,P", [(112_501, 16), (225_003, 8), (225_003, 16),
+                                   (225_003, 64), (450_007, 32), (1_687_526, 8),
+                                   (1_687_526, 64)])
+def test_serve_kernel_past_one_block_of_route_keys(cuda, cap, P):
+    """The 4 GB main path's cap at the tables' nprobe, and 8 / 16 / 60 GB
+    caps at nprobe 8-64, 64 queries, int8 depth 64 over a 4,218-cluster
+    ring store: both entries' plans take the same merge passes, serve
+    holds against the plain version,
+    the route-only entry gives the fused call's routes bit for bit (and
+    holds against its plain version), a tie across far tiles goes to the
+    lowest slot."""
+    from repro_torch.kernels.serve.serve import serve_plan, serve_routes_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(cap % 1000 + P)
+    q, v, valid, labels, embs, live, scales = _large_serve_inputs(g, cap, cuda)
+    levels = serve_plan(64, cap, P, 64, 384, 10).levels
+    assert levels and levels == serve_plan(64, cap, P, 1).levels
+    _, _, r_k = _hold_serve(q, v, valid, labels, embs, live, 10, P, scales)
+    r = serve_routes_cuda(q, v, valid, labels, P)
+    assert torch.equal(r, r_k)
+    _hold_routes(q, v, valid, labels, P)
+    want = labels[torch.tensor([3, cap // 2, cap - 1], device=cuda)]
+    assert torch.equal(r_k[0, :3], torch.where(want >= 0, want, -1))
+
+
+@pytest.mark.parametrize("nlev", [1, 2, 3])
+def test_serve_kernel_forced_passes_agree(cuda, nlev):
+    """At the 4 GB budget's cap and nprobe 8 (which needs no pass), plans
+    forced to 1-3 merge passes (1,758 tiles' lists -> 55 -> 2 -> 1; the
+    passes alternate between two buffers) give the default plan's answer
+    bit for bit; ``run`` refuses a phase whose keys are not in its
+    buffers."""
+    import dataclasses
+
+    from repro_torch.kernels.common import cdiv
+    from repro_torch.kernels.serve.serve import MERGE_WAYS, serve_launcher, serve_plan
+
+    g = torch.Generator(device=cuda).manual_seed(nlev)
+    Q, cap, P = 64, 112_501, 8
+    q, v, valid, labels, embs, live, scales = _large_serve_inputs(g, cap, cuda)
+    base = serve_plan(Q, cap, P, 64, 384, 10)
+    assert base.levels == ()
+    levels, lists = [], base.ntiles
+    for _ in range(nlev):
+        lists = cdiv(lists, MERGE_WAYS)
+        levels.append(lists * P)
+    forced = dataclasses.replace(base, levels=tuple(levels))
+    want = _hold_serve(q, v, valid, labels, embs, live, 10, P, scales)
+    got = _hold_serve(q, v, valid, labels, embs, live, 10, P, scales, forced)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    run = serve_launcher(q, q, v, valid, labels, embs, live, 10, P, scales, forced)[-1]
+    for phases in (2, 4, 6):
+        with pytest.raises(RuntimeError, match="run phase 1"):
+            run(phases)
+    run(1)
+    with pytest.raises(RuntimeError, match="run phase 1"):
+        run(2)
+    run(4)
+    run(2)
+    if nlev > 1:   # the second pass wrote over the tiles' keys
+        with pytest.raises(RuntimeError, match="run phase 1"):
+            run(4)
+    run(7)

@@ -31,7 +31,20 @@ gather, 65,536 Zipf ids, as ``bag.gather.small``, the 512 negatives as
 ``bag.gather.neg``), ``assign`` and ``admit`` (a 256-row batch against
 4218 x 384 centroids; admit with int8 rows, with 10% of the rows dead and
 with ``live=None`` as ``admit.live_none``), ``prefilter`` (the same
-256 x 384 rows against a 5 x 384 basis), ``heavy_hitter`` (the counter's
+256 x 384 rows against a 5 x 384 basis), ``serve4gb`` (the 4 GB
+budget's index, 112,501 x 384 prototypes, at nprobe 16 over the serve
+case's ring store: ``serve.4gb`` and ``serve.route.4gb`` where the
+checkout serves them, the fused call's launches apart as
+``serve.4gb.stage1``, ``.merge`` (its merge pass) and ``.stage2``),
+``segsum`` (MeshGraphNet's
+aggregation at minibatch_lg's padded shape, 168,960 x 128 into 169,984
+rows, a sampled batch's edge_dst: ``segsum``, every id 0 as
+``segsum.hot``, the gather entry at hn[src]'s shape as ``bag.gather.hn``,
+each given its ids' order where the checkout can sort once
+(``segment_order_cuda``), the sorts alone as ``segsum.sort`` and
+``segsum.hot.sort``; the sum without an order as ``segsum.bare``, a
+stable ``torch.sort`` of the ids as ``segsum.library_sort``; a checkout
+without the order sorts in every call), ``heavy_hitter`` (the counter's
 batch update: ``heavy_hitter.main``, MIN_EVICT at bmax 4218 on a batch
 shaped as the main path's, 256 labels of which 26 valid; ``.zipf``,
 MIN_EVICT at capacity 100 on 256 valid Zipf labels over 4218 clusters on
@@ -135,6 +148,7 @@ if hasattr(serve_mod, "serve_routes_cuda"):   # the route-only entry
 if hasattr(serve_mod, "serve_launcher"):   # the two launches apart
     run = serve_mod.serve_launcher(q, q, vectors, valid, labels, embs, live, cs.TOPK,
                                    cs.NPROBE, scales)[-1]
+    run()   # a phase alone reads the keys an earlier run wrote
     fns["serve.stage1"] = lambda: run(1)
     fns["serve.stage2"] = lambda: run(2)
 else:   # a serve whose first launch is topk.cuh's rows_topk_kernel: the same
@@ -310,6 +324,72 @@ if embedding_bag_backward_cuda is not None:
     fns["bag.gather.neg"] = lambda: gather_backward_cuda(table, negs, gneg)
 """,
 }
+SETUP["serve4gb"] = r"""
+from repro_torch.kernels.serve import serve as serve_mod
+# the 4 GB budget's index (cap 112,501 x 384) at the tables' nprobe 16,
+# where a query's route keys pass one block's shared memory, over the
+# serve case's ring store; a checkout that refuses a call times nothing
+# for it
+K, d, Q, K4 = 4218, 384, cs.QUERIES, 112_501
+q = l2_normalize(torch.randn((Q, d), generator=g, device="cuda"))
+embs, live, scales = cs.synthetic_store(K, 64, d, True, g)
+v4 = l2_normalize(torch.randn((K4, d), generator=g, device="cuda"))
+valid4 = torch.rand((K4,), generator=g, device="cuda") < 0.9
+labels4 = torch.randint(0, K, (K4,), generator=g, device="cuda", dtype=torch.int32)
+labels4[torch.rand((K4,), generator=g, device="cuda") < 0.1] = -1
+fns = {}
+four = {"serve.4gb": lambda: serve_mod.serve_topk_cuda(q, q, v4, valid4, labels4, embs, live,
+                                                       cs.TOPK, 16, scales),
+        "serve.route.4gb": lambda: serve_mod.serve_routes_cuda(q, v4, valid4, labels4, 16)}
+for name, fn in four.items():
+    try:
+        fn()
+    except ValueError:   # past one block's shared memory in this checkout
+        continue
+    fns[name] = fn
+if "serve.4gb" in fns:
+    plan4, _, _, _, run4 = serve_mod.serve_launcher(q, q, v4, valid4, labels4, embs, live,
+                                                    cs.TOPK, 16, scales)
+    run4()   # every buffer written once: each launch alone reads the one before's
+    fns["serve.4gb.stage1"] = lambda: run4(1)
+    if getattr(plan4, "levels", ()):
+        fns["serve.4gb.merge"] = lambda: run4(4)
+    fns["serve.4gb.stage2"] = lambda: run4(2)
+"""
+SETUP["segsum"] = r"""
+import numpy as np
+from repro_torch.kernels.bag import bag as bag_mod
+from repro_torch.models.gnn import NeighborSampler, random_csr_graph
+# MeshGraphNet's aggregation at minibatch_lg's padded shape: a sampled
+# batch's edge_dst (1,024 roots, fan-out 15 then 10, of a 20,000-node
+# graph of degree 40), every id 0 (a dummy batch's one hot row), and the
+# gather entry at hn[src]'s shape; given each id set's order where the
+# checkout has segment_order_cuda (each sum then sorts nothing), the sort
+# alone as segsum.sort; a checkout without it sorts in every call
+N, E, d = 169_984, 168_960, 128
+indptr, indices = random_csr_graph(20_000, 40, seed=1)
+sub = NeighborSampler(indptr, indices, (15, 10), seed=2).sample(
+    np.random.default_rng(3).choice(20_000, 1024, replace=False), N, E)
+dst = torch.from_numpy(sub["edge_dst"]).cuda()
+src = torch.from_numpy(sub["edge_src"]).cuda()
+zeros = torch.zeros_like(dst)
+x = torch.randn((E, d), generator=g, device="cuda")
+hn = torch.randn((N, d), generator=g, device="cuda")
+fns = {}
+if hasattr(bag_mod, "segment_order_cuda"):
+    od, oz, osrc = (bag_mod.segment_order_cuda(i, N) for i in (dst, zeros, src))
+    fns["segsum"] = lambda: bag_mod.segment_sum_cuda(x, dst, N, od)
+    fns["segsum.hot"] = lambda: bag_mod.segment_sum_cuda(x, zeros, N, oz)
+    fns["bag.gather.hn"] = lambda: bag_mod.gather_backward_cuda(hn, src, x, osrc)
+    fns["segsum.sort"] = lambda: bag_mod.segment_order_cuda(dst, N)
+    fns["segsum.hot.sort"] = lambda: bag_mod.segment_order_cuda(zeros, N)
+else:
+    fns["segsum"] = lambda: bag_mod.segment_sum_cuda(x, dst, N)
+    fns["segsum.hot"] = lambda: bag_mod.segment_sum_cuda(x, zeros, N)
+    fns["bag.gather.hn"] = lambda: bag_mod.gather_backward_cuda(hn, src, x)
+fns["segsum.bare"] = lambda: bag_mod.segment_sum_cuda(x, dst, N)
+fns["segsum.library_sort"] = lambda: torch.sort(dst, stable=True)
+"""
 TIME = r"""
 for name, fn in fns.items():
     runs = sorted(cs.cuda_ms(fn) for _ in range(5))
