@@ -20,8 +20,10 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core import clustering, heavy_hitter, index as index_lib, prefilter
 from repro_torch.kernels.common import resolve_device
+from repro_torch.obs.trace import NULL_SPAN
 from repro_torch.store import docstore
 
 
@@ -74,14 +76,20 @@ class PipelineState(NamedTuple):
 def init(cfg: PipelineConfig, seed: int = 0, warmup=None,
          device=None) -> PipelineState:
     """Fresh state on ``device`` (``cuda`` unless given; raises when no
-    card is present). ``warmup`` [m, d] seeds k-means++ and the basis."""
+    card is present). ``warmup`` [m, d] seeds k-means++ (traced: the
+    ``engine.kmeans_pp`` span) and the basis."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     warm = (None if warmup is None else
             torch.as_tensor(warmup, dtype=torch.float32, device=dev))
-    clus = (clustering.init_from_buffer(cfg.clus, gen, warm)
-            if warm is not None else clustering.init(cfg.clus, gen))
+    if warm is not None:
+        tr = obs.tracer()
+        with (tr.span("engine.kmeans_pp", cat="engine") if tr is not None
+              else NULL_SPAN):
+            clus = clustering.init_from_buffer(cfg.clus, gen, warm)
+    else:
+        clus = clustering.init(cfg.clus, gen)
     k = cfg.clus.num_clusters
     return PipelineState(
         pre=prefilter.init(cfg.pre, gen, warm, dev),

@@ -11,6 +11,9 @@ Ingest costs at most one device->host sync per batch: the counters that
 decide the index refresh (arrivals, rows since the last upsert) are host
 integers, because the host knows which rows are live (doc id >= 0) before
 it ships them; the one sync is the ring write picking out its rows.
+
+Traced (``obs.tracer()``), each stage of ingest, publish, the two-stage
+query and set-up is an ``engine.*`` span (``obs/trace.py`` names them).
 """
 from __future__ import annotations
 
@@ -20,9 +23,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import index as index_lib, pipeline
 from repro_torch.engine import stages
 from repro_torch.kernels.common import host_to_device, resolve_device
+from repro_torch.obs.trace import NULL_SPAN
 from repro_torch.store import docstore
 
 
@@ -53,32 +58,40 @@ def _device_batch(state: "pipeline.PipelineState", x, doc_ids):
 
 def _after_admission(cfg: "pipeline.PipelineConfig",
                      state: "pipeline.PipelineState", x, ids, live_h, draws,
-                     pre, r, keep, clus, labels, sims, v=None, vscale=None):
+                     pre, r, keep, clus, labels, sims, v=None, vscale=None,
+                     tr=None):
     """Ingest past admission: heavy-hitter counting, representatives, the
     ring write (of the admitted rows ``v``/``vscale``, or quantized by the
-    store itself when None) and the periodic index refresh. Returns
-    (new_state, info)."""
+    store itself when None) and the periodic index refresh, each a span
+    of ``tr`` (the caller's tracer, None off). Returns (new_state, info)."""
     dev = state.route_labels.device
     n_live = int(live_h.sum())
-    hh, masked_labels, hh_info = stages.count(cfg.hh, state.hh, labels, keep,
-                                              draws, gen=state.gen)
-    rep_ids, rep_sims = stages.update_representatives(
-        state.rep_ids, state.rep_sims, labels, sims, ids, keep,
-        cfg.clus.num_clusters)
+    with (tr.span("engine.count", cat="engine") if tr is not None
+          else NULL_SPAN):
+        hh, masked_labels, hh_info = stages.count(cfg.hh, state.hh, labels,
+                                                  keep, draws, gen=state.gen)
+    with tr.span("engine.reps", cat="engine") if tr is not None else NULL_SPAN:
+        rep_ids, rep_sims = stages.update_representatives(
+            state.rep_ids, state.rep_sims, labels, sims, ids, keep,
+            cfg.clus.num_clusters)
 
-    stored = keep & (hh_info["admitted"] | hh_info["hit"])
-    # arrival index among live rows (== arange(B) for an unpadded batch)
-    stamps_h = (state.arrivals + np.cumsum(live_h) - 1).astype(np.int32)
-    store = stages.store_write(cfg.store, state.store, x, labels, stored, ids,
-                               host_to_device(stamps_h, dev),
-                               v=v, vscale=vscale)
+    with (tr.span("engine.store", cat="engine") if tr is not None
+          else NULL_SPAN):
+        stored = keep & (hh_info["admitted"] | hh_info["hit"])
+        # arrival index among live rows (== arange(B) for an unpadded batch)
+        stamps_h = (state.arrivals + np.cumsum(live_h) - 1).astype(np.int32)
+        store = stages.store_write(cfg.store, state.store, x, labels, stored,
+                                   ids, host_to_device(stamps_h, dev),
+                                   v=v, vscale=vscale)
 
     since = state.since_upsert + n_live
     refresh = since >= cfg.update_interval
     new_index, route_labels = state.index, state.route_labels
     if refresh:
-        new_index, route_labels = stages.upsert_snapshot(
-            cfg.index, state.index, hh, clus.centroids, rep_ids)
+        with (tr.span("engine.upsert", cat="engine") if tr is not None
+              else NULL_SPAN):
+            new_index, route_labels = stages.upsert_snapshot(
+                cfg.index, state.index, hh, clus.centroids, rep_ids)
 
     new_state = pipeline.PipelineState(
         pre=pre, clus=clus, hh=hh, index=new_index, store=store,
@@ -108,11 +121,15 @@ def ingest_impl(cfg: "pipeline.PipelineConfig",
     touch the prefilter window, centroids, counters, representatives or
     the store, and count as no arrival; the counter's per-slot random
     draws still advance. Returns (new_state, info)."""
-    x, ids, live_h = _device_batch(state, x, doc_ids)
-    pre, r, keep, clus, labels, sims, v, vscale = stages.admit(
-        cfg.pre, cfg.clus, cfg.store, state.pre, state.clus, x, live_h)
+    tr = obs.tracer()
+    with tr.span("engine.h2d", cat="engine") if tr is not None else NULL_SPAN:
+        x, ids, live_h = _device_batch(state, x, doc_ids)
+    with (tr.span("engine.admit", cat="engine") if tr is not None
+          else NULL_SPAN):
+        pre, r, keep, clus, labels, sims, v, vscale = stages.admit(
+            cfg.pre, cfg.clus, cfg.store, state.pre, state.clus, x, live_h)
     return _after_admission(cfg, state, x, ids, live_h, draws, pre, r, keep,
-                            clus, labels, sims, v=v, vscale=vscale)
+                            clus, labels, sims, v=v, vscale=vscale, tr=tr)
 
 
 def staged_ingest_impl(cfg: "pipeline.PipelineConfig",
@@ -121,12 +138,17 @@ def staged_ingest_impl(cfg: "pipeline.PipelineConfig",
     """``ingest_impl`` with admission staged, as the reference's pre-fusion
     ingest (Table 18) composes it: ``screen`` -> ``assign_update``, and the
     store quantizes the rows it writes. The oracle of the fused path; same
-    arguments and returns."""
-    x, ids, live_h = _device_batch(state, x, doc_ids)
-    pre, r, keep = stages.screen(cfg.pre, state.pre, x, live_h)
-    clus, labels, sims = stages.assign_update(cfg.clus, state.clus, x, keep)
+    arguments, returns and spans (``engine.admit`` holds both stages)."""
+    tr = obs.tracer()
+    with tr.span("engine.h2d", cat="engine") if tr is not None else NULL_SPAN:
+        x, ids, live_h = _device_batch(state, x, doc_ids)
+    with (tr.span("engine.admit", cat="engine") if tr is not None
+          else NULL_SPAN):
+        pre, r, keep = stages.screen(cfg.pre, state.pre, x, live_h)
+        clus, labels, sims = stages.assign_update(cfg.clus, state.clus, x,
+                                                  keep)
     return _after_admission(cfg, state, x, ids, live_h, draws, pre, r, keep,
-                            clus, labels, sims)
+                            clus, labels, sims, tr=tr)
 
 
 def snapshot_query_impl(cfg: "pipeline.PipelineConfig", index, route_labels,
@@ -135,7 +157,10 @@ def snapshot_query_impl(cfg: "pipeline.PipelineConfig", index, route_labels,
     """Top-k over (index, route_labels, store) leaves — live state or a
     published snapshot. ``depth`` is a plan's rerank depth (None = full)."""
     if not two_stage:
-        scores, rows, ids = index_lib.search(cfg.index, index, q, k)
+        tr = obs.tracer()
+        with (tr.span("engine.serve", cat="engine") if tr is not None
+              else NULL_SPAN):
+            scores, rows, ids = index_lib.search(cfg.index, index, q, k)
         return (scores, rows, ids,
                 route_labels[rows.to(torch.int64)])
     return routed_query(cfg, index, route_labels, store, q, k, nprobe,
@@ -149,16 +174,23 @@ def routed_query(cfg: "pipeline.PipelineConfig", index, route_labels, store,
     any ring source addressed by ``route_labels``: the store, or a hot
     tier with its remapped labels. Returns (scores, rows, doc_ids,
     clusters, routes [Q, nprobe]) — the routes the answer was served
-    through."""
+    through. Traced: ``engine.serve`` (the kernel's wrapper and launch),
+    then ``engine.decode`` (the decode's torch ops)."""
     store_depth = cfg.store_depth
     depth_eff = store_depth if depth is None else min(depth, store_depth)
     assert store_depth > 0, "two_stage requires store_depth > 0"
     assert k <= nprobe * depth_eff, "k must be <= nprobe * plan depth"
-    scores, pos, routes = stages.serve_topk(cfg.index, index, route_labels,
-                                            store, q, k, nprobe,
-                                            depth=depth_eff)
-    return stages.decode_rerank(store.ids, routes, scores, pos, depth_eff,
-                                nprobe, store_depth=store_depth) + (routes,)
+    tr = obs.tracer()
+    with (tr.span("engine.serve", cat="engine") if tr is not None
+          else NULL_SPAN):
+        scores, pos, routes = stages.serve_topk(cfg.index, index, route_labels,
+                                                store, q, k, nprobe,
+                                                depth=depth_eff)
+    with (tr.span("engine.decode", cat="engine") if tr is not None
+          else NULL_SPAN):
+        return stages.decode_rerank(store.ids, routes, scores, pos,
+                                    depth_eff, nprobe,
+                                    store_depth=store_depth) + (routes,)
 
 
 def query_impl(cfg: "pipeline.PipelineConfig", state: "pipeline.PipelineState",
@@ -188,7 +220,10 @@ class Engine:
                  device=None):
         self.cfg = cfg
         if state is None:
-            state = pipeline.init(cfg, seed, warmup, device)
+            tr = obs.tracer()
+            with (tr.span("engine.init", cat="engine") if tr is not None
+                  else NULL_SPAN):
+                state = pipeline.init(cfg, seed, warmup, device)
         self.state = state
         self.device = resolve_device(state.route_labels.device)
         self._version = 0
@@ -219,18 +254,24 @@ class Engine:
 
     def publish(self) -> ServingSnapshot:
         """Clone the queryable sub-state into a serving snapshot (ingest
-        writes the live tensors in place, so a snapshot must not alias)."""
+        writes the live tensors in place, so a snapshot must not alias).
+        Traced: ``engine.signature``, then ``engine.clone``."""
         st = self.state
         self._version += 1
-        self._update_publish_info()
-        return ServingSnapshot(
-            index=st.index._replace(vectors=st.index.vectors.clone(),
-                                    ids=st.index.ids.clone(),
-                                    valid=st.index.valid.clone()),
-            route_labels=st.route_labels.clone(),
-            store=docstore.DocStore(*(t.clone() for t in st.store)),
-            version=self._version,
-            published_at=time.time())
+        tr = obs.tracer()
+        with (tr.span("engine.signature", cat="engine") if tr is not None
+              else NULL_SPAN):
+            self._update_publish_info()
+        with (tr.span("engine.clone", cat="engine") if tr is not None
+              else NULL_SPAN):
+            return ServingSnapshot(
+                index=st.index._replace(vectors=st.index.vectors.clone(),
+                                        ids=st.index.ids.clone(),
+                                        valid=st.index.valid.clone()),
+                route_labels=st.route_labels.clone(),
+                store=docstore.DocStore(*(t.clone() for t in st.store)),
+                version=self._version,
+                published_at=time.time())
 
     def _host_signature(self):
         """(cluster counts, ring write ptrs, rep ids): every

@@ -6,15 +6,32 @@ format — loadable in Perfetto / ``chrome://tracing`` — so a serving run
 can be inspected as a timeline:
 
   * **query path**: one ``query`` span per request from submit to answer
-    (args: ``ticket``, ``snapshot_version``) nested under the ``flush``
-    span that answered it (args: batch fill, queue depth, the pinned
-    snapshot version) with its ``embed`` / ``route+rerank`` /
-    ``materialize`` phases — the route→rerank stages execute inside one
-    device program, so they appear as the single dispatch span that
-    contains them;
+    (args: ``ticket``, ``snapshot_version``, ``wait_us``), emitted after
+    the ``flush`` span that answered it (args: batch fill, queue depth,
+    the pinned snapshot version);
+  * **inside a flush**, four children that tile it on the caller's
+    thread: ``flush.stack`` (the batch made one array; ``embed`` nests in
+    it), ``flush.launch`` (everything that queues the flush's device
+    work: the snapshot pinned, the queries to the card, the serve call
+    and the decode, as ``engine.serve`` and ``engine.decode``; on the
+    cached path also that path's own device->host reads),
+    ``flush.fetch`` (the answers' device->host copies: the host waits
+    for the device here) and ``flush.answers`` (the answer dicts, the
+    stats and the registry); a shed flush has ``flush.answers`` alone.
+    Each ``query`` span's ``wait_us`` is its submit -> the start of the
+    flush that answered it, the front end's own queue wait;
   * **ingest path**: ``ingest.enqueue`` (producer), ``ingest.admit`` (the
     background thread's engine dispatch), ``ingest.publish`` (snapshot
-    reconcile + swap; args: version, dirty-cluster counts).
+    reconcile + swap; args: version, dirty-cluster counts). Inside
+    ``ingest.admit`` the engine's stages: ``engine.h2d`` (rows and ids
+    to the card), ``engine.admit`` (the window, the admit kernel and the
+    centroid fold), ``engine.count``, ``engine.reps``, ``engine.store``
+    (the ring write and its one host sync) and, on refresh batches,
+    ``engine.upsert``; inside ``ingest.publish``, ``engine.signature``
+    (the change signature's host reads) and ``engine.clone``;
+  * **set-up**: ``engine.init`` around the state's construction, with
+    ``engine.kmeans_pp`` (the k-means++ start over a warmup buffer)
+    inside it.
 
 Correlation is by args: every query span carries the snapshot version it
 was answered from, so freshness questions ("which queries saw stale
@@ -23,15 +40,23 @@ data?") are a Perfetto query over ``args.snapshot_version`` against the
 
 Tracing shares the observability on/off contract of ``obs.metrics``:
 sites fetch the active tracer once per batch via ``obs.tracer()`` and do
-nothing when it is ``None``.
+nothing when it is ``None``: a stage site is
+``with tr.span(...) if tr is not None else NULL_SPAN:``, one test and no
+new object.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import threading
 import time
+
+
+# the stand-in span of a site with tracing off: one shared, reusable
+# context that records nothing
+NULL_SPAN = contextlib.nullcontext()
 
 
 class _Span:

@@ -87,6 +87,7 @@ from repro_torch.core import pipeline
 from repro_torch.engine import stages
 from repro_torch.engine.engine import Engine, ServingSnapshot, _resolve_plan
 from repro_torch.engine.plan import PlanSpace
+from repro_torch.obs.trace import NULL_SPAN
 from repro_torch.serve.durability import (DurabilityConfig, DurableIngest,
                                           classify_error)
 from repro_torch.serve.executor import DegradationController, PriorityDispatcher
@@ -219,7 +220,13 @@ class QueryFrontend:
         answers the whole batch at once with sentinel results (scores
         -inf, ids and clusters -1) and never touches the engine; answers
         carry ``degraded`` (effort below full, shed included), ``shed``
-        and ``plan``."""
+        and ``plan``.
+
+        Traced, the ``flush`` span holds four children that tile it:
+        ``flush.stack``, ``flush.launch`` (``_query_batch``: on the cached
+        path it holds that path's own device->host reads too),
+        ``flush.fetch`` (the host waits for the device there) and
+        ``flush.answers``; a shed flush has ``flush.answers`` alone."""
         with self._lock:
             if not self._pending:
                 return []
@@ -245,75 +252,80 @@ class QueryFrontend:
             ids = np.full((len(batch), k), -1, np.int32)
             labels = np.full((len(batch), k), -1, np.int32)
         else:
-            raw = [b["q"] for b in batch]
-            if self.embed_fn is not None:
-                if tr is not None:
-                    with tr.span("embed", batch=len(batch)):
+            # the children of ``flush`` tile it (obs/trace.py names them)
+            with tr.span("flush.stack") if tr is not None else NULL_SPAN:
+                raw = [b["q"] for b in batch]
+                if self.embed_fn is not None:
+                    with (tr.span("embed", batch=len(batch))
+                          if tr is not None else NULL_SPAN):
                         q = self.embed_fn(raw)
                 else:
-                    q = self.embed_fn(raw)
-            else:
-                q = np.stack(raw)
-            scores, _, ids, labels = self._query_batch(
-                np.asarray(q, np.float32), plan)
+                    q = np.stack(raw)
+                q = np.asarray(q, np.float32)
+            with tr.span("flush.launch") if tr is not None else NULL_SPAN:
+                scores, _, ids, labels = self._query_batch(q, plan)
             # one host transfer per output
-            scores, ids, labels = (scores.cpu().numpy(), ids.cpu().numpy(),
-                                   labels.cpu().numpy())
-        lat = (time.perf_counter() - t0) * 1e3
-        meta = self._batch_meta()
-        if plan is not None:
-            meta = {**meta, "degraded": degraded, "shed": plan.shed,
-                    "plan": {"nprobe": plan.nprobe, "depth": plan.depth}}
-        out = [{
-            "ticket": b["ticket"],
-            "scores": scores[i],
-            "doc_ids": ids[i],
-            "clusters": labels[i],
-            "enqueue_to_answer_ms": (time.perf_counter() - b["t"]) * 1e3,
-            **meta,
-        } for i, b in enumerate(batch)]
-        with self._lock:
-            self.stats["queries"] += len(batch)
-            self.stats["batches"] += 1
-            if plan is not None and plan.shed:
-                self.stats["shed"] += len(batch)
-            self.stats["query_latency_ms"].append(lat)
-            for o in out:
-                self.stats["answer_latency_ms"].append(
-                    o["enqueue_to_answer_ms"])
-            self._lat_sum += lat
-        if reg is not None:
-            reg.counter("serve_queries_total").inc(len(batch))
-            reg.counter("serve_batches_total").inc()
-            reg.gauge("serve_queue_depth").set(depth)
-            reg.gauge("serve_batch_fill").set(
-                len(batch) / self.scfg.max_batch)
-            reg.histogram("serve_batch_latency_ms", unit="ms").observe(lat)
-            h = reg.histogram("serve_query_e2e_ms", unit="ms")
-            for o in out:
-                h.observe(o["enqueue_to_answer_ms"])
+            with tr.span("flush.fetch") if tr is not None else NULL_SPAN:
+                scores, ids, labels = (scores.cpu().numpy(),
+                                       ids.cpu().numpy(),
+                                       labels.cpu().numpy())
+        with tr.span("flush.answers") if tr is not None else NULL_SPAN:
+            lat = (time.perf_counter() - t0) * 1e3
+            meta = self._batch_meta()
             if plan is not None:
-                # serve.plan telemetry: what effort was actually chosen
-                reg.histogram("serve_plan_nprobe", lo=0.5,
-                              hi=2048.0).observe(float(plan.nprobe))
-                reg.histogram("serve_plan_depth", lo=0.5,
-                              hi=2048.0).observe(float(plan.depth))
-                reg.gauge("serve_degradation_level").set(
-                    self._controller.level
-                    if self._controller is not None else 0)
-                if plan.shed:
-                    reg.counter("serve_shed_total").inc(len(batch))
+                meta = {**meta, "degraded": degraded, "shed": plan.shed,
+                        "plan": {"nprobe": plan.nprobe, "depth": plan.depth}}
+            out = [{
+                "ticket": b["ticket"],
+                "scores": scores[i],
+                "doc_ids": ids[i],
+                "clusters": labels[i],
+                "enqueue_to_answer_ms": (time.perf_counter() - b["t"]) * 1e3,
+                **meta,
+            } for i, b in enumerate(batch)]
+            with self._lock:
+                self.stats["queries"] += len(batch)
+                self.stats["batches"] += 1
+                if plan is not None and plan.shed:
+                    self.stats["shed"] += len(batch)
+                self.stats["query_latency_ms"].append(lat)
+                for o in out:
+                    self.stats["answer_latency_ms"].append(
+                        o["enqueue_to_answer_ms"])
+                self._lat_sum += lat
+            if reg is not None:
+                reg.counter("serve_queries_total").inc(len(batch))
+                reg.counter("serve_batches_total").inc()
+                reg.gauge("serve_queue_depth").set(depth)
+                reg.gauge("serve_batch_fill").set(
+                    len(batch) / self.scfg.max_batch)
+                reg.histogram("serve_batch_latency_ms", unit="ms").observe(lat)
+                h = reg.histogram("serve_query_e2e_ms", unit="ms")
+                for o in out:
+                    h.observe(o["enqueue_to_answer_ms"])
+                if plan is not None:
+                    # serve.plan telemetry: what effort was actually chosen
+                    reg.histogram("serve_plan_nprobe", lo=0.5,
+                                  hi=2048.0).observe(float(plan.nprobe))
+                    reg.histogram("serve_plan_depth", lo=0.5,
+                                  hi=2048.0).observe(float(plan.depth))
+                    reg.gauge("serve_degradation_level").set(
+                        self._controller.level
+                        if self._controller is not None else 0)
+                    if plan.shed:
+                        reg.counter("serve_shed_total").inc(len(batch))
         if tr is not None:
             fspan.args.update(meta if plan is None else
                               {k: v for k, v in meta.items() if k != "plan"})
             fspan.end()
             now = tr.now_us()
             # per-query submit->answer spans, correlated to the snapshot
-            # they were answered from (and the plan that served them)
-            for o in out:
+            # they were answered from (and the plan that served them);
+            # wait_us is the query's submit -> this flush's start
+            for o, b in zip(out, batch):
                 e2e_us = o["enqueue_to_answer_ms"] * 1e3
                 tr.complete("query", now - e2e_us, e2e_us, cat="query",
-                            ticket=o["ticket"],
+                            ticket=o["ticket"], wait_us=(t0 - b["t"]) * 1e6,
                             **{k: v for k, v in o.items()
                                if k == "snapshot_version"},
                             **plan_args)
@@ -863,7 +875,8 @@ class AsyncServer(QueryFrontend):
            route pass's routes, and inserted back into the cache.
 
         Every answer is bit-identical to what the uncached path returns
-        for the same snapshot. Returns host tensors."""
+        for the same snapshot. Returns host tensors: its device->host
+        reads fall inside the ``flush.launch`` span."""
         snap = pub.snap
         cache, hotset = self._result_cache, self._hotset
         k = self.scfg.topk

@@ -11,11 +11,17 @@ package's on the same run.
 * trace export: a threaded async serving run produces a structurally
   valid Chrome trace-event JSON whose per-query spans carry the snapshot
   version they were answered from (correlated against actual publishes);
+* the spans inside the port: ``flush``'s four children tile it in order,
+  the engine's serve and decode lie in ``flush.launch``, each query's
+  ``wait_us``, the ingest stages in ``ingest.admit`` (the upsert only on
+  refresh batches) and the publish stages in ``ingest.publish``; with
+  tracing off no call reaches a ``Tracer``;
 * satellite fixes: per-query latency window (p90 + window sizes in
   ``latency_stats``), wall-clock snapshot age with the never-published
   guard, and stat exactness under concurrent submit/flush;
 * the names: a cached, durable async run with a crash and recovery
-  records the same metric and span names in both packages;
+  records the same metric names in both packages, and every span name of
+  the JAX package's plus the port's own stage spans;
 * ``obs.kern``: CUDA-event/host timing into the registry, and the
   modeled HLO cost, which waits on ROADMAP A10, raises.
 
@@ -388,7 +394,94 @@ def test_async_trace_spans_correlate_with_published_versions():
     assert flushes and all("snapshot_version" in f["args"] for f in flushes)
 
 
-def test_disabled_obs_records_nothing_and_answers_identically():
+class _RefreshEngine(Engine):
+    """Engine recording, per ingest call, whether it refreshed the index."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.refreshed = []
+
+    def ingest(self, x, doc_ids, draws=None):
+        info = super().ingest(x, doc_ids, draws)
+        self.refreshed.append(bool(info["refreshed"]))
+        return info
+
+
+def _inside(child, parent, eps=1e-3):
+    return (child["tid"] == parent["tid"]
+            and child["ts"] >= parent["ts"] - eps
+            and child["ts"] + child["dur"] <= parent["ts"] + parent["dur"] + eps)
+
+
+@pytest.mark.parametrize("two_stage", [True, False])
+def test_stage_spans_tile_flush_ingest_and_publish(two_stage):
+    obs.enable(metrics=False)
+    cfg = small_cfg(store_depth=4, update_interval=32)
+    stream = make_stream("iot", dim=DIM)
+    engine = _RefreshEngine(cfg, 0, device="cpu")
+    server = AsyncServer(cfg, ServerConfig(max_batch=8, max_wait_ms=0.0,
+                                           topk=4, two_stage=two_stage,
+                                           nprobe=4),
+                         engine=engine, publish_every=2)
+    # ingest and queries take turns, so no other thread holds the GIL
+    # inside a flush and the children's cover is the flush's own
+    for _ in range(6):
+        b = stream.next_batch(16)
+        server.ingest(b["embedding"], b["doc_id"])
+        server.sync()
+        for q in stream.queries(8)["embedding"]:
+            server.submit(q)
+        server.drain()
+    server.close()
+    ev = [e for e in obs.tracer().events() if e["ph"] == "X"]
+
+    def named(n):
+        return sorted((e for e in ev if e["name"] == n),
+                      key=lambda e: e["ts"])
+
+    kids = ("flush.stack", "flush.launch", "flush.fetch", "flush.answers")
+    flushes = named("flush")
+    assert len(flushes) == 6
+    for f in flushes:
+        inner = [e for e in ev if e["name"] in kids and _inside(e, f)]
+        inner.sort(key=lambda e: e["ts"])
+        assert [e["name"] for e in inner] == list(kids)
+        for a, b in zip(inner, inner[1:]):
+            assert a["ts"] + a["dur"] <= b["ts"] + 1e-3
+        assert sum(e["dur"] for e in inner) >= 0.9 * f["dur"], (inner, f)
+        launch = inner[1]
+        engine_spans = {e["name"] for e in ev
+                        if e["name"].startswith("engine.")
+                        and _inside(e, launch)}
+        assert engine_spans == ({"engine.serve", "engine.decode"}
+                                if two_stage else {"engine.serve"})
+    for n in kids + ("engine.serve",):
+        assert len(named(n)) == 6, n
+    queries = named("query")
+    assert len(queries) == 48
+    assert all(q["args"]["wait_us"] >= 0.0 for q in queries)
+
+    stages = ("engine.h2d", "engine.admit", "engine.count", "engine.reps",
+              "engine.store")
+    admits = named("ingest.admit")
+    assert len(admits) == len(engine.refreshed) == 6
+    assert any(engine.refreshed) and not all(engine.refreshed)
+    for a, refreshed in zip(admits, engine.refreshed):
+        inner = sorted((e for e in ev if e["name"].startswith("engine.")
+                        and _inside(e, a)), key=lambda e: e["ts"])
+        assert [e["name"] for e in inner] == (
+            list(stages) + ["engine.upsert"] * refreshed)
+    assert len(named("engine.upsert")) == sum(engine.refreshed)
+    publishes = named("ingest.publish")
+    assert len(publishes) >= 6
+    for p in publishes:
+        inner = sorted((e for e in ev if e["name"].startswith("engine.")
+                        and _inside(e, p)), key=lambda e: e["ts"])
+        assert [e["name"] for e in inner] == ["engine.signature",
+                                              "engine.clone"]
+
+
+def test_disabled_obs_records_nothing_and_answers_identically(monkeypatch):
     cfg = small_cfg(store_depth=4, update_interval=32)
     scfg = ServerConfig(max_batch=8, max_wait_ms=0.0, topk=5,
                         two_stage=True, nprobe=4)
@@ -408,7 +501,18 @@ def test_disabled_obs_records_nothing_and_answers_identically():
         server.close()
         return sorted(outs, key=lambda o: o["ticket"])
 
+    # tracing off makes no call into a Tracer or one of its spans
+    from repro_torch.obs import trace as trace_mod
+
+    def _raise(*a, **kw):
+        raise AssertionError("a Tracer was called with tracing off")
+
+    for cls in (trace_mod.Tracer, trace_mod._Span):
+        for name, attr in list(vars(cls).items()):
+            if callable(attr):
+                monkeypatch.setattr(cls, name, _raise)
     off = run()
+    monkeypatch.undo()
     obs.enable()
     on = run()
     assert obs.metrics() is not None and len(obs.tracer()) > 0
@@ -486,7 +590,13 @@ def test_instrument_and_span_names_match_reference(tmp_path):
     # jit-trace counters have no counterpart: the port traces nothing
     want_m = {m for m in want_m if not m.startswith("kernel_traces_total_")}
     assert got_m == want_m, (got_m ^ want_m)
-    assert got_s == want_s, (got_s ^ want_s)
+    # every span of the reference, and the port's stage spans beside them
+    assert want_s <= got_s, (want_s - got_s)
+    assert got_s - want_s == {
+        "flush.stack", "flush.launch", "flush.fetch", "flush.answers",
+        "engine.init", "engine.serve", "engine.decode", "engine.h2d",
+        "engine.admit", "engine.count", "engine.reps", "engine.store",
+        "engine.upsert", "engine.signature", "engine.clone"}, (got_s - want_s)
     for name in ("serve_batch_latency_ms", "publish_latency_ms",
                  "cache_hits_total", "hotset_pinned_bytes",
                  "journal_appends_total", "checkpoint_bytes_last",
