@@ -23,7 +23,10 @@
    Admit is also held with live=None (every row live). Serve's route-only
    entry (the serving cache's route witness) must give the fused kernel's
    routes bit for bit, and agree with its plain version under the
-   near-tie rule. Admit's two
+   near-tie rule. Serve's decoded answer (rows, doc ids, clusters, from
+   its rerank's epilogue) must equal ``stages.decode_rerank`` over its
+   own (scores, pos, routes), bit for bit, wherever serve is held.
+   Admit's two
    launches (prologue, tile kernel), mips's (score-and-select, merge) and
    serve's (route tiles, routed rerank) are timed apart; assign's, admit's and prefilter's kernels per
    call are listed as torch.profiler records them, and the launch floor
@@ -938,32 +941,33 @@ def plain_route_scores(qr, vectors, valid):
     return torch.where(valid[None], qr @ vectors.T, NEG_INF)
 
 
-def ring_score(qn, embs, live, scales, cluster, slot):
-    """Plain score of ring entries (cluster, slot) [Q, k] for each query."""
+def ring_score(qn, embs, ids, scales, cluster, slot):
+    """Plain score of ring entries (cluster, slot) [Q, k] for each query (a
+    slot is live where its doc id is >= 0)."""
     e = embs[cluster.clamp(min=0).long(), slot.long()].float()      # [Q, k, d]
     s = torch.einsum("qd,qkd->qk", qn, e)
     if scales is not None:
         s = s * scales[cluster.clamp(min=0).long(), slot.long()]
-    ok = live[cluster.clamp(min=0).long(), slot.long()] & (cluster >= 0)
+    ok = (ids[cluster.clamp(min=0).long(), slot.long()] >= 0) & (cluster >= 0)
     return torch.where(ok, s, NEG_INF)
 
 
-def entry_scores(qn, embs, live, scales, routes, pos):
+def entry_scores(qn, embs, ids, scales, routes, pos):
     """Plain score of each picked entry pos = j * depth + slot of the
     query's route list (NEG_INF where pos is -1)."""
     depth = embs.shape[1]
     cl = routes.gather(1, (pos.clamp(min=0) // depth).long())
     cl = torch.where(pos >= 0, cl, -1)
-    return ring_score(qn, embs, live, scales, cl, pos.clamp(min=0) % depth)
+    return ring_score(qn, embs, ids, scales, cl, pos.clamp(min=0) % depth)
 
 
-def serve_split(qr, qn, vectors, valid, labels, embs, live, scales, k, nprobe) -> str:
+def serve_split(qr, qn, vectors, valid, labels, embs, ids, scales, k, nprobe) -> str:
     """Device ms of the kernel's launches apart (route tiles, the reduction
     passes where the plan has any, the routed rerank; each after a whole
     call, so that it reads what the launch before it writes) and together,
     with the plan that sized them."""
-    plan, _, _, _, run = serve_launcher(qr, qn, vectors, valid, labels, embs, live, k,
-                                        nprobe, scales)
+    plan, _, run = serve_launcher(qr, qn, vectors, valid, labels, embs, ids, k, nprobe,
+                                  scales)
     # each phase alone reads what the one before it wrote: tiles, passes,
     # rerank in that order (a second pass writes over the tiles' keys, so
     # with two or more the passes are timed with the tiles, less the tiles)
@@ -981,15 +985,29 @@ def serve_split(qr, qn, vectors, valid, labels, embs, live, scales, k, nprobe) -
             f"{plan.cluster} {t2:.4f} ms, all {both:.4f} ms device")
 
 
-def check_serve(qr, qn, vectors, valid, labels, embs, live, scales, k, nprobe,
+def check_serve(qr, qn, vectors, valid, labels, embs, ids, scales, k, nprobe,
                 chk: Check):
-    out_k = serve_topk_cuda(qr, qn, vectors, valid, labels, embs, live, k,
+    out_k = serve_topk_cuda(qr, qn, vectors, valid, labels, embs, ids, k,
                             nprobe, scales)
-    out_p = serve_topk_ref(qr, qn, vectors, valid, labels, embs, live, k,
+    out_p = serve_topk_ref(qr, qn, vectors, valid, labels, embs, ids, k,
                            nprobe, scales)
     torch.cuda.synchronize()
-    hold_answers(qr, qn, vectors, valid, embs, live, scales, out_k, out_p, chk)
+    hold_answers(qr, qn, vectors, valid, embs, ids, scales, out_k, out_p, chk)
+    hold_serve_decode(ids, out_k, chk)
     return out_k
+
+
+def hold_serve_decode(ids, out, chk: Check, store_depth=None):
+    """The kernel's decoded answer (rows, doc ids, clusters) against
+    ``stages.decode_rerank`` over its own (scores, pos, routes), bit for
+    bit: integers, so no tolerance."""
+    scores, pos, routes, *dec = out
+    want = stages.decode_rerank(ids, routes, scores, pos, ids.shape[1], routes.shape[1],
+                                store_depth=store_depth)[1:]
+    for name, a, b in zip(("rows", "doc_ids", "clusters"), dec, want):
+        if not torch.equal(a, b):
+            chk.fail.append(f"decoded {name} differ from decode_rerank's at "
+                            f"{int((a != b).sum())} picks")
 
 
 def hold_routes(qr, vectors, valid, r_k, r_p, chk: Check) -> torch.Tensor:
@@ -1008,14 +1026,14 @@ def hold_routes(qr, vectors, valid, r_k, r_p, chk: Check) -> torch.Tensor:
     return route_diff
 
 
-def hold_answers(qr, qn, vectors, valid, embs, live, scales, got, want, chk: Check):
-    """Two-stage answers ``got`` = (scores, pos, routes) against ``want``
-    on the same index and rings, under the near-tie rule."""
-    (s_k, p_k, r_k), (s_p, p_p, r_p) = got, want
+def hold_answers(qr, qn, vectors, valid, embs, ids, scales, got, want, chk: Check):
+    """Two-stage answers ``got`` = (scores, pos, routes, ...) against
+    ``want`` on the same index and rings, under the near-tie rule."""
+    (s_k, p_k, r_k), (s_p, p_p, r_p) = got[:3], want[:3]
     same = ~hold_routes(qr, vectors, valid, r_k, r_p, chk)
     # positions: where routes agree, the pick must score (under the plain
     # scoring of that ring entry) within TIE of the reference's pick
-    entry = entry_scores(qn, embs, live, scales, r_k, p_k)
+    entry = entry_scores(qn, embs, ids, scales, r_k, p_k)
     chk.floats("scores", s_k[same], s_p[same])
     chk.floats("scores vs entries", s_k[same], entry[same])
     chk.decisions("pos", (p_k != p_p) & same[:, None], (entry - s_p).abs() < TIE)
@@ -1036,6 +1054,9 @@ def check_serve_routes(qr, vectors, valid, labels, fused_routes, nprobe, chk: Ch
 
 
 def synthetic_store(C, depth, d, int8, gen, fill=0.6):
+    """(embs, ids, scales): unit rows in int8 or fp32, and ring doc ids,
+    -1 (an empty slot) on a share 1 - ``fill`` of the slots and on every
+    slot of about 5% of the rings."""
     dev = "cuda"
     rows = l2_normalize(torch.randn((C * depth, d), generator=gen, device=dev))
     if int8:
@@ -1045,15 +1066,16 @@ def synthetic_store(C, depth, d, int8, gen, fill=0.6):
         embs, scales = rows.view(C, depth, d), None
     live = torch.rand((C, depth), generator=gen, device=dev) < fill
     live[torch.rand((C,), generator=gen, device=dev) < 0.05] = False  # empty rings
-    return embs, live, scales
+    ids = torch.arange(C * depth, dtype=torch.int32, device=dev).view(C, depth)
+    return embs, torch.where(live, 7 + 3 * ids, -1), scales
 
 
 # ------------------------------------------------------------------ rerank
-def check_rerank(q, embs, live, routes, k, scales, chk: Check):
-    s_k, p_k = rerank_topk_cuda(q, embs, live, routes, k, scales)
-    s_p, p_p = rerank_topk_ref(q, embs, live, routes, k, scales)
+def check_rerank(q, embs, ids, routes, k, scales, chk: Check):
+    s_k, p_k = rerank_topk_cuda(q, embs, ids, routes, k, scales)
+    s_p, p_p = rerank_topk_ref(q, embs, ids, routes, k, scales)
     torch.cuda.synchronize()
-    got = entry_scores(q, embs, live, scales, routes, p_k)
+    got = entry_scores(q, embs, ids, scales, routes, p_k)
     chk.floats("scores", s_k, s_p)
     chk.floats("scores vs entries", s_k, got)
     chk.decisions("pos", p_k != p_p, (got - s_p).abs() < TIE)
@@ -1099,22 +1121,22 @@ def check_stage_kernels(results, x, st, alpha, q, vectors, valid, labels, gen):
     routes[:8, 1] = routes[:8, 0]
     routes[9] = -1
     chk = Check("rerank")
-    embs, live_r, scales = synthetic_store(K, 64, d, True, gen)
-    check_rerank(q, embs, live_r, routes, TOPK, scales, chk)
-    check_rerank(q, embs[:, :32], live_r[:, :32], routes, TOPK, scales[:, :32], chk)
-    ms, host = cuda_ms(lambda: rerank_topk_cuda(q, embs, live_r, routes, TOPK, scales))
-    plain, _ = cuda_ms(lambda: rerank_topk_ref(q, embs, live_r, routes, TOPK, scales),
+    embs, ids_r, scales = synthetic_store(K, 64, d, True, gen)
+    check_rerank(q, embs, ids_r, routes, TOPK, scales, chk)
+    check_rerank(q, embs[:, :32], ids_r[:, :32], routes, TOPK, scales[:, :32], chk)
+    ms, host = cuda_ms(lambda: rerank_topk_cuda(q, embs, ids_r, routes, TOPK, scales))
+    plain, _ = cuda_ms(lambda: rerank_topk_ref(q, embs, ids_r, routes, TOPK, scales),
                        iters=5)
     want = cost.rerank(QUERIES, d, routes.shape[1], 64, TOPK, 1, True, cost.distinct(routes))
     b_ms, b_by = cost.bound(want)
     profile_entry("rerank", "rerank", lambda: rerank_ops.rerank_topk(
-        q, embs, live_r, routes, TOPK, scales=scales), want)
-    del embs, live_r, scales
-    e32, l32, _ = synthetic_store(K, 16, d, False, gen)
-    _, p32 = check_rerank(q, e32, l32, routes, 100, None, chk)
+        q, embs, ids_r, routes, TOPK, scales=scales), want)
+    del embs, ids_r, scales
+    e32, ids32, _ = synthetic_store(K, 16, d, False, gen)
+    _, p32 = check_rerank(q, e32, ids32, routes, 100, None, chk)
     short = int((p32 < 0).any(dim=1).sum())
     assert short > 0, "k = 100 must exceed some query's live candidates"
-    del e32, l32
+    del e32, ids32
     chk.done(f"int8 d64 + view d32 + fp32 d16 k100 ({short} q k>live)")
     results["rerank"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                              bound_by=b_by, library_ms=None, host_ms=host)
@@ -1602,11 +1624,11 @@ def phase_kernels(results: dict):
     labels = torch.randperm(K, generator=gen, device="cuda").to(torch.int32)
     labels[torch.rand((K,), generator=gen, device="cuda") < 0.1] = -1
     chk = Check("serve")
-    embs, live_r, scales = synthetic_store(K, 64, d, True, gen)
-    out = check_serve(q, q, vectors, valid, labels, embs, live_r, scales, TOPK,
+    embs, ids_r, scales = synthetic_store(K, 64, d, True, gen)
+    out = check_serve(q, q, vectors, valid, labels, embs, ids_r, scales, TOPK,
                       NPROBE, chk)
     dead = int((out[2] < 0).any(dim=1).sum())
-    check_serve(q, q, vectors, valid, labels, embs[:, :32], live_r[:, :32],
+    check_serve(q, q, vectors, valid, labels, embs[:, :32], ids_r[:, :32],
                 scales[:, :32], TOPK, NPROBE, chk)
     chk_r = Check("serve_route")
     check_serve_routes(q, vectors, valid, labels, out[2], NPROBE, chk_r)
@@ -1621,23 +1643,23 @@ def phase_kernels(results: dict):
                                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
                                   host_ms=host_r)
     ms, host = cuda_ms(lambda: serve_topk_cuda(q, q, vectors, valid, labels, embs,
-                                               live_r, TOPK, NPROBE, scales))
+                                               ids_r, TOPK, NPROBE, scales))
     plain, _ = cuda_ms(lambda: serve_topk_ref(q, q, vectors, valid, labels, embs,
-                                              live_r, TOPK, NPROBE, scales), iters=5)
+                                              ids_r, TOPK, NPROBE, scales), iters=5)
     want = cost.serve(QUERIES, d, K, 64, NPROBE, TOPK, 1, True, cost.distinct(out[2]))
     b_ms, b_by = cost.bound(want)
     profile_entry("serve", "serve", lambda: serve_ops.serve_topk(
-        q, q, vectors, valid, labels, embs, live_r, TOPK, NPROBE, scales=scales), want)
+        q, q, vectors, valid, labels, embs, ids_r, TOPK, NPROBE, scales=scales), want)
     print(f"  serve launches apart at Q={QUERIES} vs {K} x {d}, int8 depth 64: "
-          f"{serve_split(q, q, vectors, valid, labels, embs, live_r, scales, TOPK, NPROBE)}")
-    del embs, live_r, scales
+          f"{serve_split(q, q, vectors, valid, labels, embs, ids_r, scales, TOPK, NPROBE)}")
+    del embs, ids_r, scales
     cfg32 = full_config("fp32", 16)
     K32 = cfg32.clus.num_clusters
-    e32, l32, _ = synthetic_store(K32, 16, d, False, gen)
+    e32, ids32, _ = synthetic_store(K32, 16, d, False, gen)
     lab32 = torch.randperm(K32, generator=gen, device="cuda")[:K].to(torch.int32)
     lab32[labels < 0] = -1
-    check_serve(q, q, vectors, valid, lab32, e32, l32, None, TOPK, NPROBE, chk)
-    del e32, l32
+    check_serve(q, q, vectors, valid, lab32, e32, ids32, None, TOPK, NPROBE, chk)
+    del e32, ids32
     chk.done(f"int8 d64 + view d32 + fp32 d16, {dead} q w/ dead routes")
     results["serve"] = dict(max_abs_err=chk.err, ms=ms, plain_ms=plain,
                             bound_ms=b_ms, bound_by=b_by, library_ms=None, host_ms=host)
@@ -1664,11 +1686,9 @@ def compare_with_plain(engine, q, two_stage, nprobe=NPROBE):
     qn = l2_normalize(q)
     if two_stage:
         scales = st.store.scales if st.store.embs.dtype == torch.int8 else None
-        s_p, pos, routes = serve_topk_ref(qn, qn, st.index.vectors, st.index.valid,
-                                          st.route_labels, st.store.embs,
-                                          st.store.ids >= 0, TOPK, nprobe, scales)
-        i_p = stages.decode_rerank(st.store.ids, routes, s_p, pos,
-                                   cfg.store_depth, nprobe)[2]
+        s_p, i_p = serve_topk_ref(qn, qn, st.index.vectors, st.index.valid,
+                                  st.route_labels, st.store.embs, st.store.ids, TOPK,
+                                  nprobe, scales)[::4]
     else:
         s_p, rows = mips_topk_ref(qn, st.index.vectors, st.index.valid, TOPK)
         i_p = st.index.ids[rows.long()]
@@ -1977,8 +1997,9 @@ def phase_staged(stream, warm, batches, results):
                                       snap.store, q, TOPK, NPROBE)
         qn = l2_normalize(q)
         hold_answers(qn, qn, snap.index.vectors, snap.index.valid, snap.store.embs,
-                     snap.store.ids >= 0, snap.store.scales, (scores, pos, routes),
+                     snap.store.ids, snap.store.scales, (scores, pos, routes),
                      fused_out, chk)
+        hold_serve_decode(snap.store.ids, fused_out, chk)
     chk.done(f"{batches_held} batches ({rows_held} rows), {STAGED_FLUSHES} flushes")
 
     steady, hh = np.median(ingest_ms[1:]), np.median(hh_ms[1:])
@@ -2290,11 +2311,11 @@ def phase_main_1gb(results):
     chk = Check("serve@1GB")
     scales = st.store.scales if st.store.embs.dtype == torch.int8 else None
     check_serve(qn, qn, st.index.vectors, st.index.valid, st.route_labels, st.store.embs,
-                st.store.ids >= 0, scales, TOPK, NPROBE, chk)
+                st.store.ids, scales, TOPK, NPROBE, chk)
     chk.done(f"cap {st.index.vectors.shape[0]}, int8 depth {cfg.store_depth}")
     m_ms = cuda_ms(lambda: mips_topk_cuda(qn, st.index.vectors, st.index.valid, TOPK))[0]
     s_ms = cuda_ms(lambda: serve_topk_cuda(qn, qn, st.index.vectors, st.index.valid,
-                                           st.route_labels, st.store.embs, st.store.ids >= 0,
+                                           st.route_labels, st.store.embs, st.store.ids,
                                            TOPK, NPROBE, scales))[0]
     a_ms = cuda_ms(lambda: admit_cuda(x, st.pre.basis, st.clus.centroids, cfg.pre.alpha, live,
                                       store_dtype="int8"))[0]
@@ -2322,14 +2343,14 @@ def large_serve_inputs(cap: int, gen):
                            dtype=torch.int32)
     labels[torch.rand((cap,), generator=gen, device="cuda") < 0.1] = -1
     q = l2_normalize(torch.randn((QUERIES, d), generator=gen, device="cuda"))
-    embs, live, scales = synthetic_store(LARGE_SERVE_CLUSTERS, 64, d, True, gen)
-    return q, v, valid, labels, embs, live, scales
+    embs, ids, scales = synthetic_store(LARGE_SERVE_CLUSTERS, 64, d, True, gen)
+    return q, v, valid, labels, embs, ids, scales
 
 
-def hold_serve_pair(q, v, valid, labels, embs, live, scales, nprobe, chk: Check):
+def hold_serve_pair(q, v, valid, labels, embs, ids, scales, nprobe, chk: Check):
     """Serve against its plain version and the route-only entry against
     serve's routes (bit for bit) and its own plain version."""
-    _, _, routes = check_serve(q, q, v, valid, labels, embs, live, scales, TOPK, nprobe, chk)
+    routes = check_serve(q, q, v, valid, labels, embs, ids, scales, TOPK, nprobe, chk)[2]
     check_serve_routes(q, v, valid, labels, routes, nprobe, chk)
 
 
@@ -2410,15 +2431,14 @@ def phase_main_4gb(results):
     check_mips(qn, st.index.vectors, st.index.valid, NPROBE_TABLES, chk)
     chk.done(f"{QUERIES} x {st.index.vectors.shape[0]}, k {TOPK} and {NPROBE_TABLES}")
     scales = st.store.scales if st.store.embs.dtype == torch.int8 else None
-    ring_live = st.store.ids >= 0
     chk = Check("serve@4GB")
     for nprobe in (NPROBE_TABLES, NPROBE):
         hold_serve_pair(qn, st.index.vectors, st.index.valid, st.route_labels, st.store.embs,
-                        ring_live, scales, nprobe, chk)
+                        st.store.ids, scales, nprobe, chk)
     chk.done(f"cap {st.index.vectors.shape[0]}, nprobe {NPROBE_TABLES} and {NPROBE}, "
              f"route-only == fused")
     args = (qn, qn, st.index.vectors, st.index.valid, st.route_labels, st.store.embs,
-            ring_live)
+            st.store.ids)
     s_ms, s_host = cuda_ms(lambda: serve_topk_cuda(*args, TOPK, NPROBE_TABLES, scales))
     r_ms = cuda_ms(lambda: serve_routes_cuda(qn, st.index.vectors, st.index.valid,
                                              st.route_labels, NPROBE_TABLES))[0]
@@ -2698,10 +2718,9 @@ def check_tier_serves(cfg, calls, chk: Check) -> int:
     for snap, labels, tier, q, k, nprobe, depth in calls:
         qn = l2_normalize_queries(q)
         scales = tier.scales if tier.embs.dtype == torch.int8 else None
-        embs, live, scales = stages.slice_rings(tier.embs, docstore.live_mask(tier),
-                                                scales, depth)
+        embs, ids, scales = stages.slice_rings(tier.embs, tier.ids, scales, depth)
         check_serve(qn if cfg.index.normalize else q, qn, snap.index.vectors,
-                    snap.index.valid, labels, embs, live, scales, k, nprobe, chk)
+                    snap.index.valid, labels, embs, ids, scales, k, nprobe, chk)
         n += q.shape[0]
     return n
 
@@ -3333,12 +3352,9 @@ def plain_method_answer(name: str, cfg, st, q):
     qn = l2_normalize_queries(q)
     if name == "streaming_rag_2stage":
         scales = st.store.scales if st.store.embs.dtype == torch.int8 else None
-        s_p, pos, routes = serve_topk_ref(qn, qn, st.index.vectors, st.index.valid,
-                                          st.route_labels, st.store.embs,
-                                          docstore.live_mask(st.store), TOPK, CMP_NPROBE,
-                                          scales)
-        return stages.decode_rerank(st.store.ids, routes, s_p, pos, cfg.store_depth,
-                                    CMP_NPROBE)[:3]
+        out = serve_topk_ref(qn, qn, st.index.vectors, st.index.valid, st.route_labels,
+                             st.store.embs, st.store.ids, TOPK, CMP_NPROBE, scales)
+        return out[0], out[3], out[4]
     s_p, rows = mips_topk_ref(qn, st.index.vectors, st.index.valid, TOPK)
     return s_p, rows, st.index.ids[rows.long()]
 

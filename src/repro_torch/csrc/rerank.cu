@@ -8,13 +8,13 @@
 // clamped to the store's last cluster as the plain version clamps it),
 // every slot s of ring routes[i, j] scores (q_i . e) * scale in fp32 (the
 // dot first, then the int8 slot's scale; fp32 rings carry none); a dead
-// slot or a -1 route scores NEG_INF. The top-k over the nprobe * depth
-// candidates (larger first, lowest position on ties) comes back as
-// (score, pos = j * depth + s), pos -1 where the pick is dead. Duplicate
+// slot (document id -1) or a -1 route scores NEG_INF. The top-k over the
+// nprobe * depth candidates (larger first, lowest position on ties) comes
+// back as (score, pos = j * depth + s), pos -1 where the pick is dead. Duplicate
 // routes are not merged: a ring routed twice is scored at both j. k may
 // exceed one ring's depth and the live count (k <= nprobe * depth); the
 // tail is (NEG_INF, -1). The rings may be a depth-clipped strided view
-// embs[:, :depth] (live and scales likewise): they are read through their
+// embs[:, :depth] (ids and scales likewise): they are read through their
 // strides, the store is never copied, and pos is encoded with the clipped
 // depth.
 //
@@ -25,7 +25,7 @@
 // the same function.
 //
 // Bound on this card: bytes. A call reads the queries and each distinct
-// routed ring once (depth * d bytes per int8 ring plus its live flags and
+// routed ring once (depth * d bytes per int8 ring plus its ids and
 // scales: about 25 KB at depth 64, d 384), and does 2 * Q * nprobe *
 // depth * d fp32 operations, which take less time at 67 TFLOP/s. Design:
 // the scoring and the top-k are rings.cuh's (shared with serve.cu, so the
@@ -58,8 +58,12 @@ __global__ void __launch_bounds__(kRingThreads)
     sroutes[p] = r < 0 ? -1 : min(r, C - 1);
   }
   __syncthreads();
-  ring_topk(ring_smem_raw, L, sq, d, G, sroutes, nprobe, rv, k, out_scores + (size_t)qi * k,
-            out_pos + (size_t)qi * k);
+  float* srow = out_scores + (size_t)qi * k;
+  int* prow = out_pos + (size_t)qi * k;
+  ring_topk(ring_smem_raw, L, sq, d, G, sroutes, nprobe, rv, k, [&](int t, key64 key) {
+    srow[t] = key_score(key);
+    prow[t] = pick_pos(key);
+  });
 }
 
 }  // namespace
@@ -71,12 +75,12 @@ extern "C" long long rerank_smem_bytes(int d, int nprobe, int depth, int k, int 
 // cs in {1, 2, 4, 8}: blocks per query.
 extern "C" int rerank_launch(const float* q, int Q, int d, const int* routes, int nprobe,
                              int C, const void* embs, int depth, long long es0,
-                             long long es1, const unsigned char* live, long long ls0,
-                             long long ls1, const float* scales, long long ss0,
+                             long long es1, const int* ids, long long is0,
+                             long long is1, const float* scales, long long ss0,
                              long long ss1, int quantized, int k, int cs, float* out_scores,
                              int* out_pos, void* stream) {
   if (cs < 1 || cs > kMaxCluster) return (int)cudaErrorInvalidValue;
-  const RingView rv{embs, es0, es1, live, ls0, ls1, scales, ss0, ss1, quantized, depth};
+  const RingView rv{embs, es0, es1, ids, is0, is1, scales, ss0, ss1, quantized, depth};
   const size_t smem = ring_smem(d, nprobe, depth, k, cs, 0).bytes;
   cudaError_t err = launch_ring(rerank_kernel, Q, cs, smem, (cudaStream_t)stream, q, d,
                                 ring_lanes(d, quantized, embs, es0, es1), routes, nprobe, C,

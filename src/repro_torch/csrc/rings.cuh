@@ -7,6 +7,8 @@
 // Candidate c = p * depth + s is slot s of the query's p-th route; a ring
 // is read by pointer arithmetic over the given element strides, so a
 // depth-clipped view embs[:, :depth] is read in place and never copied.
+// A slot is live where its document id is >= 0 (the store's own rule,
+// docstore.live_mask): the kernels read the ids view, so no mask is built.
 //
 // A query's nprobe * depth candidates are split over a cluster of CS
 // blocks of 256 threads (CS = 1, 2, 4 or 8, chosen by the wrapper so that
@@ -22,7 +24,7 @@
 // - scalar path otherwise: a warp per row, lanes strided along d, 4-byte
 //   or 1-byte loads, one warp sum.
 // A score is (q . e) * scale in fp32 (the dot first, then the int8 slot's
-// scale; fp32 rings carry none), NEG_INF where the slot is dead or the
+// scale; fp32 rings carry none), NEG_INF where the slot's id is -1 or the
 // route is -1, turned into keys.cuh's composite key (ordered score bits,
 // then 0xFFFFFFFF - c): one unsigned order that is "larger score, then
 // lower position", with no two keys equal.
@@ -30,7 +32,8 @@
 // block's keys by k rounds of a warp max (no barrier), then every one of
 // those warps' keys is ranked against the others (block_topk_keys). In a
 // cluster, each block sends its k keys into the leader's shared memory
-// (distributed shared memory), and the leader ranks the CS lists.
+// (distributed shared memory), and the leader ranks the CS lists and
+// hands each of the k picks to the caller's epilogue (ring_topk's emit).
 //
 // Bound on this card: bytes, each distinct routed ring read once (25 KB an
 // int8 ring of depth 64 at d = 384; up to 12.6 MB, 3.8 us, when 64
@@ -52,12 +55,13 @@ constexpr int kInt8RowsInFlight = 4;
 constexpr int kMaxCluster = 8;     // the portable cluster size
 
 // The ring tensors [C, depth, d] (int8 with scales, or fp32) as element
-// pointers and strides; live and scales are [C, depth].
+// pointers and strides; ids (int32 document ids, -1 = empty slot) and
+// scales are [C, depth].
 struct RingView {
   const void* embs;
   long long es0, es1;
-  const unsigned char* live;
-  long long ls0, ls1;
+  const int* ids;
+  long long is0, is1;
   const float* scales;
   long long ss0, ss1;
   int quantized, depth;
@@ -181,7 +185,7 @@ __device__ void score_rows_vec(const float* sq, int d, int G, const int* sroutes
         raw[u][j] = (route >= 0 && ch < chunks) ? __ldg((const uint4*)(row + ch * W))
                                                 : make_uint4(0u, 0u, 0u, 0u);
       }
-      ok[u] = route >= 0 && rv.live[route * rv.ls0 + s * rv.ls1];
+      ok[u] = route >= 0 && rv.ids[route * rv.is0 + s * rv.is1] >= 0;
       scale[u] = (route >= 0 && rv.quantized) ? rv.scales[route * rv.ss0 + s * rv.ss1] : 1.f;
     }
 #pragma unroll
@@ -211,7 +215,7 @@ __device__ void score_rows_scalar(const float* sq, int d, const int* sroutes,
     }
     acc = warp_sum(acc);
     if (lane == 0) {
-      const bool ok = route >= 0 && rv.live[route * rv.ls0 + s * rv.ls1];
+      const bool ok = route >= 0 && rv.ids[route * rv.is0 + s * rv.is1] >= 0;
       const float scale = (ok && rv.quantized) ? rv.scales[route * rv.ss0 + s * rv.ss1] : 1.f;
       cand[c] = entry_key(acc, ok, scale, rv.quantized, c0 + c);
     }
@@ -275,14 +279,21 @@ __device__ __forceinline__ void ring_cluster_start(unsigned char* smem, const Ri
   asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
+// A pick's position: its candidate, -1 where its score is dead.
+__device__ __forceinline__ int pick_pos(key64 key) {
+  return key_score(key) > REPRO_NEG_INF / 2 ? key_row(key) : -1;
+}
+
 // One query's top-k over its routed rings (sroutes [nprobe] and the query
 // sq [d] in shared memory, visible to every thread): this block's share of
 // the candidates is scored and cut to its k best; in a cluster the leader
-// merges the blocks' lists. The leader (or the lone block) writes (score,
-// pos) rows of k, pos -1 where the pick is dead. k <= nprobe * depth.
+// merges the blocks' lists. The leader (or the lone block) calls emit(t,
+// key) for the t-th pick, t < k (key_score and pick_pos read it), where
+// sroutes is its own. k <= nprobe * depth.
+template <typename Emit>
 __device__ void ring_topk(unsigned char* smem, const RingSmem& L, const float* sq, int d,
                           int G, const int* sroutes, int nprobe, const RingView& rv, int k,
-                          float* out_scores, int* out_pos) {
+                          Emit emit) {
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int ncand = nprobe * rv.depth;
@@ -297,13 +308,8 @@ __device__ void ring_topk(unsigned char* smem, const RingSmem& L, const float* s
     rv.quantized ? score_rows_vec<signed char>(sq, d, G, sroutes, rv, c0, n, cand)
                  : score_rows_vec<float>(sq, d, G, sroutes, rv, c0, n, cand);
   __syncthreads();
-  auto write = [&](int t, key64 key) {
-    const float v = key_score(key);
-    out_scores[t] = v;
-    out_pos[t] = v > REPRO_NEG_INF / 2 ? key_row(key) : -1;
-  };
   if (cs == 1) {
-    block_topk_keys(cand, n, k, lst, write);
+    block_topk_keys(cand, n, k, lst, emit);
     return;
   }
   const int kl = imin(k, ring_share(ncand, cs));
@@ -311,7 +317,7 @@ __device__ void ring_topk(unsigned char* smem, const RingSmem& L, const float* s
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");  // all blocks started
   block_topk_keys(cand, n, k, lst, [&](int t, key64 key) { dst[t] = key; });
   cluster.sync();  // every list is in the leader's shared memory
-  if (rank == 0) rank_emit_nonzero((const key64*)(smem + L.gather), cs * kl, k, write);
+  if (rank == 0) rank_emit_nonzero((const key64*)(smem + L.gather), cs * kl, k, emit);
 }
 
 // Waits until the kernel before this one on the stream has finished and its

@@ -23,11 +23,16 @@
 // (16-byte loads, a lane group a row, the query in registers; a
 // depth-clipped view embs[:, :depth] is read in place, never copied) and
 // the leader merges the blocks' top-k keys from distributed shared memory;
-// pos = j * depth + slot, -1 where dead. The scoring and the top-k are
-// rings.cuh's, shared with the rerank kernel. The second launch is a
-// programmatic dependent launch: the route tiles let it start at their
-// epilogue, and it reads the queries and their keys only after
-// griddepcontrol.wait.
+// pos = j * depth + slot, -1 where dead. A slot is live where its document
+// id (the ring ids view, read through its strides) is >= 0. The scoring and
+// the top-k are rings.cuh's, shared with the rerank kernel. The leader's
+// epilogue decodes each pick while the routes are in its shared memory:
+// cluster = sroutes[j], doc_id = ids[cluster, slot], row = cluster *
+// store_depth + slot (store_depth the full ring depth, whatever view is
+// served), -1 where dead; so the call returns the answer, and no torch op
+// runs after it. The second launch is a programmatic dependent launch: the
+// route tiles let it start at their epilogue, and it reads the queries and
+// their keys only after griddepcontrol.wait.
 //
 // (1b) route_merge_kernel, only where a query has more route keys than its
 // selection ranks (past 16,384, or past what fits one block's shared
@@ -253,9 +258,11 @@ cudaError_t launch_route_tiles(const float* qr, int Q, int d, const float* vecto
 __global__ void __launch_bounds__(kRingThreads)
     serve_rerank_kernel(const float* __restrict__ qn, int d, int G,
                         const key64* __restrict__ part, int m,
-                        const int* __restrict__ route_labels, RingView rv, int k, int nprobe,
-                        float* __restrict__ out_scores, int* __restrict__ out_pos,
-                        int* __restrict__ out_routes) {
+                        const int* __restrict__ route_labels, RingView rv, int store_depth,
+                        int k, int nprobe, float* __restrict__ out_scores,
+                        int* __restrict__ out_pos, int* __restrict__ out_routes,
+                        int* __restrict__ out_rows, int* __restrict__ out_doc_ids,
+                        int* __restrict__ out_clusters) {
   extern __shared__ __align__(16) unsigned char ring_smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks();
@@ -282,9 +289,23 @@ __global__ void __launch_bounds__(kRingThreads)
     if (leader) orow[p] = route;
   });
 
-  // ---- gather + score the routed rings, then the top-k
-  ring_topk(ring_smem_raw, L, sq, d, G, sroutes, nprobe, rv, k, out_scores + (size_t)qi * k,
-            out_pos + (size_t)qi * k);
+  // ---- gather + score the routed rings, then the top-k, decoded
+  const size_t o = (size_t)qi * k;
+  ring_topk(ring_smem_raw, L, sq, d, G, sroutes, nprobe, rv, k, [&](int t, key64 key) {
+    const int p = pick_pos(key);
+    int cl = -1, doc = -1, row = -1;
+    if (p >= 0) {  // a live pick's route is live
+      const int j = p / rv.depth, slot = p - j * rv.depth;
+      cl = sroutes[j];
+      doc = rv.ids[cl * rv.is0 + slot * rv.is1];
+      row = (int)((long long)cl * store_depth + slot);
+    }
+    out_scores[o + t] = key_score(key);
+    out_pos[o + t] = p;
+    out_rows[o + t] = row;
+    out_doc_ids[o + t] = doc;
+    out_clusters[o + t] = cl;
+  });
 }
 
 // out_routes [Q, nprobe]: the top-nprobe of each query's route keys (part
@@ -430,17 +451,19 @@ extern "C" long long serve_smem_bytes(int d, int m, int nprobe, int depth, int k
 // rm in {8, 4, 2} (route tile rows / 8), cs in {1, 2, 4, 8}; part [Q, m]
 // keys with m = ceil(cap / 64) * min(nprobe, 64); msel the keys a query has
 // after the merge passes (m where there are none), part2 [Q, the first
-// pass's keys] (null without passes). phases: 1 = route tiles, 4 = the
-// merge passes, 2 = rerank, 7 = all.
+// pass's keys] (null without passes); ids [C, depth] (strides is0, is1);
+// store_depth the depth rows are encoded with; out_scores, out_pos,
+// out_rows, out_doc_ids, out_clusters [Q, k] and out_routes [Q, nprobe].
+// phases: 1 = route tiles, 4 = the merge passes, 2 = rerank, 7 = all.
 extern "C" int serve_launch(const float* qr, const float* qn, int Q, int d,
                             const float* vectors, int cap, const unsigned char* valid,
                             const int* route_labels, const void* embs, int depth,
-                            long long es0, long long es1, const unsigned char* live,
-                            long long ls0, long long ls1, const float* scales,
-                            long long ss0, long long ss1, int quantized, int k,
+                            long long es0, long long es1, const int* ids, long long is0,
+                            long long is1, const float* scales, long long ss0,
+                            long long ss1, int quantized, int store_depth, int k,
                             int nprobe, int rm, int cs, int msel, void* part, void* part2,
-                            float* out_scores, int* out_pos, int* out_routes, int phases,
-                            void* stream) {
+                            float* out_scores, int* out_pos, int* out_routes, int* out_rows,
+                            int* out_doc_ids, int* out_clusters, int phases, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int kt = imin(nprobe, kTileCols), ntiles = (cap + kTileCols - 1) / kTileCols;
   if (cs < 1 || cs > kMaxCluster) return (int)cudaErrorInvalidValue;
@@ -454,11 +477,12 @@ extern "C" int serve_launch(const float* qr, const float* qn, int Q, int d,
                    st);
   if (err != cudaSuccess) return (int)err;
   if (phases & 2) {
-    const RingView rv{embs, es0, es1, live, ls0, ls1, scales, ss0, ss1, quantized, depth};
+    const RingView rv{embs, es0, es1, ids, is0, is1, scales, ss0, ss1, quantized, depth};
     const size_t smem = ring_smem(d, nprobe, depth, k, cs, msel).bytes;
     err = launch_ring(serve_rerank_kernel, Q, cs, smem, st, qn, d,
                       ring_lanes(d, quantized, embs, es0, es1), sel, msel, route_labels, rv,
-                      k, nprobe, out_scores, out_pos, out_routes);
+                      store_depth, k, nprobe, out_scores, out_pos, out_routes, out_rows,
+                      out_doc_ids, out_clusters);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();

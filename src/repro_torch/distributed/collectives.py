@@ -119,15 +119,12 @@ def localize(labels: torch.Tensor, off: int, kl: int) -> torch.Tensor:
 
 
 def _ring_inputs(store, depth: int | None):
-    """(embs, live, ids, scales) of one store shard, clipped to a plan's
-    rerank ``depth`` as views."""
+    """(embs, ids, scales) of one store shard, clipped to a plan's rerank
+    ``depth`` as views (a slot is live where its id is >= 0)."""
     from repro_torch.engine.stages import slice_rings
-    from repro_torch.store import docstore
 
     scales = store.scales if store.embs.dtype == torch.int8 else None
-    embs, live, scales = slice_rings(store.embs, docstore.live_mask(store),
-                                     scales, depth)
-    return embs, live, store.ids, scales
+    return slice_rings(store.embs, store.ids, scales, depth)
 
 
 def distributed_rerank_topk(qn: torch.Tensor, stores: list, routes: torch.Tensor,
@@ -145,10 +142,10 @@ def distributed_rerank_topk(qn: torch.Tensor, stores: list, routes: torch.Tensor
     P = routes.shape[1]
     parts = []
     for m, store in enumerate(stores):
-        embs, live, ids, scales = _ring_inputs(store, depth)
+        embs, ids, scales = _ring_inputs(store, depth)
         kl, dep = embs.shape[0], embs.shape[1]
         local = localize(routes.to(embs.device), m * kl, kl)
-        scores, pos = rerank_topk(qn.to(embs.device), embs, live, local, k,
+        scores, pos = rerank_topk(qn.to(embs.device), embs, ids, local, k,
                                   scales=scales)
         parts.append(_local_docs(scores, pos, local, ids, P, dep))
     return _merge_local_rerank(parts, k, qn.device)
@@ -210,13 +207,13 @@ def distributed_serve_topk(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Te
     dev = qn.device
     parts, routes = [], None
     for m, store in enumerate(stores):
-        embs, live, ids, scales = _ring_inputs(store, depth)
+        embs, ids, scales = _ring_inputs(store, depth)
         kl, dep = embs.shape[0], embs.shape[1]
         sd = embs.device
         labels = localize(route_labels.to(sd), m * kl, kl)
         scores, pos, local_rt = serve_topk(
             qr.to(sd), qn.to(sd), vectors.to(sd), valid.to(sd), labels, embs,
-            live, k, nprobe, scales=scales)
+            ids, k, nprobe, scales=scales)[:3]
         glob = torch.where(local_rt >= 0, local_rt + m * kl, -1).to(dev)
         routes = glob if routes is None else torch.maximum(routes, glob)
         parts.append(_local_docs(scores, pos, local_rt, ids, nprobe, dep))

@@ -170,12 +170,13 @@ def snapshot_query_impl(cfg: "pipeline.PipelineConfig", index, route_labels,
 def routed_query(cfg: "pipeline.PipelineConfig", index, route_labels, store,
                  q: torch.Tensor, k: int, nprobe: int,
                  depth: int | None = None):
-    """The two-stage query (the ``serve`` kernel, then the decode) over
-    any ring source addressed by ``route_labels``: the store, or a hot
-    tier with its remapped labels. Returns (scores, rows, doc_ids,
+    """The two-stage query (the ``serve`` kernel, which decodes its own
+    answer) over any ring source addressed by ``route_labels``: the store,
+    or a hot tier with its remapped labels. Returns (scores, rows, doc_ids,
     clusters, routes [Q, nprobe]) — the routes the answer was served
-    through. Traced: ``engine.serve`` (the kernel's wrapper and launch),
-    then ``engine.decode`` (the decode's torch ops)."""
+    through. Traced: ``engine.serve`` (the normalization, the kernel's
+    wrapper and launches), then ``engine.decode`` (taking the answer out
+    of the call's outputs: no device work)."""
     store_depth = cfg.store_depth
     depth_eff = store_depth if depth is None else min(depth, store_depth)
     assert store_depth > 0, "two_stage requires store_depth > 0"
@@ -183,14 +184,12 @@ def routed_query(cfg: "pipeline.PipelineConfig", index, route_labels, store,
     tr = obs.tracer()
     with (tr.span("engine.serve", cat="engine") if tr is not None
           else NULL_SPAN):
-        scores, pos, routes = stages.serve_topk(cfg.index, index, route_labels,
-                                                store, q, k, nprobe,
-                                                depth=depth_eff)
+        out = stages.serve_topk(cfg.index, index, route_labels, store, q, k,
+                                nprobe, depth=depth_eff)
     with (tr.span("engine.decode", cat="engine") if tr is not None
           else NULL_SPAN):
-        return stages.decode_rerank(store.ids, routes, scores, pos,
-                                    depth_eff, nprobe,
-                                    store_depth=store_depth) + (routes,)
+        scores, _, routes, rows, doc_ids, clusters = out
+        return scores, rows, doc_ids, clusters, routes
 
 
 def query_impl(cfg: "pipeline.PipelineConfig", state: "pipeline.PipelineState",

@@ -16,11 +16,11 @@ Stage map (ingest):
 
 Stage map (two-stage query):
 
-    serve_topk (fused route + gather + dequant-rerank + top-k: the
-      │         ``serve`` kernel) ──► decode_rerank
+    serve_topk (fused route + gather + dequant-rerank + top-k + decode:
+      │         the ``serve`` kernel)
       └── staged: route (prototype index: the ``mips`` kernel) ──► rerank
-          (ring buffers: the ``rerank`` kernel) — the same routes/pos as
-          ``serve_topk``
+          (ring buffers: the ``rerank`` kernel) ──► decode_rerank — the
+          same routes/pos/answer as ``serve_topk``
 
 The staged forms are the decomposition the fused kernels are held
 against; an engine composes the fused ones. ``route_witnessed`` is
@@ -41,6 +41,7 @@ from repro_torch.kernels.common import (NEG_INF, host_to_device, l2_normalize,
 from repro_torch.kernels.rerank.ops import rerank_topk
 from repro_torch.kernels.serve.ops import serve_routes as serve_routes_op
 from repro_torch.kernels.serve.ops import serve_topk as serve_topk_op
+from repro_torch.kernels.serve.ref import decode_pos
 from repro_torch.store import docstore
 
 INT32_MIN = -(2**31)
@@ -265,42 +266,45 @@ def route_witnessed(index_cfg: index_lib.IndexConfig, index, route_labels,
                            nprobe).cpu().numpy()
 
 
-def slice_rings(embs, live, scales, depth: int | None):
-    """Clip ring buffers to a plan's rerank ``depth`` as views (the serve
-    kernel reads them through their strides; nothing is copied). None or
-    ``depth >= store depth`` passes the arrays through."""
+def slice_rings(embs, ids, scales, depth: int | None):
+    """Clip ring buffers (rows, ids, scales) to a plan's rerank ``depth``
+    as views (the kernels read them through their strides; nothing is
+    copied). None or ``depth >= store depth`` passes the arrays through."""
     if depth is None or depth >= embs.shape[1]:
-        return embs, live, scales
-    return (embs[:, :depth], live[:, :depth],
+        return embs, ids, scales
+    return (embs[:, :depth], ids[:, :depth],
             None if scales is None else scales[:, :depth])
 
 
 def rerank(store, qn: torch.Tensor, routes: torch.Tensor, k: int,
            depth: int | None = None):
     """Stage 2: exact rerank of the routed ring buffers (first ``depth``
-    slots; None = full) of unit queries ``qn``; int8 stores hand the
-    kernel their per-slot scales. Returns (scores [Q, k] desc, pos [Q, k]
-    = j*depth+slot into the route list, -1 for dead entries)."""
+    slots; None = full) of unit queries ``qn``, a slot live where its doc
+    id is >= 0; int8 stores hand the kernel their per-slot scales. Returns
+    (scores [Q, k] desc, pos [Q, k] = j*depth+slot into the route list, -1
+    for dead entries)."""
     scales = store.scales if store.embs.dtype == torch.int8 else None
-    embs, live, scales = slice_rings(store.embs, docstore.live_mask(store),
-                                     scales, depth)
-    return rerank_topk(qn, embs, live, routes, k, scales=scales)
+    embs, ids, scales = slice_rings(store.embs, store.ids, scales, depth)
+    return rerank_topk(qn, embs, ids, routes, k, scales=scales)
 
 
 def serve_topk(index_cfg: index_lib.IndexConfig, index, route_labels, store,
                q: torch.Tensor, k: int, nprobe: int, depth: int | None = None):
     """Stages 1+2 fused in the ``serve`` kernel: route each query through
     the prototype index to ``nprobe`` clusters, gather their rings (first
-    ``depth`` slots; None = full), dequant-rerank, top-``k``. Returns
-    (scores [Q, k] desc, pos [Q, k] = j*depth+slot, routes [Q, nprobe]),
-    -1 for dead entries."""
+    ``depth`` slots; None = full; a slot live where its doc id is >= 0),
+    dequant-rerank, top-``k``, decode. Returns (scores [Q, k] desc, pos
+    [Q, k] = j*depth+slot, routes [Q, nprobe], rows [Q, k] = cluster *
+    store depth + slot, doc_ids, clusters), -1 for dead entries: the
+    decode is ``decode_rerank``'s, done inside the serve call (on a card,
+    the kernel's epilogue)."""
     qn = l2_normalize_queries(q)
     qr = qn if index_cfg.normalize else q.to(torch.float32).contiguous()
     scales = store.scales if store.embs.dtype == torch.int8 else None
-    embs, live, scales = slice_rings(store.embs, docstore.live_mask(store),
-                                     scales, depth)
+    embs, ids, scales = slice_rings(store.embs, store.ids, scales, depth)
     return serve_topk_op(qr, qn, index.vectors, index.valid, route_labels,
-                         embs, live, k, nprobe, scales=scales)
+                         embs, ids, k, nprobe, scales=scales,
+                         store_depth=store.ids.shape[1])
 
 
 def gather_rings(store, clusters: torch.Tensor, valid: torch.Tensor):
@@ -312,8 +316,8 @@ def gather_rings(store, clusters: torch.Tensor, valid: torch.Tensor):
     be cluster-sharded (a tuple of shards, ``docstore.gather_rows``). The gathered
     rows are exact copies of the source rings (same dtype, same scales,
     same stamps), so a rerank over the tier is bit-identical to one over
-    the full store; padded rows get all-dead ids (-1), so ``live_mask``
-    kills them and they can never surface a document.
+    the full store; padded rows get all-dead ids (-1), so the kernels
+    read them as dead and they can never surface a document.
 
     Returns a ``DocStore`` of shape ``[H, depth, ...]`` addressed by tier
     slot — callers route into it with a remapped ``route_labels`` (true
@@ -328,18 +332,8 @@ def decode_rerank(store_ids, routes, scores, pos, depth: int, nprobe: int,
     rows are flat store positions cluster*store_depth + slot, -1 where
     dead. ``depth`` is the depth ``pos`` was encoded with. ``doc_ids``
     may come resolved (the sharded rerank reads them on the shard that
-    holds the ring); otherwise they are read from ``store_ids``."""
-    if store_depth is None:
-        store_depth = depth
-    dead = pos < 0
-    p = pos.to(torch.int64)
-    j = torch.clamp(torch.div(p, depth, rounding_mode="floor"), 0, nprobe - 1)
-    slot = torch.clamp(torch.remainder(p, depth), 0, depth - 1)
-    cluster = torch.gather(routes.to(torch.int64), 1, j)
-    cluster = torch.where(dead, -1, cluster)
-    cc = torch.clamp(cluster, min=0)
-    if doc_ids is None:
-        doc_ids = torch.where(dead, -1, store_ids[cc, slot])
-    rows = torch.where(dead, -1, cc * store_depth + slot)
-    return (scores, rows.to(torch.int32), doc_ids.to(torch.int32),
-            cluster.to(torch.int32))
+    holds the ring); otherwise they are read from ``store_ids``. The
+    staged and sharded paths' decode; the ``serve`` kernel returns the
+    same integers itself (``decode_pos``)."""
+    return (scores,) + decode_pos(store_ids, routes, pos, depth, nprobe,
+                                  store_depth, doc_ids)

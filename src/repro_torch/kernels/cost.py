@@ -80,9 +80,10 @@ def mips(Q: int, N: int, d: int, k: int) -> Work:
 def serve(Q: int, d: int, cap: int, depth: int, nprobe: int, k: int, itemsize: int,
           int8: bool, rings: int = 0) -> Work:
     """Bytes: both query sets, the index (rows, valid, labels), each of
-    the ``rings`` distinct routed rings once, the outputs."""
-    ring = depth * (d * itemsize + 1 + (4 if int8 else 0))
-    nbytes = 2 * Q * d * 4 + cap * (d * 4 + 5) + rings * ring + Q * (k * 8 + nprobe * 4)
+    the ``rings`` distinct routed rings once (rows, ids, int8 scales), the
+    outputs (scores, pos, rows, doc ids, clusters; routes)."""
+    ring = depth * (d * itemsize + 4 + (4 if int8 else 0))
+    nbytes = 2 * Q * d * 4 + cap * (d * 4 + 5) + rings * ring + Q * (k * 20 + nprobe * 4)
     return Work(2.0 * Q * (cap + nprobe * depth) * d, nbytes)
 
 
@@ -94,8 +95,8 @@ def serve_route(Q: int, d: int, cap: int, nprobe: int) -> Work:
 def rerank(Q: int, d: int, P: int, depth: int, k: int, itemsize: int, int8: bool,
            rings: int = 0) -> Work:
     """Bytes: queries, the [Q, P] routes, each of the ``rings`` distinct
-    routed rings once, the outputs."""
-    ring = depth * (d * itemsize + 1 + (4 if int8 else 0))
+    routed rings once (rows, ids, int8 scales), the outputs."""
+    ring = depth * (d * itemsize + 4 + (4 if int8 else 0))
     nbytes = Q * d * 4 + Q * P * 4 + rings * ring + Q * k * 8
     return Work(2.0 * Q * P * depth * d, nbytes)
 

@@ -62,12 +62,12 @@ def _fn():
     return lib, fn
 
 
-def rerank_topk_cuda(q: torch.Tensor, embs: torch.Tensor, live: torch.Tensor,
+def rerank_topk_cuda(q: torch.Tensor, embs: torch.Tensor, ids: torch.Tensor,
                      routes: torch.Tensor, k: int,
                      scales: torch.Tensor | None = None, *, cluster: int | None = None):
     """Same contract as ``ref.rerank_topk_ref``; all tensors on one CUDA
     device. q [Q, d] f32 and routes [Q, nprobe] i32 contiguous; embs
-    [C, depth, d] / live / scales [C, depth] may be strided along their
+    [C, depth, d] / ids / scales [C, depth] may be strided along their
     leading axes; their last axis must be dense. ``cluster`` (blocks per
     query) defaults to ``ring_cluster``'s pick; the card's tests pass it to
     hold every cluster size against the plain version."""
@@ -87,8 +87,8 @@ def rerank_topk_cuda(q: torch.Tensor, embs: torch.Tensor, live: torch.Tensor,
         raise ValueError("need routes [Q, nprobe] and 1 <= k <= nprobe*depth")
     if embs.shape[2] != d or embs.stride(2) != 1:
         raise ValueError("ring rows must be dense along d")
-    if live.dtype != torch.bool or live.shape != (C, depth):
-        raise TypeError("live must be a [C, depth] bool tensor")
+    if ids.dtype != torch.int32 or ids.shape != (C, depth):
+        raise TypeError("ids must be a [C, depth] int32 tensor")
     if scales is not None and (scales.dtype != torch.float32
                                or scales.shape != (C, depth)):
         raise TypeError("scales must be a [C, depth] float32 tensor")
@@ -106,8 +106,8 @@ def rerank_topk_cuda(q: torch.Tensor, embs: torch.Tensor, live: torch.Tensor,
                          f"{build.SMEM_PER_BLOCK} B a block has")
     ss0, ss1 = (scales.stride(0), scales.stride(1)) if quantized else (0, 0)
     err = fn(q.data_ptr(), Q, d, routes.data_ptr(), nprobe, C, embs.data_ptr(),
-             depth, embs.stride(0), embs.stride(1), live.data_ptr(),
-             live.stride(0), live.stride(1), build.ptr(scales), ss0, ss1,
+             depth, embs.stride(0), embs.stride(1), ids.data_ptr(),
+             ids.stride(0), ids.stride(1), build.ptr(scales), ss0, ss1,
              int(quantized), k, cs, scores.data_ptr(), pos.data_ptr(),
              build.stream_of(dev))
     build.check(lib, err, "rerank_launch")

@@ -12,27 +12,32 @@ from repro_torch.kernels.serve.ref import serve_routes_ref, serve_topk_ref
 
 def serve_topk(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
                valid: torch.Tensor, route_labels: torch.Tensor,
-               embs: torch.Tensor, live: torch.Tensor, k: int, nprobe: int, *,
-               scales: torch.Tensor | None = None):
-    """Fused route + gather + dequant-rerank + top-k. Returns (scores
-    [Q, k] f32 desc, pos [Q, k] i32 = j * depth + slot, routes [Q, nprobe]
-    i32), -1 for dead entries."""
+               embs: torch.Tensor, ids: torch.Tensor, k: int, nprobe: int, *,
+               scales: torch.Tensor | None = None, store_depth: int | None = None):
+    """Fused route + gather + dequant-rerank + top-k + decode over rings
+    whose slots are live where ``ids`` >= 0. Returns (scores [Q, k] f32
+    desc, pos [Q, k] i32 = j * depth + slot, routes [Q, nprobe] i32, rows
+    [Q, k] i32 = cluster * store_depth + slot, doc_ids [Q, k] i32, clusters
+    [Q, k] i32), -1 for dead entries; ``store_depth`` (the full ring depth
+    rows are encoded with) defaults to the rings' own."""
     assert 1 <= k <= nprobe * embs.shape[1], "k must be in [1, nprobe*depth]"
-    dev = check_same_device(qr, qn, vectors, valid, route_labels, embs, live, scales)
+    dev = check_same_device(qr, qn, vectors, valid, route_labels, embs, ids, scales)
 
     def run():
         if dev.type == "cuda":
             from repro_torch.kernels.serve.serve import serve_topk_cuda
 
             return serve_topk_cuda(qr, qn, vectors, valid, route_labels, embs,
-                                   live, k, nprobe, scales)
+                                   ids, k, nprobe, scales, store_depth)
         if dev.type == "meta":
             Q = qn.shape[0]
             return (torch.empty((Q, k), dtype=torch.float32, device=dev),
                     torch.empty((Q, k), dtype=torch.int32, device=dev),
-                    torch.empty((Q, nprobe), dtype=torch.int32, device=dev))
-        return serve_topk_ref(qr, qn, vectors, valid, route_labels, embs, live,
-                              k, nprobe, scales)
+                    torch.empty((Q, nprobe), dtype=torch.int32, device=dev),
+                    *(torch.empty((Q, k), dtype=torch.int32, device=dev)
+                      for _ in range(3)))
+        return serve_topk_ref(qr, qn, vectors, valid, route_labels, embs, ids,
+                              k, nprobe, scales, store_depth)
 
     Q, d = qn.shape
     return cost.entry("serve", run, lambda out: cost.serve(

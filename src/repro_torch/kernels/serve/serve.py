@@ -7,10 +7,15 @@ route selection), which the serving cache's route witness launches.
 
 The ring tensors may be strided views (``embs[:, :depth]`` for a
 depth-clipped plan): their strides go to the kernel, and the store is
-never copied. ``serve_plan`` sizes a call from its shape alone."""
+never copied. A slot is live where its document id is >= 0: the kernel
+reads the ring ids, and its epilogue decodes the answer (rows, doc ids,
+clusters), so a call is the whole two-stage query. ``serve_plan`` sizes a
+call from its shape alone, and it and the call's shared-memory size are
+cached by shape (``serve_plan.cache_info()`` counts the hits)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -59,6 +64,7 @@ def select_bytes(n: int, nprobe: int) -> int:
     return 8 * (n + RING_WARPS * warp_keep(n, nprobe))
 
 
+@functools.lru_cache(maxsize=4096)
 def serve_plan(Q: int, cap: int, nprobe: int, depth: int, d: int | None = None,
                k: int | None = None) -> ServePlan:
     """The largest route tile whose grid still covers the card's SMs (the
@@ -71,7 +77,8 @@ def serve_plan(Q: int, cap: int, nprobe: int, depth: int, d: int | None = None,
     depth 64 it leaves room for ``SELECT_KEYS``, so both entries run the
     same passes). Refuses a cap past 32-bit slot arithmetic
     (``MAX_CAP``) and a ring layout or nprobe that no number of passes
-    brings into one block."""
+    brings into one block. Cached by its arguments: a flush's shape
+    repeats, so the host plans it once."""
     if not 1 <= nprobe <= cap:
         raise ValueError(f"need 1 <= nprobe={nprobe} <= cap={cap}")
     if cap > MAX_CAP:
@@ -103,18 +110,33 @@ def serve_plan(Q: int, cap: int, nprobe: int, depth: int, d: int | None = None,
     return ServePlan(rm, ntiles, kt, ntiles * kt, cluster, tuple(levels))
 
 
+@functools.lru_cache(maxsize=None)
+def _card_bytes(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).total_memory
+
+
 def _key_buffers(plan: ServePlan, Q: int, dev) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The route keys [Q, m] and, where the plan has passes, the second
-    buffer they alternate with [Q, the first pass's keys] (int64). Refuses
-    a call whose keys the card cannot hold."""
-    words = Q * (plan.m + (plan.levels[0] if plan.levels else 0))
-    if dev.type == "cuda" and 8 * words > torch.cuda.get_device_properties(dev).total_memory:
+    buffer they alternate with [Q, the first pass's keys] (int64, one
+    allocation). Refuses a call whose keys the card cannot hold."""
+    m2 = plan.levels[0] if plan.levels else 0
+    words = Q * (plan.m + m2)
+    if dev.type == "cuda" and 8 * words > _card_bytes(dev):
         raise ValueError(f"serve's route keys need {8 * words} B (Q={Q}, {plan.m} keys a "
                          f"query), more than the card's memory")
-    part = torch.empty((Q, plan.m), dtype=torch.int64, device=dev)
-    part2 = (torch.empty((Q, plan.levels[0]), dtype=torch.int64, device=dev)
-             if plan.levels else None)
-    return part, part2
+    keys = torch.empty((words,), dtype=torch.int64, device=dev)
+    part = keys[:Q * plan.m].view(Q, plan.m)
+    return part, (keys[Q * plan.m:].view(Q, m2) if plan.levels else None)
+
+
+def serve_outputs(Q: int, k: int, nprobe: int, dev) -> tuple[torch.Tensor, ...]:
+    """The call's outputs as views of one int32 block, each contiguous:
+    (scores [Q, k] f32, pos, routes [Q, nprobe], rows, doc_ids, clusters
+    [Q, k] i32)."""
+    block = torch.empty((Q * (5 * k + nprobe),), dtype=torch.int32, device=dev)
+    planes, routes = block.split((5 * Q * k, Q * nprobe))
+    scores, pos, rows, doc_ids, clusters = planes.view(5, Q, k).unbind(0)
+    return scores.view(torch.float32), pos, routes.view(Q, nprobe), rows, doc_ids, clusters
 
 
 def _lib():
@@ -122,7 +144,7 @@ def _lib():
     if lib.serve_launch.argtypes is None:
         P, I, L = build.P, build.I, build.L
         lib.serve_launch.argtypes = [P, P, I, I, P, I, P, P, P, I, L, L, P, L, L, P, L, L,
-                                     I, I, I, I, I, I, P, P, P, P, P, I, P]
+                                     I, I, I, I, I, I, I, P, P, P, P, P, P, P, P, I, P]
         lib.serve_launch.restype = I
         lib.serve_smem_bytes.argtypes = [I, I, I, I, I, I]
         lib.serve_smem_bytes.restype = L
@@ -138,20 +160,37 @@ def _lib():
     return lib
 
 
+@functools.lru_cache(maxsize=4096)
+def _fused_smem(d: int, msel: int, nprobe: int, depth: int, k: int, cluster: int) -> int:
+    """The fused call's shared memory a block, checked against the
+    library's own figure and the block's limit; cached by its arguments."""
+    smem = _lib().serve_smem_bytes(d, msel, nprobe, depth, k, cluster)
+    if smem != ring_smem_bytes(d, nprobe, depth, k, cluster, msel):
+        raise RuntimeError("rings.cuh's shared-memory layout differs from the wrapper's")
+    if smem > build.SMEM_PER_BLOCK:
+        raise ValueError(f"serve kernel needs {smem} B of shared memory "
+                         f"(d={d}, nprobe={nprobe}, depth={depth}, k={k}, "
+                         f"{msel} route keys), over the {build.SMEM_PER_BLOCK} B a "
+                         f"block has")
+    return smem
+
+
 def serve_launcher(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
                    valid: torch.Tensor, route_labels: torch.Tensor,
-                   embs: torch.Tensor, live: torch.Tensor, k: int, nprobe: int,
-                   scales: torch.Tensor | None = None, plan: ServePlan | None = None):
+                   embs: torch.Tensor, ids: torch.Tensor, k: int, nprobe: int,
+                   scales: torch.Tensor | None = None, plan: ServePlan | None = None,
+                   store_depth: int | None = None):
     """Checks, plans (``serve_plan`` unless ``plan`` is given: the card's
     tests pass one to hold every plan against the plain version) and
-    allocates one call; returns (plan, scores, pos, routes, run) where
-    ``run(phases)`` queues the launches (1 = route tiles, 4 = the merge
-    passes, where the plan has any, 2 = rerank, 7 = all) on the
-    current stream without counting them. The wrapper runs all; a timing
-    script may run them apart, once a run has written the keys they read:
-    ``run`` refuses the merge where the route tiles' keys are not in their
-    buffer (none yet, or a second pass wrote over them), and the rerank
-    before the tiles and, where the plan has passes, the merge have run."""
+    allocates one call; returns (plan, outputs, run): the outputs are
+    ``serve_outputs``'s views, and ``run(phases)`` queues the launches
+    (1 = route tiles, 4 = the merge passes, where the plan has any, 2 =
+    rerank and decode, 7 = all) on the current stream without counting
+    them. The wrapper runs all; a timing script may run them apart, once a
+    run has written the keys they read: ``run`` refuses the merge where the
+    route tiles' keys are not in their buffer (none yet, or a second pass
+    wrote over them), and the rerank before the tiles and, where the plan
+    has passes, the merge have run."""
     Q, d = qr.shape
     cap = vectors.shape[0]
     C, depth, _ = embs.shape
@@ -164,8 +203,8 @@ def serve_launcher(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
         raise ValueError("need 1 <= k <= nprobe*depth and nprobe <= cap")
     if embs.shape[2] != d or embs.stride(2) != 1:
         raise ValueError("ring rows must be dense along d")
-    if live.dtype != torch.bool or live.shape != (C, depth):
-        raise TypeError("live must be a [C, depth] bool tensor")
+    if ids.dtype != torch.int32 or ids.shape != (C, depth):
+        raise TypeError("ids must be a [C, depth] int32 tensor")
     if scales is not None and (scales.dtype != torch.float32
                                or scales.shape != (C, depth)):
         raise TypeError("scales must be a [C, depth] float32 tensor")
@@ -174,25 +213,20 @@ def serve_launcher(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
             raise ValueError("queries and index must be contiguous")
     if route_labels.dtype != torch.int32 or valid.dtype != torch.bool:
         raise TypeError("route_labels i32 and valid bool")
+    store_depth = depth if store_depth is None else store_depth
+    if store_depth < depth:
+        raise ValueError(f"store_depth {store_depth} is below the rings' depth {depth}")
     dev = qr.device
     plan = plan or serve_plan(Q, cap, nprobe, depth, d, k)
-    scores = torch.empty((Q, k), dtype=torch.float32, device=dev)
-    pos = torch.empty((Q, k), dtype=torch.int32, device=dev)
-    routes = torch.empty((Q, nprobe), dtype=torch.int32, device=dev)
+    out = serve_outputs(Q, k, nprobe, dev)
     if Q == 0:
-        return plan, scores, pos, routes, lambda phases=7: None
+        return plan, out, lambda phases=7: None
     lib = _lib()
-    smem = lib.serve_smem_bytes(d, plan.msel, nprobe, depth, k, plan.cluster)
-    if smem != ring_smem_bytes(d, nprobe, depth, k, plan.cluster, plan.msel):
-        raise RuntimeError("rings.cuh's shared-memory layout differs from the wrapper's")
-    if smem > build.SMEM_PER_BLOCK:
-        raise ValueError(f"serve kernel needs {smem} B of shared memory "
-                         f"(d={d}, nprobe={nprobe}, depth={depth}, k={k}, "
-                         f"{plan.msel} route keys), over the {build.SMEM_PER_BLOCK} B a "
-                         f"block has")
+    smem = _fused_smem(d, plan.msel, nprobe, depth, k, plan.cluster)
     part, part2 = _key_buffers(plan, Q, dev)
     ss0, ss1 = (scales.stride(0), scales.stride(1)) if quantized else (0, 0)
     stream = build.stream_of(dev)
+    ptrs = [t.data_ptr() for t in out]
 
     # what the key buffers hold: the route tiles' keys (a second pass writes
     # over them) and the last pass's
@@ -209,32 +243,33 @@ def serve_launcher(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
         build.check(lib, lib.serve_launch(
             qr.data_ptr(), qn.data_ptr(), Q, d, vectors.data_ptr(), cap,
             valid.data_ptr(), route_labels.data_ptr(), embs.data_ptr(), depth,
-            embs.stride(0), embs.stride(1), live.data_ptr(), live.stride(0),
-            live.stride(1), build.ptr(scales), ss0, ss1, int(quantized), k, nprobe,
-            plan.rm, plan.cluster, plan.msel, part.data_ptr(), build.ptr(part2),
-            scores.data_ptr(), pos.data_ptr(), routes.data_ptr(), phases, stream),
-            "serve_launch")
+            embs.stride(0), embs.stride(1), ids.data_ptr(), ids.stride(0),
+            ids.stride(1), build.ptr(scales), ss0, ss1, int(quantized), store_depth, k,
+            nprobe, plan.rm, plan.cluster, plan.msel, part.data_ptr(), build.ptr(part2),
+            *ptrs, phases, stream), "serve_launch")
         if phases & 1:
             tiled, merged = True, False
         if merge:
             tiled, merged = tiles_ok and len(plan.levels) == 1, True
-    return plan, scores, pos, routes, run
+    return plan, out, run
 
 
 def serve_topk_cuda(qr: torch.Tensor, qn: torch.Tensor, vectors: torch.Tensor,
                     valid: torch.Tensor, route_labels: torch.Tensor,
-                    embs: torch.Tensor, live: torch.Tensor, k: int,
-                    nprobe: int, scales: torch.Tensor | None = None):
+                    embs: torch.Tensor, ids: torch.Tensor, k: int,
+                    nprobe: int, scales: torch.Tensor | None = None,
+                    store_depth: int | None = None):
     """Same contract as ``ref.serve_topk_ref``; all tensors on one CUDA
-    device. embs [C, depth, d] / live / scales [C, depth] may be strided
-    along their leading axes; their last axis must be dense."""
-    _, scores, pos, routes, run = serve_launcher(qr, qn, vectors, valid, route_labels,
-                                                 embs, live, k, nprobe, scales)
+    device. embs [C, depth, d] / ids / scales [C, depth] may be strided
+    along their leading axes; their last axis must be dense. The six
+    outputs are views of one block (``serve_outputs``)."""
+    _, out, run = serve_launcher(qr, qn, vectors, valid, route_labels, embs, ids, k,
+                                 nprobe, scales, store_depth=store_depth)
     if qr.shape[0] == 0:
-        return scores, pos, routes
+        return out
     run()
     COUNTS["serve"].kernel += 1
-    return scores, pos, routes
+    return out
 
 
 def serve_routes_cuda(qr: torch.Tensor, vectors: torch.Tensor, valid: torch.Tensor,

@@ -214,3 +214,12 @@ class _Foreign(torch.Tensor):
 def foreign(t: torch.Tensor) -> torch.Tensor:
     """``t``'s shape and dtype on the ``xpu`` device, with no data."""
     return _Foreign(t)
+
+
+def ring_ids(live: np.ndarray) -> np.ndarray:
+    """Ring document ids [C, depth] i32 for a liveness mask: distinct ids
+    (none equal to a slot's flat row) where ``live``, -1 elsewhere; the
+    port's kernels read liveness from the ids, the reference from a mask."""
+    live = np.asarray(live, bool)
+    return np.where(live, 7 + 3 * np.arange(live.size).reshape(live.shape),
+                    -1).astype(np.int32)

@@ -169,9 +169,9 @@ def test_route_witness_flags_near_ties():
         qn = l2_normalize_queries(qt)
         qr = qn if icfg.normalize else qt
         embs = torch.zeros((16, 1, d))
-        live = torch.zeros((16, 1), dtype=torch.bool)
+        ids = torch.full((16, 1), -1, dtype=torch.int32)
         return serve_topk_ref(qr, qn, index.vectors, index.valid, labels,
-                              embs, live, 1, nprobe)[2].numpy()
+                              embs, ids, 1, nprobe)[2].numpy()
 
     routes = stages.route_witnessed(cfg, idx, labels, qt, nprobe)
     np.testing.assert_array_equal(
@@ -240,6 +240,52 @@ def test_hot_tier_serve_is_bit_identical_to_snapshot_oracle():
     np.testing.assert_array_equal(rows, want[1])
     np.testing.assert_array_equal(out[2], want[2])
     np.testing.assert_array_equal(clusters, want[3])
+
+
+@pytest.mark.parametrize("depth", [None, 2])
+def test_tier_serve_returns_its_answer_decoded_in_tier_coordinates(depth):
+    """Over a hot tier (16 pinned rings, the last ones padding) and its
+    remapped labels, ``routed_query``'s one serve call returns the answer
+    decoded in tier coordinates: the plain version's picks over the tier
+    followed by ``stages.decode_rerank`` over the tier's ids, at the full
+    depth and at a clipped plan (rows at the store's depth)."""
+    from repro_torch.engine.engine import routed_query
+    from repro_torch.kernels.common import l2_normalize_queries
+    from repro_torch.kernels.serve.ref import serve_topk_ref
+
+    cfg = _cfg(k=24, capacity=24, store_depth=4, update_interval=32)
+    eng = _reference_init_engine(cfg, 2)
+    stream = make_stream("iot", dim=DIM)
+    for _ in range(6):
+        b = stream.next_batch(32)
+        eng.ingest(b["embedding"], b["doc_id"])
+    snap = eng.publish()
+    q = torch.from_numpy(np.asarray(stream.queries(8)["embedding"], np.float32))
+    routes = stages.route(cfg.index, snap.index, snap.route_labels, q, 4).numpy()
+    pinned = sorted(set(routes[routes >= 0].tolist()))[:12]
+    H, n = 16, len(pinned)
+    clusters = np.zeros(H, np.int32)
+    clusters[:n] = pinned
+    tier = stages.gather_rings(snap.store, torch.from_numpy(clusters),
+                               torch.from_numpy(np.arange(H) < n))
+    c2s = np.full(cfg.clus.num_clusters, -1, np.int32)
+    c2s[pinned] = np.arange(n, dtype=np.int32)
+    lab = snap.route_labels.numpy()
+    hot = torch.from_numpy(np.where(lab >= 0, c2s[np.maximum(lab, 0)], -1).astype(np.int32))
+
+    got = routed_query(cfg, snap.index, hot, tier, q, 5, 4, depth)
+    dv = cfg.store_depth if depth is None else depth
+    qn = l2_normalize_queries(q)
+    qr = qn if cfg.index.normalize else q
+    scales = tier.scales[:, :dv] if tier.embs.dtype == torch.int8 else None
+    sc, pos, rt = serve_topk_ref(qr, qn, snap.index.vectors, snap.index.valid, hot,
+                                 tier.embs[:, :dv], tier.ids[:, :dv], 5, 4, scales)[:3]
+    want = stages.decode_rerank(tier.ids, rt, sc, pos, dv, 4, store_depth=cfg.store_depth)
+    for a, b in zip(got, want + (rt,)):
+        assert torch.equal(a, b)
+    live = got[3] >= 0
+    assert bool(live.any()) and int(got[3].max()) < n
+    assert torch.equal(got[1][live] // cfg.store_depth, got[3][live])
 
 
 # ----------------------------------------------------------------- end to end

@@ -44,7 +44,8 @@ def _inputs():
         valid=torch.tensor([True, False, True, True, True]),
         labels=torch.tensor([2, -1, 0, 5, 3], dtype=torch.int32),
         embs=embs.view(C, depth, d), scales=scales.view(C, depth),
-        ring_live=torch.rand((C, depth), generator=g) < 0.6,
+        ring_ids=torch.where(torch.rand((C, depth), generator=g) < 0.6,
+                             torch.arange(C * depth, dtype=torch.int32).view(C, depth), -1),
         routes=torch.tensor([[0, 1], [2, 2], [-1, 5], [3, 4]], dtype=torch.int32),
         table=torch.randn((V, d), generator=g), idx=idx, seg=seg, bags=bags,
         w=torch.rand((L,), generator=g), grad=torch.randn((bags, d), generator=g),
@@ -94,10 +95,10 @@ ENTRIES = {
     "prefilter": ("prefilter", lambda i: prefilter_ops.prefilter_scores(i["x"], i["basis"]),
                   lambda i, out: cost.prefilter(16, 3, 8)),
     "rerank": ("rerank", lambda i: rerank_ops.rerank_topk(
-        i["q"], i["embs"], i["ring_live"], i["routes"], 3, scales=i["scales"]),
+        i["q"], i["embs"], i["ring_ids"], i["routes"], 3, scales=i["scales"]),
         lambda i, out: cost.rerank(4, 8, 2, 4, 3, 1, True, cost.distinct(i["routes"]))),
     "serve": ("serve", lambda i: serve_ops.serve_topk(
-        i["q"], i["q"], i["index"], i["valid"], i["labels"], i["embs"], i["ring_live"], 3, 2,
+        i["q"], i["q"], i["index"], i["valid"], i["labels"], i["embs"], i["ring_ids"], 3, 2,
         scales=i["scales"]),
         lambda i, out: cost.serve(4, 8, 5, 4, 2, 3, 1, True, cost.distinct(out[2]))),
     "serve_route": ("serve_route", lambda i: serve_ops.serve_routes(

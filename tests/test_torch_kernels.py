@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import foreign
+from _torch_parity import foreign, ring_ids
 from repro.kernels.admit.admit import admit_pallas
 from repro.kernels.admit.ref import admit_ref as j_admit
 from repro.kernels.mips.mips import mips_topk_pallas
@@ -167,7 +167,7 @@ def test_serve_plain_matches_reference_and_pallas(quantized, depth):
     Q, d, cap, C, D, k, P = 9, 32, 40, 12, 6, 5, 4
     q, v, valid, labels, embs, live, scales = _serve_inputs(
         Q, d, cap, C, D, quantized, seed=11 + quantized)
-    te, tl = _t(embs), _t(live)
+    te, tl = _t(embs), _t(ring_ids(live))
     ts = None if scales is None else _t(scales)
     je, jl, js = embs, live, scales
     if depth is not None:
@@ -199,14 +199,59 @@ def test_serve_dispatcher_all_dead_routes():
     q, v, valid, labels, embs, live, scales = _serve_inputs(
         3, 16, 10, 4, 4, True, seed=5)
     valid[:] = False
-    s, pos, routes = serve_ops.serve_topk(
-        _t(q), _t(q), _t(v), _t(valid), _t(labels), _t(embs), _t(live), 3, 2,
+    s, pos, routes, rows, docs, clusters = serve_ops.serve_topk(
+        _t(q), _t(q), _t(v), _t(valid), _t(labels), _t(embs), _t(ring_ids(live)), 3, 2,
         scales=_t(scales))
     assert (pos == -1).all() and (routes == -1).all()
+    assert (rows == -1).all() and (docs == -1).all() and (clusters == -1).all()
     ref = j_serve(jnp.asarray(q), jnp.asarray(q), jnp.asarray(v),
                   jnp.asarray(valid), jnp.asarray(labels), jnp.asarray(embs),
                   jnp.asarray(live), 3, 2, jnp.asarray(scales))
     np.testing.assert_allclose(s.numpy(), np.asarray(ref[0]), **TOL)
+
+
+@pytest.mark.parametrize("k_all", [False, True])
+@pytest.mark.parametrize("Q", [0, 1, 7, 64, 100])
+@pytest.mark.parametrize("depth", [None, 3])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_serve_op_returns_its_answer_decoded(quantized, depth, Q, k_all):
+    """The op's plain version returns its picks decoded: rows, doc ids and
+    clusters equal ``stages.decode_rerank`` over its own (scores, pos,
+    routes), and a loop over the picks, on fp32 and int8 rings, a
+    depth-clipped view (rows at the full depth), dead slots, dead routes,
+    k = nprobe * depth and batches of 0 to 100 queries."""
+    from repro_torch.engine import stages
+
+    d, cap, C, D, P = 32, 40, 12, 6, 4
+    q, v, valid, labels, embs, live, scales = _serve_inputs(
+        Q, d, cap, C, D, quantized, seed=Q + 3)
+    ids = _t(ring_ids(live))
+    te, ti, ts = _t(embs), ids, None if scales is None else _t(scales)
+    dv = D if depth is None else depth
+    if depth is not None:
+        te, ti = te[:, :depth], ti[:, :depth]
+        ts = None if ts is None else ts[:, :depth]
+    k = P * dv if k_all else 5
+    out = serve_ops.serve_topk(_t(q), _t(q), _t(v), _t(valid), _t(labels), te, ti, k, P,
+                               scales=ts, store_depth=D)
+    scores, pos, routes, rows, docs, clusters = out
+    assert scores.shape == (Q, k) and routes.shape == (Q, P)
+    assert all(t.dtype == torch.int32 and t.shape == (Q, k) for t in (pos, rows, docs, clusters))
+    want = stages.decode_rerank(ids, routes, scores, pos, dv, P, store_depth=D)
+    for got, ref in zip((rows, docs, clusters), want[1:]):
+        assert torch.equal(got, ref)
+    p, r, idn = pos.numpy(), routes.numpy(), ids.numpy()
+    for i, t in np.ndindex(*p.shape):
+        if p[i, t] < 0:
+            assert rows[i, t] == docs[i, t] == clusters[i, t] == -1
+            continue
+        j, slot = divmod(int(p[i, t]), dv)
+        c = int(r[i, j])
+        assert (int(clusters[i, t]), int(docs[i, t]), int(rows[i, t])) == \
+            (c, int(idn[c, slot]), c * D + slot)
+    if Q >= 7:
+        assert (r == -1).any() and (p >= 0).any()
+        assert (p < 0).any() or not k_all      # dead slots fill the tail
 
 
 def test_dispatchers_refuse_other_devices():

@@ -39,6 +39,14 @@ def _close(a, b):
     return bool(((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all())
 
 
+def _ids(live):
+    """Ring doc ids [C, depth] i32 for a liveness mask: distinct ids (none
+    equal to a slot's flat row) where ``live``, -1 elsewhere; the kernels
+    read a slot as live where its id is >= 0."""
+    n = torch.arange(live.numel(), dtype=torch.int32, device=live.device).view(live.shape)
+    return torch.where(live, 7 + 3 * n, -1)
+
+
 @pytest.mark.parametrize("store_dtype", ["fp32", "int8"])
 @pytest.mark.parametrize("B,K,d", [(256, 4218, 384), (17, 700, 96), (1, 5, 64)])
 def test_admit_kernel_matches_plain(cuda, store_dtype, B, K, d):
@@ -112,18 +120,19 @@ def test_serve_kernel_matches_plain(cuda, quantized, depth):
     labels[torch.rand((cap,), generator=g, device=cuda) < 0.2] = -1
     q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
     rows = l2_normalize(torch.randn((C * D, d), generator=g, device=cuda))
-    live = torch.rand((C, D), generator=g, device=cuda) < 0.7
+    ids = _ids(torch.rand((C, D), generator=g, device=cuda) < 0.7)
     if quantized:
         e, s = quant.quantize_int8(rows, dim=-1)
         embs, scales = e.view(C, D, d), s.view(C, D)
     else:
         embs, scales = rows.view(C, D, d), None
     if depth is not None:    # a strided view of the full rings, never copied
-        embs, live = embs[:, :depth], live[:, :depth]
+        embs, ids = embs[:, :depth], ids[:, :depth]
         scales = None if scales is None else scales[:, :depth]
-    out_k = serve_topk_cuda(q, q, v, valid, labels, embs, live, k, P, scales)
-    out_p = serve_topk_ref(q, q, v, valid, labels, embs, live, k, P, scales)
-    (s_k, p_k, r_k), (s_p, p_p, r_p) = out_k, out_p
+    out_k = serve_topk_cuda(q, q, v, valid, labels, embs, ids, k, P, scales)
+    out_p = serve_topk_ref(q, q, v, valid, labels, embs, ids, k, P, scales)
+    (s_k, p_k, r_k), (s_p, p_p, r_p) = out_k[:3], out_p[:3]
+    _hold_decode(ids, out_k)
     assert bool((r_k == -1).any())
     same = (r_k == r_p).all(dim=1)
     assert int(same.sum()) >= Q - 2          # route near-ties are rare
@@ -168,7 +177,7 @@ def test_rerank_kernel_matches_plain(cuda, quantized, D, depth, k):
     Q, d, C, P = 64, 384, 4218, 8
     q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
     rows = l2_normalize(torch.randn((C * D, d), generator=g, device=cuda))
-    live = torch.rand((C, D), generator=g, device=cuda) < 0.6
+    ids = _ids(torch.rand((C, D), generator=g, device=cuda) < 0.6)
     if quantized:
         e, s = quant.quantize_int8(rows, dim=-1)
         embs, scales = e.view(C, D, d), s.view(C, D)
@@ -179,11 +188,11 @@ def test_rerank_kernel_matches_plain(cuda, quantized, D, depth, k):
     routes[:8, 1] = routes[:8, 0]                 # duplicate routes
     routes[8] = -1                                # a query routed nowhere
     if depth is not None:
-        embs, live = embs[:, :depth], live[:, :depth]
+        embs, ids = embs[:, :depth], ids[:, :depth]
         scales = None if scales is None else scales[:, :depth]
     before = COUNTS["rerank"].kernel
-    s_k, p_k = rerank_topk_cuda(q, embs, live, routes, k, scales)
-    s_p, p_p = rerank_topk_ref(q, embs, live, routes, k, scales)
+    s_k, p_k = rerank_topk_cuda(q, embs, ids, routes, k, scales)
+    s_p, p_p = rerank_topk_ref(q, embs, ids, routes, k, scales)
     assert COUNTS["rerank"].kernel == before + 1
     assert _close(s_k, s_p)
     assert bool(((p_k == p_p) | ((s_k - s_p).abs() < TIE)).all())
@@ -272,7 +281,7 @@ def test_staged_stages_on_card_launch_their_kernels(cuda):
     assert all(c["plain"] == 0 for c in snap.values()), snap
     assert snap["admit"]["kernel"] == snap["serve"]["kernel"] == 0
     f_sc, f_pos, f_routes = stages.serve_topk(cfg.index, st.index,
-                                              st.route_labels, st.store, q, 5, 4)
+                                              st.route_labels, st.store, q, 5, 4)[:3]
     # the staged and fused queries share the index scan and ring scoring
     assert torch.equal(routes, f_routes) and torch.equal(pos, f_pos)
     assert _close(scores, f_sc)
@@ -546,35 +555,51 @@ def _ring_store(g, C, D, d, quantized, fill=0.6):
     from repro_torch.store import quant
 
     rows = l2_normalize(torch.randn((C * D, d), generator=g, device="cuda"))
-    live = torch.rand((C, D), generator=g, device="cuda") < fill
+    ids = _ids(torch.rand((C, D), generator=g, device="cuda") < fill)
     if quantized:
         e, s = quant.quantize_int8(rows, dim=-1)
-        return e.view(C, D, d), live, s.view(C, D)
-    return rows.view(C, D, d), live, None
+        return e.view(C, D, d), ids, s.view(C, D)
+    return rows.view(C, D, d), ids, None
 
 
-def _hold_rerank(q, embs, live, routes, k, scales, cluster=None):
+def _hold_rerank(q, embs, ids, routes, k, scales, cluster=None):
     from repro_torch.kernels.rerank.ref import rerank_topk_ref
     from repro_torch.kernels.rerank.rerank import rerank_topk_cuda
 
-    s_k, p_k = rerank_topk_cuda(q, embs, live, routes, k, scales, cluster=cluster)
-    s_p, p_p = rerank_topk_ref(q, embs, live, routes, k, scales)
+    s_k, p_k = rerank_topk_cuda(q, embs, ids, routes, k, scales, cluster=cluster)
+    s_p, p_p = rerank_topk_ref(q, embs, ids, routes, k, scales)
     assert _close(s_k, s_p)
     assert bool(((p_k == p_p) | ((s_k - s_p).abs() < TIE)).all())
     return s_k, p_k
 
 
-def _hold_serve(q, v, valid, labels, embs, live, k, P, scales, plan=None):
+def _hold_decode(ids, out, store_depth=None):
+    """The kernel's decoded answer (rows, doc_ids, clusters) equals
+    ``stages.decode_rerank`` over its own (scores, pos, routes), bit for
+    bit (integers)."""
+    from repro_torch.engine import stages
+
+    scores, pos, routes, *dec = out
+    want = stages.decode_rerank(ids, routes, scores, pos, ids.shape[1], routes.shape[1],
+                                store_depth=store_depth)
+    for a, b in zip(dec, want[1:]):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+
+
+def _hold_serve(q, v, valid, labels, embs, ids, k, P, scales, plan=None):
     """The kernel's (scores, pos, routes) against the plain version: routes
     equal except after a near-tie of the plain route scores, and where
-    they agree, scores close and picks equal or scoring within TIE."""
+    they agree, scores close and picks equal or scoring within TIE; its
+    decoded answer against ``decode_rerank`` over its own picks. Returns
+    its six outputs."""
     from repro_torch.kernels.serve.ref import serve_topk_ref
     from repro_torch.kernels.serve.serve import serve_launcher
 
-    plan, s_k, p_k, r_k, run = serve_launcher(q, q, v, valid, labels, embs, live, k, P,
-                                              scales, plan)
+    plan, out, run = serve_launcher(q, q, v, valid, labels, embs, ids, k, P, scales, plan)
     run()
-    s_p, p_p, r_p = serve_topk_ref(q, q, v, valid, labels, embs, live, k, P, scales)
+    s_k, p_k, r_k = out[:3]
+    _hold_decode(ids, out)
+    s_p, p_p, r_p = serve_topk_ref(q, q, v, valid, labels, embs, ids, k, P, scales)[:3]
     rs = torch.sort(torch.where(valid[None], q @ v.T, NEG_INF), dim=1,
                     descending=True).values[:, :P + 1]
     tie = ((rs[:, :-1] - rs[:, 1:]) < TIE).any(dim=1)
@@ -582,7 +607,7 @@ def _hold_serve(q, v, valid, labels, embs, live, k, P, scales, plan=None):
     assert bool((same | tie).all())
     assert _close(s_k[same], s_p[same])
     assert bool(((p_k == p_p) | ((s_k - s_p).abs() < TIE))[same].all())
-    return s_k, p_k, r_k
+    return out
 
 
 @pytest.mark.parametrize("case", ["scalar_int8", "scalar_fp32", "dup_routes", "all_dead",
@@ -604,12 +629,12 @@ def test_serve_kernel_edge_cases(cuda, case):
     if case == "all_dead":
         labels[:] = -1
     q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
-    embs, live, scales = _ring_store(g, C, 32 if case == "view" else D, d, quantized,
+    embs, ids, scales = _ring_store(g, C, 32 if case == "view" else D, d, quantized,
                                      0.05 if case == "k_above_live" else 0.6)
     if case == "view":
-        embs, live, scales = embs[:, :D], live[:, :D], scales[:, :D]
+        embs, ids, scales = embs[:, :D], ids[:, :D], scales[:, :D]
         assert not embs.is_contiguous()
-    s_k, p_k, r_k = _hold_serve(q, v, valid, labels, embs, live, k, P, scales)
+    s_k, p_k, r_k = _hold_serve(q, v, valid, labels, embs, ids, k, P, scales)[:3]
     if case == "dup_routes":
         assert bool((r_k[:, :, None] == r_k[:, None, :]).sum((1, 2)).gt(P).all())
     if case == "all_dead":
@@ -635,11 +660,11 @@ def test_serve_kernel_plans_agree(cuda, rm, cluster):
     labels = torch.randperm(cap, generator=g, device=cuda).int()
     labels[torch.rand((cap,), generator=g, device=cuda) < 0.1] = -1
     q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
-    embs, live, scales = _ring_store(g, cap, D, d, True)
+    embs, ids, scales = _ring_store(g, cap, D, d, True)
     base = serve_plan(Q, cap, P, D)
     assert (base.rm, base.ntiles, base.m) == (4, 66, 528)
-    want = _hold_serve(q, v, valid, labels, embs, live, k, P, scales)
-    got = _hold_serve(q, v, valid, labels, embs, live, k, P, scales,
+    want = _hold_serve(q, v, valid, labels, embs, ids, k, P, scales)
+    got = _hold_serve(q, v, valid, labels, embs, ids, k, P, scales,
                       dataclasses.replace(base, rm=rm, cluster=cluster))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -657,18 +682,18 @@ def test_serve_kernel_phases_apart(cuda):
     valid = torch.rand((cap,), generator=g, device=cuda) < 0.9
     labels = torch.randperm(cap, generator=g, device=cuda).int()
     q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
-    embs, live, scales = _ring_store(g, cap, D, d, True)
+    embs, ids, scales = _ring_store(g, cap, D, d, True)
     qn = q.clone()
-    _, s, p, r, run = serve_launcher(q, qn, v, valid, labels, embs, live, k, P, scales)
+    _, out, run = serve_launcher(q, qn, v, valid, labels, embs, ids, k, P, scales)
     run(3)
-    want = [t.clone() for t in (s, p, r)]
+    want = [t.clone() for t in out]
     for _ in range(5):
-        for t in (s, p, r, qn):
+        for t in (*out, qn):
             t.zero_()
         run(1)
         qn.copy_(q)
         run(2)
-        for a, b in zip((s, p, r), want):
+        for a, b in zip(out, want):
             assert torch.equal(a, b)
 
 
@@ -687,8 +712,8 @@ def test_serve_route_ties_across_column_tiles(cuda, P):
     q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
     q[3] = v[10]
     q[60] = v[10]
-    embs, live, scales = _ring_store(g, C, D, d, True)
-    _, _, r_k = _hold_serve(q, v, valid, labels, embs, live, 10, P, scales)
+    embs, ids, scales = _ring_store(g, C, D, d, True)
+    r_k = _hold_serve(q, v, valid, labels, embs, ids, 10, P, scales)[2]
     want = torch.tensor([10, 70, 200][:min(P, 3)], device=cuda, dtype=torch.int32)
     for i in (3, 60):
         assert torch.equal(r_k[i, :len(want)], want)
@@ -703,19 +728,19 @@ def test_rerank_kernel_edge_cases(cuda, case, cluster):
     d = {"scalar_int8": 100, "scalar_fp32": 102}.get(case, 384)
     Q, C, D, P = 17, 500, 32, 8
     k = P * D if case == "k_above_live" else 10
-    embs, live, scales = _ring_store(g, C, D, d, case != "scalar_fp32",
+    embs, ids, scales = _ring_store(g, C, D, d, case != "scalar_fp32",
                                      0.03 if case == "k_above_live" else 0.6)
     routes = torch.randint(0, C, (Q, P), generator=g, device=cuda).int()
     routes[:4, 2] = routes[:4, 5]                 # duplicate routes
     if case == "all_dead":
         routes[:] = -1
     q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
-    s_k, p_k = _hold_rerank(q, embs, live, routes, k, scales, cluster)
+    s_k, p_k = _hold_rerank(q, embs, ids, routes, k, scales, cluster)
     if case == "all_dead":
         assert bool((p_k == -1).all() & (s_k == NEG_INF).all())
     if case == "k_above_live":
         assert bool((p_k == -1).any(dim=1).all())
-    s_1, p_1 = _hold_rerank(q, embs, live, routes, k, scales, 1)
+    s_1, p_1 = _hold_rerank(q, embs, ids, routes, k, scales, 1)
     assert torch.equal(s_k, s_1) and torch.equal(p_k, p_1)
 
 
@@ -965,8 +990,8 @@ def test_serve_launches_at_the_150mb_and_4gb_plans(cuda):
 
     g = torch.Generator(device=cuda).manual_seed(44)
     for cap, P, extra in ((4218, 8, 0), (112_501, 16, 1)):
-        q, v, valid, labels, embs, live, scales = _large_serve_inputs(g, cap, cuda)
-        names = _device_ops(lambda: serve_topk_cuda(q, q, v, valid, labels, embs, live, 10, P,
+        q, v, valid, labels, embs, ids, scales = _large_serve_inputs(g, cap, cuda)
+        names = _device_ops(lambda: serve_topk_cuda(q, q, v, valid, labels, embs, ids, 10, P,
                                                     scales))
         assert len(names) == 2 + extra, names
         assert sum("route_merge_kernel" in n for n in names) == extra, names
@@ -976,6 +1001,40 @@ def test_serve_launches_at_the_150mb_and_4gb_plans(cuda):
         assert len(names) == 2 + extra, names
         assert sum("route_merge_kernel" in n for n in names) == extra, names
         assert sum("route_select_kernel" in n for n in names) == 1, names
+
+
+def test_two_stage_flush_queues_only_serves_kernels_and_the_copies(cuda):
+    """A two-stage flush (the queries to the card, ``routed_query``, the
+    fetch's three copies) at the main path's shape queues the queries'
+    copy and their normalization, then serve's own kernels and the three
+    device -> host copies: no ring mask and no decode op. Kept beside the
+    other launch listings, early in this file."""
+    from repro_torch.configs.streaming_rag import paper_pipeline_config
+    from repro_torch.engine.engine import routed_query
+    from repro_torch.kernels.common import host_to_device, l2_normalize_queries
+
+    cfg = paper_pipeline_config(dim=384, k=4218, capacity=4218, store_depth=64,
+                                store_dtype="int8")
+    snap = _main_snapshot(cuda, "int8")
+    qh = np.random.default_rng(0).normal(size=(50, 384)).astype(np.float32)
+
+    def normalized():
+        return l2_normalize_queries(host_to_device(qh, cuda, torch.float32).contiguous())
+
+    def flush():
+        q = host_to_device(qh, cuda, torch.float32).contiguous()
+        out = routed_query(cfg, snap.index, snap.route_labels, snap.store, q, 10, 8)
+        return [out[i].cpu() for i in (0, 2, 3)]
+
+    serve = ("route_tile_kernel", "route_merge_kernel", "serve_rerank_kernel")
+    before = _device_ops(normalized)
+    ops = _device_ops(flush)
+    first = next(i for i, o in enumerate(ops) if any(n in o for n in serve))
+    assert ops[:first] == before, ops
+    tail = ops[first:]
+    assert all(any(n in o for n in serve) or "Memcpy DtoH" in o for o in tail), tail
+    assert sum("Memcpy DtoH" in o for o in tail) == 3, tail
+    assert sum("serve_rerank_kernel" in o for o in tail) == 1, tail
 
 
 # ------------------------------------------------------------ heavy hitter
@@ -1748,13 +1807,13 @@ def test_serve_kernel_under_a_localized_label_table(cuda, M, Q, quantized):
     valid = torch.rand((cap,), generator=g, device=cuda) < 0.9
     labels = torch.randperm(C, generator=g, device=cuda).int()
     q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
-    embs, live, scales = _ring_store(g, kl, D, d, quantized)
+    embs, ids, scales = _ring_store(g, kl, D, d, quantized)
     routes = []
     for m in range(M):
         local = torch.where((labels >= m * kl) & (labels < (m + 1) * kl),
                             labels - m * kl, -1).int()
         assert float((local < 0).float().mean()) >= (M - 1) / M - 0.01
-        s_k, p_k, r_k = _hold_serve(q, v, valid, local, embs, live, k, P, scales)
+        s_k, p_k, r_k = _hold_serve(q, v, valid, local, embs, ids, k, P, scales)[:3]
         assert r_k.shape == (Q, P)
         routes.append(torch.where(r_k >= 0, r_k + m * kl, -1))
     # each route position is live on exactly one shard: their max is the
@@ -1775,12 +1834,12 @@ def test_rerank_kernel_under_localized_routes(cuda, M):
     Q, d, C, D, P, k = 64, 384, 4218, 64, 8, 10
     kl = C // M
     q = l2_normalize(torch.randn((Q, d), generator=g, device=cuda))
-    embs, live, scales = _ring_store(g, kl, D, d, True)
+    embs, ids, scales = _ring_store(g, kl, D, d, True)
     routes = torch.randint(0, C, (Q, P), generator=g, device=cuda).int()
     for m in range(M):
         local = torch.where((routes >= m * kl) & (routes < (m + 1) * kl),
                             routes - m * kl, -1).int()
-        s_k, p_k = _hold_rerank(q, embs, live, local, k, scales)
+        s_k, p_k = _hold_rerank(q, embs, ids, local, k, scales)
         dead = (local < 0).all(dim=1)
         assert bool((p_k[dead] == -1).all())
 
@@ -1853,7 +1912,7 @@ def test_sharded_engine_on_card_matches_single_device(cuda, store_dtype):
 
 
 # ------------------------------------------------- serve's route-only entry
-def _hold_routes(q, v, valid, labels, P, embs=None, live=None):
+def _hold_routes(q, v, valid, labels, P, embs=None, ids=None):
     """The route-only entry against the fused kernel's routes (bit for
     bit) and its plain version (equal but after a near-tie among the plain
     route scores). Returns its routes."""
@@ -1863,11 +1922,11 @@ def _hold_routes(q, v, valid, labels, P, embs=None, live=None):
     if embs is None:
         C = int(labels.max()) + 1
         embs = torch.zeros((C, 2, q.shape[1]), device=q.device)
-        live = torch.ones((C, 2), dtype=torch.bool, device=q.device)
+        ids = torch.zeros((C, 2), dtype=torch.int32, device=q.device)
     before = COUNTS["serve_route"].kernel
     r_k = serve_routes_cuda(q, v, valid, labels, P)
     assert COUNTS["serve_route"].kernel == before + 1
-    fused = serve_topk_cuda(q, q, v, valid, labels, embs, live, 1, P)[2]
+    fused = serve_topk_cuda(q, q, v, valid, labels, embs, ids, 1, P)[2]
     assert torch.equal(r_k, fused)
     r_p = serve_routes_ref(q, v, valid, labels, P)
     rs = torch.sort(torch.where(valid[None], q @ v.T, NEG_INF), dim=1,
@@ -2381,8 +2440,8 @@ def _large_serve_inputs(g, cap, dev, Q=64, d=384, C=4218, D=64):
     valid[3] = valid[cap // 2] = valid[cap - 1] = True
     q = l2_normalize(torch.randn((Q, d), generator=g, device=dev))
     q[0] = v[3]
-    embs, live, scales = _ring_store(g, C, D, d, True)
-    return q, v, valid, labels, embs, live, scales
+    embs, ids, scales = _ring_store(g, C, D, d, True)
+    return q, v, valid, labels, embs, ids, scales
 
 
 @pytest.mark.parametrize("cap,P", [(112_501, 16), (225_003, 8), (225_003, 16),
@@ -2399,15 +2458,41 @@ def test_serve_kernel_past_one_block_of_route_keys(cuda, cap, P):
     from repro_torch.kernels.serve.serve import serve_plan, serve_routes_cuda
 
     g = torch.Generator(device=cuda).manual_seed(cap % 1000 + P)
-    q, v, valid, labels, embs, live, scales = _large_serve_inputs(g, cap, cuda)
+    q, v, valid, labels, embs, ids, scales = _large_serve_inputs(g, cap, cuda)
     levels = serve_plan(64, cap, P, 64, 384, 10).levels
     assert levels and levels == serve_plan(64, cap, P, 1).levels
-    _, _, r_k = _hold_serve(q, v, valid, labels, embs, live, 10, P, scales)
+    r_k = _hold_serve(q, v, valid, labels, embs, ids, 10, P, scales)[2]
     r = serve_routes_cuda(q, v, valid, labels, P)
     assert torch.equal(r, r_k)
     _hold_routes(q, v, valid, labels, P)
     want = labels[torch.tensor([3, cap // 2, cap - 1], device=cuda)]
     assert torch.equal(r_k[0, :3], torch.where(want >= 0, want, -1))
+
+
+@pytest.mark.parametrize("depth", [None, 32])
+@pytest.mark.parametrize("cap,P", [(4218, 8), (28_125, 8), (112_501, 16)])
+def test_serve_kernel_decodes_its_answer(cuda, cap, P, depth):
+    """At the 150 MB, 1 GB and 4 GB budgets' caps and nprobe, and on a
+    depth-32 plan over rings of 64 (rows encoded at the full depth): the
+    kernel's rows, doc ids and clusters equal ``decode_rerank`` over its
+    own (scores, pos, routes) bit for bit, its picks hold against the
+    plain version, and its routes equal the route-only entry's."""
+    from repro_torch.kernels.serve.ref import serve_topk_ref
+    from repro_torch.kernels.serve.serve import serve_routes_cuda, serve_topk_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(cap + P)
+    q, v, valid, labels, embs, ids, scales = _large_serve_inputs(g, cap, cuda)
+    if depth is not None:
+        embs, ids, scales = embs[:, :depth], ids[:, :depth], scales[:, :depth]
+    out = serve_topk_cuda(q, q, v, valid, labels, embs, ids, 10, P, scales, store_depth=64)
+    _hold_decode(ids, out, store_depth=64)
+    assert bool((out[1] >= 0).any()) and int(out[3].max()) < 4218 * 64
+    assert torch.equal(out[2], serve_routes_cuda(q, v, valid, labels, P))
+    plain = serve_topk_ref(q, q, v, valid, labels, embs, ids, 10, P, scales, 64)
+    same = (out[2] == plain[2]).all(dim=1)
+    assert int(same.sum()) >= q.shape[0] - 2          # route near-ties are rare
+    for a, b in zip(out[3:], plain[3:]):
+        assert bool(((a == b) | ((out[0] - plain[0]).abs() < TIE))[same].all())
 
 
 @pytest.mark.parametrize("nlev", [1, 2, 3])
@@ -2424,7 +2509,7 @@ def test_serve_kernel_forced_passes_agree(cuda, nlev):
 
     g = torch.Generator(device=cuda).manual_seed(nlev)
     Q, cap, P = 64, 112_501, 8
-    q, v, valid, labels, embs, live, scales = _large_serve_inputs(g, cap, cuda)
+    q, v, valid, labels, embs, ids, scales = _large_serve_inputs(g, cap, cuda)
     base = serve_plan(Q, cap, P, 64, 384, 10)
     assert base.levels == ()
     levels, lists = [], base.ntiles
@@ -2432,11 +2517,11 @@ def test_serve_kernel_forced_passes_agree(cuda, nlev):
         lists = cdiv(lists, MERGE_WAYS)
         levels.append(lists * P)
     forced = dataclasses.replace(base, levels=tuple(levels))
-    want = _hold_serve(q, v, valid, labels, embs, live, 10, P, scales)
-    got = _hold_serve(q, v, valid, labels, embs, live, 10, P, scales, forced)
+    want = _hold_serve(q, v, valid, labels, embs, ids, 10, P, scales)
+    got = _hold_serve(q, v, valid, labels, embs, ids, 10, P, scales, forced)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    run = serve_launcher(q, q, v, valid, labels, embs, live, 10, P, scales, forced)[-1]
+    run = serve_launcher(q, q, v, valid, labels, embs, ids, 10, P, scales, forced)[-1]
     for phases in (2, 4, 6):
         with pytest.raises(RuntimeError, match="run phase 1"):
             run(phases)

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import ring_ids
 from repro.kernels.serve.ref import serve_topk_ref as j_serve
 from repro_torch.kernels.common import NEG_INF, rowwise_dots
 from repro_torch.kernels.serve import ops as serve_ops
@@ -79,10 +80,10 @@ def test_two_stage_query_at_the_4gb_cap_matches_reference(quantized):
     Q, d, C, depth, k = 8, 32, 48, 8, 10
     q, v, valid, labels, embs, live, scales = _inputs(Q, d, CAP, C, depth, quantized, seed=3)
     _no_near_ties(_route_scores(q, v, valid), NPROBE)
-    t = [torch.from_numpy(a) for a in (q, v, valid, labels, embs, live)]
+    t = [torch.from_numpy(a) for a in (q, v, valid, labels, embs, ring_ids(live))]
     ts = None if scales is None else torch.from_numpy(scales)
     s, pos, routes = serve_ops.serve_topk(t[0], t[0], t[1], t[2], t[3], t[4], t[5], k, NPROBE,
-                                          scales=ts)
+                                          scales=ts)[:3]
     ref = j_serve(jnp.asarray(q), jnp.asarray(q), jnp.asarray(v), jnp.asarray(valid),
                   jnp.asarray(labels), jnp.asarray(embs), jnp.asarray(live), k, NPROBE,
                   None if scales is None else jnp.asarray(scales))

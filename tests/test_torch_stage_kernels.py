@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import foreign
+from _torch_parity import foreign, ring_ids
 from repro.kernels.assign.assign import assign_pallas
 from repro.kernels.assign.ref import assign_ref as j_assign
 from repro.kernels.common import normalize_basis_rows as j_normalize_basis_rows
@@ -124,9 +124,10 @@ def test_prefilter_zero_basis_row_and_scale_invariance():
 
 # ------------------------------------------------------------------ rerank
 def _rerank_both(q, embs, live, routes, k, scales=None, views=None):
-    """Port plain version (on ``views`` of the arrays when given) vs the
-    reference oracle and Pallas kernel on contiguous copies."""
-    tv = views or (_t(embs), _t(live), None if scales is None else _t(scales))
+    """Port plain version (on ``views`` of the arrays when given; the
+    port reads liveness from ring ids) vs the reference oracle and Pallas
+    kernel on contiguous copies of the mask."""
+    tv = views or (_t(embs), _t(ring_ids(live)), None if scales is None else _t(scales))
     got = t_rerank(_t(q), tv[0], tv[1], _t(routes), k, tv[2])
     jargs = (jnp.asarray(q), jnp.asarray(embs), jnp.asarray(live),
              jnp.asarray(routes), k, None if scales is None else jnp.asarray(scales))
@@ -203,7 +204,7 @@ def test_rerank_int8_with_scales_and_depth_clipped_view(depth):
     routes[0, 1] = routes[0, 0] = 3                       # a duplicate route
     views = None
     if depth is not None:
-        te, tl, ts = _t(embs), _t(live), _t(scales)
+        te, tl, ts = _t(embs), _t(ring_ids(live)), _t(scales)
         views = (te[:, :depth], tl[:, :depth], ts[:, :depth])
         assert not views[0].is_contiguous()
         embs, live, scales = embs[:, :depth], live[:, :depth], scales[:, :depth]
@@ -221,7 +222,7 @@ def test_dispatchers_count_plain_calls_and_refuse_other_devices():
     before = snapshot()
     prefilter_ops.prefilter_scores(x, torch.randn(2, 8))
     assign_ops.assign(x, torch.randn(4, 8))
-    rerank_ops.rerank_topk(x, torch.randn(4, 2, 8), torch.ones(4, 2, dtype=torch.bool),
+    rerank_ops.rerank_topk(x, torch.randn(4, 2, 8), torch.zeros(4, 2, dtype=torch.int32),
                            torch.zeros(3, 2, dtype=torch.int32), 2)
     after = snapshot()
     for name in ("prefilter", "assign", "rerank"):
@@ -234,7 +235,7 @@ def test_dispatchers_count_plain_calls_and_refuse_other_devices():
         assign_ops.assign(m, m)
     with pytest.raises(ValueError):
         rerank_ops.rerank_topk(m, foreign(torch.zeros((2, 1, 4))),
-                               foreign(torch.ones((2, 1), dtype=torch.bool)),
+                               foreign(torch.zeros((2, 1), dtype=torch.int32)),
                                foreign(torch.zeros((2, 1), dtype=torch.int32)), 1)
 
 
@@ -248,7 +249,7 @@ def test_fused_plain_versions_do_not_count_as_staged_calls():
     embs = torch.randn(5, 4, 16)
     serve_topk_ref(x, x, cent, torch.ones(5, dtype=torch.bool),
                    torch.arange(5, dtype=torch.int32), embs,
-                   torch.ones(5, 4, dtype=torch.bool), 3, 2)
+                   torch.zeros(5, 4, dtype=torch.int32), 3, 2)
     after = snapshot()
     for name in ("prefilter", "assign", "rerank"):
         assert after[name] == before[name], name

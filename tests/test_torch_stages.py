@@ -162,7 +162,7 @@ def test_staged_composition_equals_fused_leaf_for_leaf(store_dtype):
     q = torch.from_numpy(rng.normal(size=(11, D)).astype(np.float32))
     for depth in (None, 2):
         dv = tc.store_depth if depth is None else depth
-        sc_f, pos_f, rt_f = stages.serve_topk(
+        sc_f, pos_f, rt_f, *dec_op = stages.serve_topk(
             tc.index, fused.index, fused.route_labels, fused.store, q, 5, 4,
             depth=depth)
         routes = stages.route(tc.index, staged.index, staged.route_labels, q, 4)
@@ -175,8 +175,9 @@ def test_staged_composition_equals_fused_leaf_for_leaf(store_dtype):
                                      store_depth=tc.store_depth)
         dec_s = stages.decode_rerank(staged.store.ids, routes, sc_s, pos_s, dv,
                                      4, store_depth=tc.store_depth)
-        for a, b in zip(dec_f[1:], dec_s[1:]):
+        for a, b, c in zip(dec_f[1:], dec_s[1:], dec_op):
             np.testing.assert_array_equal(b.numpy(), a.numpy())
+            np.testing.assert_array_equal(c.numpy(), a.numpy())
 
 
 def test_staged_ingest_matches_reference_ingest():

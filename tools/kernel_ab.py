@@ -35,7 +35,13 @@ with ``live=None`` as ``admit.live_none``), ``prefilter`` (the same
 budget's index, 112,501 x 384 prototypes, at nprobe 16 over the serve
 case's ring store: ``serve.4gb`` and ``serve.route.4gb`` where the
 checkout serves them, the fused call's launches apart as
-``serve.4gb.stage1``, ``.merge`` (its merge pass) and ``.stage2``),
+``serve.4gb.stage1``, ``.merge`` (its merge pass) and ``.stage2``, and
+the whole two-stage query a flush runs, ``engine.routed_query`` (the
+normalization, serve and, in a checkout whose serve returns no decoded
+answer, the ring mask and the decode's torch ops), as
+``serve.4gb.flush``; both with the host ms a call, ``.host``; each
+checkout's serve and rerank called by their own signatures, a liveness
+mask or the ring doc ids),
 ``segsum`` (MeshGraphNet's
 aggregation at minibatch_lg's padded shape, 168,960 x 128 into 169,984
 rows, a sampled batch's edge_dst: ``segsum``, every id 0 as
@@ -120,6 +126,19 @@ def launches(fn):
                            else e.cuda_time_total) / 1e3] for e in evs[last_spin + 1:]]
 
 
+def ring_arg(fn, ring):
+    # the ring liveness fn takes, from the checkout's synthetic_store: a
+    # bool mask where its parameter is named live, the ring doc ids (-1 an
+    # empty slot) where it is named ids; the same slots are live either way
+    import inspect
+    if "ids" in inspect.signature(fn).parameters:
+        if ring.dtype != torch.bool:
+            return ring
+        n = torch.arange(ring.numel(), dtype=torch.int32, device=ring.device)
+        return torch.where(ring, 7 + 3 * n.view(ring.shape), -1)
+    return ring if ring.dtype == torch.bool else ring >= 0
+
+
 def host_ms(fn, iters=2):
     fn()
     torch.cuda.synchronize()
@@ -139,6 +158,7 @@ valid = torch.rand((K,), generator=g, device="cuda") < 0.9
 labels = torch.randperm(K, generator=g, device="cuda").to(torch.int32)
 labels[torch.rand((K,), generator=g, device="cuda") < 0.1] = -1
 embs, live, scales = cs.synthetic_store(K, 64, d, True, g)
+live = ring_arg(serve_topk_cuda, live)
 fns = {"serve": lambda: serve_topk_cuda(q, q, vectors, valid, labels, embs, live,
                                         cs.TOPK, cs.NPROBE, scales)}
 from repro_torch.kernels.serve import serve as serve_mod
@@ -211,6 +231,7 @@ labels = torch.randperm(K, generator=g, device="cuda").to(torch.int32)
 labels[torch.rand((K,), generator=g, device="cuda") < 0.1] = -1
 routes = labels[torch.topk(q @ vectors.T, cs.NPROBE).indices].contiguous()
 embs, live, scales = cs.synthetic_store(K, 64, d, True, g)
+live = ring_arg(rerank_topk_cuda, live)
 fns = {"rerank": lambda: rerank_topk_cuda(q, embs, live, routes, cs.TOPK, scales)}
 """,
     "heavy_hitter": r"""
@@ -325,7 +346,10 @@ if embedding_bag_backward_cuda is not None:
 """,
 }
 SETUP["serve4gb"] = r"""
+import types
+from repro_torch.engine.engine import routed_query
 from repro_torch.kernels.serve import serve as serve_mod
+from repro_torch.store import docstore
 # the 4 GB budget's index (cap 112,501 x 384) at the tables' nprobe 16,
 # where a query's route keys pass one block's shared memory, over the
 # serve case's ring store; a checkout that refuses a call times nothing
@@ -333,6 +357,7 @@ from repro_torch.kernels.serve import serve as serve_mod
 K, d, Q, K4 = 4218, 384, cs.QUERIES, 112_501
 q = l2_normalize(torch.randn((Q, d), generator=g, device="cuda"))
 embs, live, scales = cs.synthetic_store(K, 64, d, True, g)
+live = ring_arg(serve_mod.serve_topk_cuda, live)
 v4 = l2_normalize(torch.randn((K4, d), generator=g, device="cuda"))
 valid4 = torch.rand((K4,), generator=g, device="cuda") < 0.9
 labels4 = torch.randint(0, K, (K4,), generator=g, device="cuda", dtype=torch.int32)
@@ -341,6 +366,16 @@ fns = {}
 four = {"serve.4gb": lambda: serve_mod.serve_topk_cuda(q, q, v4, valid4, labels4, embs, live,
                                                        cs.TOPK, 16, scales),
         "serve.route.4gb": lambda: serve_mod.serve_routes_cuda(q, v4, valid4, labels4, 16)}
+# the whole two-stage query as a flush runs it (engine.routed_query: the
+# queries' normalization, serve and whatever the checkout runs around it,
+# up to the answer's rows, doc ids and clusters), host ms a call beside
+ids4 = ring_arg(lambda ids: None, live)
+store4 = docstore.DocStore(embs, ids4, ids4, torch.zeros((K,), dtype=torch.int32,
+                                                         device="cuda"), scales)
+cfg4 = types.SimpleNamespace(store_depth=64, index=types.SimpleNamespace(normalize=True))
+index4 = types.SimpleNamespace(vectors=v4, valid=valid4)
+four["serve.4gb.flush"] = lambda: routed_query(cfg4, index4, labels4, store4, q, cs.TOPK, 16)
+host_too.update(("serve.4gb", "serve.4gb.flush"))
 for name, fn in four.items():
     try:
         fn()
@@ -348,8 +383,9 @@ for name, fn in four.items():
         continue
     fns[name] = fn
 if "serve.4gb" in fns:
-    plan4, _, _, _, run4 = serve_mod.serve_launcher(q, q, v4, valid4, labels4, embs, live,
-                                                    cs.TOPK, 16, scales)
+    launched = serve_mod.serve_launcher(q, q, v4, valid4, labels4, embs, live, cs.TOPK, 16,
+                                        scales)
+    plan4, run4 = launched[0], launched[-1]
     run4()   # every buffer written once: each launch alone reads the one before's
     fns["serve.4gb.stage1"] = lambda: run4(1)
     if getattr(plan4, "levels", ()):
