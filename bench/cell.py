@@ -54,6 +54,19 @@ def metrics_of(bench: dict, cell: str, kind: str) -> list[dict]:
             if "workloads" not in m or cell in m["workloads"]]
 
 
+def pool_draws(rng: np.random.Generator, queries: dict, pool: int,
+               n: int) -> np.ndarray:
+    """``n`` indices into the query pool: uniform, or, where the traffic
+    file states ``zipf_s``, rank r drawn with p ∝ 1/r^zipf_s, the ranks
+    given to the pool by one permutation drawn first."""
+    if "zipf_s" not in queries:
+        return rng.integers(0, pool, n)
+    rank_to_query = rng.permutation(pool)
+    p = 1.0 / np.arange(1, pool + 1, dtype=np.float64) ** float(
+        queries["zipf_s"])
+    return rank_to_query[rng.choice(pool, n, p=p / p.sum())]
+
+
 class Inputs:
     """Everything the run feeds the system, made from the seed. The feed
     is drawn in one way: ``_extend`` draws the next batches, their
@@ -95,8 +108,8 @@ class Inputs:
             gaps = rng.exponential(1.0 / rate, int(rate * seconds * 1.2) + 1000)
             due = np.cumsum(gaps)
             self.q_due = due[due < seconds]
-            self.q_idx = rng.integers(0, self.pool.shape[0],
-                                      self.q_due.shape[0])
+            self.q_idx = pool_draws(rng, q, self.pool.shape[0],
+                                    self.q_due.shape[0])
             n = self.q_due.shape[0]
             self.sample = np.zeros(n, bool)
             self.sample[rng.choice(n, min(int(q["check_sample"]), n),
@@ -139,6 +152,20 @@ def percentile(a: np.ndarray, p: float) -> float:
     """Nearest-rank percentile (inf where a query was never answered)."""
     s = np.sort(a)
     return float(s[max(0, int(math.ceil(p / 100.0 * s.size)) - 1)])
+
+
+def window_serving(serving: dict) -> dict:
+    """What the serving cache and the kernels did inside the window: the
+    change of each cache counter and each kernel's launches (plain calls
+    on the CPU), from the readings at its two ends."""
+    a, b = serving["start"], serving["end"]
+    cache = {k: b["cache"][k] - a["cache"][k]
+             for k in ("hits", "misses", "hot_served", "invalidated",
+                       "rekeyed", "cleared", "evicted_lru", "tier_rebuilds")}
+    launches = {k: sum(b["launches"][k].values())
+                - sum(a["launches"][k].values())
+                for k in ("serve", "serve_route", "heavy_hitter")}
+    return {"cache": cache, "launches": launches}
 
 
 class Cell:
@@ -195,7 +222,7 @@ def run(root: Path, cell_name: str, seed: int, seconds: float, trace: bool,
     inp = Inputs(cfg, c.traffic, dep, seed, seconds, device)
     server, feed, versions = start(c, inp, seed, device, fault)
     s = cfg["server"]
-    rec = {"dep": dep, "flushes": [],
+    rec = {"dep": dep, "server": s, "flushes": [],
            "bench_spans": [], "program_spans": [], "device_events": None}
     tracer = dtrace = None
     if trace:
@@ -212,6 +239,7 @@ def run(root: Path, cell_name: str, seed: int, seconds: float, trace: bool,
         if cuda:
             dtrace = DeviceTrace()
             dtrace.start()
+    serving = {"start": system.serving_counters(server)}
     if cuda:
         torch.cuda.synchronize()
     t0 = load.clock() + LEAD_S
@@ -228,6 +256,8 @@ def run(root: Path, cell_name: str, seed: int, seconds: float, trace: bool,
         ing = load.ingest_window(server, feed, t0, seconds, spans)
         rec["ingest"] = ing
         t_end = ing["t_end"]
+    serving["end"] = system.serving_counters(server)
+    rec["serving"] = serving
     rec["window"] = (t0, t_end)
     gc.enable()
     if dtrace is not None:
@@ -269,6 +299,7 @@ def run(root: Path, cell_name: str, seed: int, seconds: float, trace: bool,
     numbers, detail = judge(dep, inp.warm, seed, X, U, inp.bounds[:nb + 1],
                             versions.at, answers, sys_state)
     log(f"check detail: {json.dumps(detail, default=float)}")
+    log(f"serving in the window: {json.dumps(window_serving(serving))}")
     # the cell's limits file names the numbers it compares; each must
     # have been read, and the rest go to the log only
     log("not compared: " + json.dumps(

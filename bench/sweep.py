@@ -32,7 +32,7 @@ def main(argv=None) -> int:
     import torch
 
     from bench import load
-    from bench.cell import Cell, Inputs, percentile, start
+    from bench.cell import Cell, Inputs, percentile, pool_draws, start
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -49,7 +49,8 @@ def main(argv=None) -> int:
         due = np.cumsum(rng.exponential(1.0 / rate,
                                         int(rate * args.seconds * 1.2) + 1000))
         due = due[due < args.seconds]
-        idx = rng.integers(0, inp.pool.shape[0], due.shape[0])
+        idx = pool_draws(rng, c.traffic["queries"], inp.pool.shape[0],
+                         due.shape[0])
         fl = []
         t0 = load.clock() + 0.2
         q = load.serve_window(server, feed, t0, args.seconds, due, inp.pool,

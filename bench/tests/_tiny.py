@@ -4,9 +4,12 @@
 adds, by files alone, a config ``tiny`` (d = 32, 8-slot rings, nprobe 4)
 with two cells, ``tiny.query`` and ``tiny.ingest``, on the two traffic
 mixes cut to a test's size, and the closed-loop ingest metrics for the
-second. Their limits are set from this size's
-readings: sound runs read 0 / 0 / ~2e-7 / ~1e-7, the TF32 control
-state_diff ~30 and score_err ~3e-4."""
+second; and a config ``tiny-cached`` (the same with a result cache
+smaller than the query pool, the hot set on and a publish every batch)
+with the cell ``tiny.cached``, whose queries repeat with Zipf skew 1.1
+over the pool, and the serving cache's metrics. Their limits are set
+from this size's readings: sound runs read 0 / 0 / ~2e-7 / ~1e-7, the
+TF32 control state_diff ~30 and score_err ~3e-4."""
 from __future__ import annotations
 
 import json
@@ -48,6 +51,18 @@ INGEST_METRICS = (
 )
 
 
+# the cached deployment's server keys and query law, over the tiny ones
+CACHED_SERVER = {"cache_entries": 24, "hotset": True, "pin_budget_mb": 0.004,
+                 "hotset_refresh": 4, "publish_every": 1}
+CACHED_QUERIES = {"zipf_s": 1.1}
+CACHE_METRICS = (
+    {"name": "cache_hit_share", "unit": "%", "better": "higher",
+     "source": "program_counter", "layer": "serving cache"},
+    {"name": "hot_tier_share", "unit": "%", "better": "higher",
+     "source": "program_counter", "layer": "serving cache"},
+)
+
+
 def _dump(obj, path: Path):
     path.write_text(json.dumps(obj, indent=1))
 
@@ -61,24 +76,36 @@ def make(root: Path) -> Path:
     cfg["pipeline"].update(store_depth=8, update_interval=64)
     cfg["server"].update(nprobe=4, topk=5, max_batch=32)
     _dump(cfg, root / "bench/configs/tiny.json")
-    for kind, cell in (("query", "srag-4gb.query"), ("ingest", None)):
-        tr = json.loads((REPO / f"bench/traffic/{kind}.json").read_text())
+    cached = json.loads(json.dumps(cfg))
+    cached.update(name="tiny-cached")
+    cached["server"].update(CACHED_SERVER)
+    _dump(cached, root / "bench/configs/tiny-cached.json")
+    for kind, cell in (("query", "srag-4gb.query"), ("ingest", None),
+                       ("cached", "srag-4gb.query")):
+        src = "ingest" if kind == "ingest" else "query"
+        tr = json.loads((REPO / f"bench/traffic/{src}.json").read_text())
         tr["ingest"]["mean_batch"] = 16
-        if kind == "query":
+        if src == "query":
             tr["prefix_batches"] = 20
             tr["ingest"]["batches_per_s"] = 8.0
             tr["queries"].update(rate_per_s=300.0, pool=64, check_sample=64,
                                  warm_sizes=[1, 32])
+        if kind == "cached":
+            tr["queries"].update(CACHED_QUERIES)
         _dump(tr, root / f"bench/traffic/tiny-{kind}.json")
-        bench["workloads"].append({"name": f"tiny.{kind}", "config": "tiny",
-                                   "traffic": f"tiny-{kind}", "chips": 1,
-                                   "why": "test size"})
-        lim = dict(LIMITS) if kind == "query" else {
+        bench["workloads"].append({
+            "name": f"tiny.{kind}",
+            "config": "tiny-cached" if kind == "cached" else "tiny",
+            "traffic": f"tiny-{kind}", "chips": 1, "why": "test size"})
+        lim = dict(LIMITS) if src == "query" else {
             k: LIMITS[k] for k in ("label_miss", "forced_miss", "state_diff")}
         _dump(lim, root / f"bench/limits/tiny.{kind}.json")
         for m in bench["end_to_end"] + bench["per_layer"]:
             if cell in m.get("workloads", ()):
                 m["workloads"].append(f"tiny.{kind}")
+    for m in CACHE_METRICS:
+        bench["per_layer"].append({**m, "moves": "query_p50_ms",
+                                   "workloads": ["tiny.cached"]})
     for kind, m in INGEST_METRICS:
         extra = {} if kind == "end_to_end" else {"moves": "ingest_docs_per_s"}
         bench[kind].append({**m, **extra, "workloads": ["tiny.ingest"]})

@@ -2,7 +2,8 @@
 reference computed with TF32 operands, put in the program's place) and
 the faults a serving cell can have — ingest that leaves the state
 unchanged, half of each batch left out, an answer altered where it is
-produced, documents stored in the wrong cluster's ring. Each run goes through the whole harness (inputs, the program,
+produced, documents stored in the wrong cluster's ring, a result cache
+that keeps every entry across a publish. Each run goes through the whole harness (inputs, the program,
 the window, the check) at test size on the CPU; only the look for a card
 is skipped. A single-chip cell has no exchange between chips to leave
 out."""
@@ -44,10 +45,21 @@ def _answer_altered(server):
     server.engine.query_snapshot = query
 
 
+def _stale_cache(server):
+    """Every publish re-keys each cached answer to the new version and
+    evicts none, though its routed rings changed."""
+    cache = server._result_cache
+
+    def on_publish(version, dirty):
+        for e in cache._entries.values():
+            e.version = version
+    cache.on_publish = on_publish
+
+
 @pytest.mark.parametrize("kind,fault", [
     ("query", _unchanged), ("ingest", _unchanged),
     ("query", _half_batch), ("ingest", _half_batch),
-    ("query", _answer_altered)])
+    ("query", _answer_altered), ("cached", _stale_cache)])
 def test_a_broken_timed_path_is_not_correct(root, kind, fault):
     res = _tiny.run(root, kind, fault=fault)
     assert not res["correct"], res["checks"]

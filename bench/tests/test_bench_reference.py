@@ -87,3 +87,27 @@ def test_counter_min_evict():
     assert c.arrive(9, f32(0.1))                             # evicts 8 (min)
     assert list(c.labels) == [7, 9] and list(c.counts) == [2, 1]
     assert (c.seen, c.evictions, c.writes) == (5, 1, 4)
+
+
+def test_the_cached_cell_is_judged_at_each_answers_version(root):
+    """tiny.cached: answers from the result cache and the hot tier are
+    judged at the version their flush pinned, like any other, and the run
+    reads correct; the cache and the tier served queries in the window,
+    through the route pass, and their readers say how many."""
+    from bench import cell
+
+    res = _tiny.run(root, "cached")
+    rec = res["_rec"]
+    assert res["correct"], res["checks"]
+    assert res["checks"]["score_err"]["value"] < 1e-6
+    assert res["checks"]["answer_gap"]["value"] < 1e-6
+    w = cell.window_serving(rec["serving"])
+    assert w["cache"]["hits"] > 0 and w["cache"]["hot_served"] > 0, w
+    assert w["cache"]["rekeyed"] > 0 and w["cache"]["invalidated"] > 0, w
+    assert w["launches"]["serve_route"] > 0, w
+    for name in ("cache_hit_share", "hot_tier_share"):
+        got = cell.load_metric(_tiny.REPO / "bench", name)(rec)
+        assert 0 < got < 100, (name, got)
+        # an uncached deployment has nothing to read
+        assert cell.load_metric(_tiny.REPO / "bench", name)(
+            {**rec, "server": {"cache_entries": 0, "hotset": False}}) is None
